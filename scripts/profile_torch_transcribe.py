@@ -1,0 +1,110 @@
+"""Where the time of one flagship transcription goes, in the PyTorch port.
+
+    python scripts/profile_torch_transcribe.py [--seconds 64] [--seed 0]
+
+Needs a CUDA device.  Random flagship weights from ``--seed`` (scorer
+diagonal bias -8), a synthetic piece from ``chip_smoke.synth_piece``.  After
+one warm-up run it times one run with host-clock spans around the stages of
+``TransKun.transcribe`` and, in a second run under ``torch.profiler``, sums
+the device time of every CUDA kernel.  Prints one JSON object.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seconds", type=float, default=64.0)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import chip_smoke
+    import transkun_tpu_torch.models.transkun as tk
+    from transkun_tpu_torch.models.config import load_default_conf
+    from transkun_tpu_torch.ops import semicrf
+
+    _, conf = load_default_conf()
+    model = tk.TransKun(conf, device="cuda", seed=args.seed)
+    with torch.no_grad():
+        model.module.scorer.map[0].bias[-1] = -8.0
+    audio = chip_smoke.synth_piece(conf.fs, args.seconds, args.seed)
+    model.transcribe(audio)
+    torch.cuda.synchronize()
+
+    # host-clock spans: each wrapped stage adds its own duration
+    spans = defaultdict(float)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[name] += time.perf_counter() - t0
+        return wrapper
+
+    stages = [
+        (tk.TransKun, "_segment_tables", "enqueue_device_work"),
+        (semicrf, "backtrack_backward", "host_walk"),
+        (tk.TransKun, "_attr_and_assemble", "attributes_and_assembly"),
+        (tk, "_merge_segments", "merge"),
+    ]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
+    for obj, attr, name in stages:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    try:
+        t0 = time.perf_counter()
+        notes = model.transcribe(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    # what is left is mostly the wait for the device inside the fetch
+    spans["fetch_and_rest"] = wall - sum(spans.values())
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.transcribe(audio)
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    # device-side events only: the aten ops that launched them carry the
+    # same time again
+    kernels = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    kernels.sort(key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    print(json.dumps({
+        "card": chip_smoke.card_line(),
+        "seconds": args.seconds,
+        "notes": len(notes),
+        "wall_s": wall,
+        "rtf": args.seconds / wall,
+        "spans_s": dict(spans),
+        "profiled_wall_s": profiled_wall,
+        "device_kernel_ms_profiled_run": device_ms,
+        "device_busy_share_profiled_run": device_ms / 1e3 / profiled_wall,
+        "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:12]],
+    }, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,85 @@
+"""Weights and config carried across: flax params -> the port's state_dict
+(reference-torch key names) and back through the JAX package's own
+converter, leaf for leaf; the config dataclass; and the port's imports
+staying free of JAX."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+
+from transkun_tpu.models import TransKun as JaxTransKun
+from transkun_tpu.models.config import ModelConfig as JaxModelConfig
+from transkun_tpu.models.config import load_default_conf as jax_load_default_conf
+from transkun_tpu.utils.torch_convert import convert_state_dict
+from transkun_tpu_torch.models.config import ModelConfig, load_default_conf
+from transkun_tpu_torch.models.transkun import TransKun
+from transkun_tpu_torch.utils.convert import state_dict_from_flax
+
+TINY = {
+    "f_min": 30, "f_max": 1900, "n_mels": 32, "hopSize": 64, "windowSize": 256,
+    "fs": 4000, "nExtraWins": 2, "baseSize": 8, "nHead": 2, "nLayers": 2,
+    "scoringExpansionFactor": 2, "segmentSizeInSecond": 2.0,
+    "segmentHopSizeInSecond": 1.0,
+}
+
+
+def test_flax_params_round_trip_through_state_dict():
+    conf = JaxModelConfig.from_dict(TINY)
+    jax_model = JaxTransKun(conf)
+    params = jax.jit(lambda k: jax_model.init(k, n_frames=126))(jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    model = TransKun(ModelConfig.from_dict(TINY))
+    model.load_state_dict(state_dict_from_flax(params, conf))  # strict
+    back = convert_state_dict(model.module.state_dict(), conf)
+    want = dict(jax.tree_util.tree_flatten_with_path(params)[0])
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=jax.tree_util.keystr(k))
+
+
+def test_reference_key_names():
+    keys = set(TransKun(ModelConfig.from_dict(TINY)).module.state_dict())
+    for k in [
+        "framewiseFeatureExtractor.spectrogramExtractor.winGen.sigma",
+        "framewiseFeatureExtractor.spectrogramExtractor.winGen.center",
+        "backbone.inputConv.weight",
+        "backbone.downConv.14.bias",
+        "backbone.posEmbedBuilderAttnTE.mlp.3.weight",
+        "backbone.encoderLayers.1.mhaBlockT.module.q_proj_weight",
+        "backbone.encoderLayers.1.mhaBlockF.module.out_proj.bias",
+        "backbone.encoderLayers.0.fnnBlockF.module.3.weight",
+        "backbone.encoderLayers.0.fnnBlockT.scale",
+        "backbone.upConv1dSkip.weight",
+        "scorer.map.0.weight",
+        "velocityPredictor.3.bias",
+        "refinedOFPredictor.0.weight",
+    ]:
+        assert k in keys, k
+
+
+def test_model_config_matches_jax_dataclass():
+    jf = [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
+    pf = [(f.name, f.default) for f in dataclasses.fields(ModelConfig)]
+    assert pf == jf
+    assert load_default_conf()[1].to_dict() == jax_load_default_conf()[1].to_dict()
+
+
+def test_port_imports_leave_jax_out():
+    """Neither JAX nor the JAX package: the transcription path and
+    ``chip_smoke.py`` run where JAX is not installed."""
+    code = (
+        "import sys\n"
+        "import transkun_tpu_torch, transkun_tpu_torch.models.transkun\n"
+        "import transkun_tpu_torch.cli.transcribe, transkun_tpu_torch.utils.convert\n"
+        "import transkun_tpu_torch.ops.viterbi, chip_smoke\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transkun_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

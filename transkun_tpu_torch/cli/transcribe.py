@@ -1,0 +1,84 @@
+"""Inference CLI of the port: audio file in, MIDI file out.
+
+    python -m transkun_tpu_torch.cli.transcribe input.wav output.mid \
+        [--weight ref.pt] [--conf model.conf] [--device cuda|cpu]
+
+The default device is ``cuda``, and the command fails when CUDA is absent;
+``--device cpu`` runs the plain PyTorch versions of the kernels.  A
+directory input transcribes every audio file in it, mirroring the tree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pathlib
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Transcribe audio to MIDI (PyTorch port)")
+    parser.add_argument(
+        "audioPath",
+        help="input audio file, or a directory whose audio files are all "
+        "transcribed, mirroring the tree into outPath",
+    )
+    parser.add_argument("outPath", help="output MIDI file or directory")
+    parser.add_argument("--weight", default=None, help="reference .pt checkpoint or state_dict file")
+    parser.add_argument("--conf", default=None, help="model conf JSON (default: the flagship 2.0.conf)")
+    parser.add_argument("--segmentHopSize", type=float, default=None, help="segment hop (s)")
+    parser.add_argument("--segmentSize", type=float, default=None, help="segment size (s)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from transkun_tpu.data.audio import read_audio, resample
+    from transkun_tpu.data.midi import write_midi
+
+    from ..models.config import load_default_conf, parse_conf_file
+    from ..models.transkun import TransKun
+    from ..utils.convert import load_reference_checkpoint
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
+    _, conf = parse_conf_file(args.conf) if args.conf else load_default_conf()
+
+    if args.weight is not None:
+        model = TransKun(conf, device=args.device)
+        model.load_state_dict(load_reference_checkpoint(args.weight))
+    else:
+        print("warning: no --weight given, using random weights (seed 0)")
+        model = TransKun(conf, device=args.device, seed=0)
+
+    def transcribe_one(audio_path: str, out_path: str) -> float:
+        fs, audio = read_audio(audio_path)
+        if fs != model.fs:
+            audio = resample(audio, fs, model.fs)
+        notes = model.transcribe(
+            audio,
+            step_in_second=args.segmentHopSize,
+            segment_size_in_second=args.segmentSize,
+        )
+        write_midi(notes, out_path)
+        print(f"wrote {len(notes)} events to {out_path}")
+        return audio.shape[0] / model.fs
+
+    if not os.path.isdir(args.audioPath):
+        transcribe_one(args.audioPath, args.outPath)
+        return
+    root = pathlib.Path(args.audioPath)
+    files = sorted(p for ext in ("*.wav", "*.mp3", "*.flac") for p in root.rglob(ext))
+    print(f"{len(files)} audio files")
+    t0 = time.perf_counter()
+    total_audio = 0.0
+    for p in files:
+        out = pathlib.Path(args.outPath) / p.relative_to(root).with_suffix(".midi")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        total_audio += transcribe_one(str(p), str(out))
+    dt = time.perf_counter() - t0
+    print(f"RTF: {total_audio / max(dt, 1e-9):.1f}x ({total_audio:.0f}s audio in {dt:.0f}s)")
+
+
+if __name__ == "__main__":
+    main()

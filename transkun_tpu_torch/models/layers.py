@@ -1,0 +1,206 @@
+"""V2 transformer building blocks, channels-last.
+
+Port of ``transkun_tpu/models/layers.py``.  Module and parameter names follow
+the reference PyTorch model, so its state_dict keys load as they are (see
+``utils/convert.py``).  Only the "F" and "T" axial attentions of the
+flagship are ported; the other branches raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.semicrf import NEG
+
+
+def rms_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Scale-free RMSNorm, statistics in fp32."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def grid_coords(*axes: torch.Tensor) -> torch.Tensor:
+    """meshgrid(indexing='ij') + stack(-1): [len(a0), ..., n_axes]."""
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def mlp(hidden_in: int, hidden: int, out: int, dropout: float) -> nn.Sequential:
+    """Linear -> exact-erf GELU -> Dropout -> Linear (indices 0 and 3 hold
+    the weights, as in the reference)."""
+    return nn.Sequential(
+        nn.Linear(hidden_in, hidden), nn.GELU(), nn.Dropout(dropout),
+        nn.Linear(hidden, out),
+    )
+
+
+class SpatialPositionEmbedding(nn.Module):
+    """Random-Fourier-feature position embedding with an MLP on top:
+    cos(proj(coord)) / sqrt(d/2), then Linear-GELU-Linear."""
+
+    def __init__(self, embed_size: int, coord_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.embed_size = embed_size
+        self.proj = nn.Linear(coord_dim, embed_size)
+        self.mlp = mlp(embed_size, 4 * embed_size, embed_size, dropout)
+
+    def forward(self, coord: torch.Tensor) -> torch.Tensor:
+        z = torch.cos(self.proj(coord.float())) / math.sqrt(self.embed_size / 2)
+        return self.mlp(z)
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Per-head softmax(q k^T * scale) v over axis -2, written out: fp32
+    logits, row max, exp, weighted sum, divide (``attention_xla`` of the JAX
+    package).  q [..., Sq, H*dh], k/v [..., Sk, H*dh]."""
+    d = q.shape[-1]
+    head_dim = d // num_heads
+
+    def split(x):
+        return x.reshape(*x.shape[:-1], num_heads, head_dim).transpose(-2, -3)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(vh.dtype), vh) / p.sum(dim=-1, keepdim=True).to(vh.dtype)
+    o = o.transpose(-2, -3)  # [..., Sq, heads, head_dim]
+    return o.reshape(*o.shape[:-2], d).to(q.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Unbiased q/k/v projections stored [in, out] and a biased out
+    projection; attends over axis -2.  head_dim =
+    ceil(ceil(hidden_factor * embed) / num_heads)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, hidden_factor: float = 1.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = int(math.ceil(math.ceil(hidden_factor * embed_dim) / num_heads))
+        hidden = self.head_dim * num_heads
+        self.q_proj_weight = nn.Parameter(torch.empty(embed_dim, hidden))
+        self.k_proj_weight = nn.Parameter(torch.empty(embed_dim, hidden))
+        self.v_proj_weight = nn.Parameter(torch.empty(embed_dim, hidden))
+        self.out_proj = nn.Linear(hidden, embed_dim)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+        out = attention(
+            query @ self.q_proj_weight,
+            key @ self.k_proj_weight,
+            key @ self.v_proj_weight,
+            self.num_heads,
+            1.0 / math.sqrt(self.head_dim),
+        )
+        return self.out_proj(out)
+
+
+class AttnResBlock(nn.Module):
+    """x + dropout(MHA(rms_norm(x), mem)) * scale (LayerScale, init 1e-2)."""
+
+    def __init__(self, size: int, num_heads: int, hidden_factor_attn: float, dropout: float):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((size,), 1e-2))
+        self.module = MultiHeadAttention(size, num_heads, hidden_factor_attn)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
+        return x + self.drop(self.module(rms_norm(x), mem)) * self.scale
+
+
+class FFNResBlock(nn.Module):
+    """x + dropout(MLP(rms_norm(x))) * scale."""
+
+    def __init__(self, size: int, hidden_factor: float, dropout: float):
+        super().__init__()
+        self.scale = nn.Parameter(torch.full((size,), 1e-2))
+        hidden = int(math.ceil(size * hidden_factor))
+        self.module = mlp(size, hidden, size, dropout)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.drop(self.module(rms_norm(x))) * self.scale
+
+
+class BasicBlock(nn.Module):
+    """Factorized axial attention over a [N, T, F, D] lattice: "F" attends
+    along frequency/tracks within each time step, "T" along time within each
+    column; both read the block's input as keys/values."""
+
+    def __init__(
+        self,
+        size: int,
+        num_heads: int,
+        hidden_factor: float = 2.0,
+        hidden_factor_attn: float = 1.0,
+        enabled: Sequence[str] = ("F", "T"),
+        dropout: float = 0.0,
+    ):
+        super().__init__()
+        other = set(enabled) - {"F", "T"}
+        if other:
+            raise NotImplementedError(f"attention branches {sorted(other)} are not ported")
+        self.enabled = tuple(enabled)
+        for tag in self.enabled:
+            self.add_module(
+                f"mhaBlock{tag}",
+                AttnResBlock(size, num_heads, hidden_factor_attn, dropout),
+            )
+            self.add_module(f"fnnBlock{tag}", FFNResBlock(size, hidden_factor, dropout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mem = x
+        h = x
+        if "F" in self.enabled:
+            h = self.fnnBlockF(self.mhaBlockF(h, mem))
+        h = h.transpose(-3, -2)  # [N, F, T, D]
+        if "T" in self.enabled:
+            h = self.fnnBlockT(self.mhaBlockT(h, mem.transpose(-3, -2)))
+        return h.transpose(-3, -2)
+
+
+class ScaledInnerProductIntervalScorer(nn.Module):
+    """S[e, b] = <q_e, k_b> * |e - b| + diag on e == b; the skip (noise)
+    score is identically zero in V2."""
+
+    def __init__(self, in_size: int, size: int, expansion_factor: int = 1, dropout: float = 0.0):
+        super().__init__()
+        self.e = size * expansion_factor
+        self.map = nn.Sequential(nn.Linear(in_size, 2 * self.e + 1), nn.Dropout(dropout))
+
+    def _qkd(self, ctx: torch.Tensor):
+        mapped = self.map(ctx)
+        q, k, diag = torch.split(mapped, [self.e, self.e, 1], dim=-1)
+        return q / math.sqrt(self.e), k, diag
+
+    def decode_scores(
+        self, ctx: torch.Tensor, t_pad: int, p_pad: int
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode-layout scores for the Viterbi kernel.
+
+        ctx [N, P, T, D] -> (s_t [t_pad, t_pad, N*p_pad] f32 in [begin, end,
+        lane] layout, NEG outside t x t and P; noise [t_pad, N*p_pad] zeros;
+        diag [t_pad, N*p_pad] f32 un-gated, zero in the padding).  The
+        length scale, diag add and padding mask run in place on the one
+        [N, p_pad, t_pad, t_pad] product before its single transpose."""
+        q, k, diag = self._qkd(ctx)  # [N, P, T, E], diag [N, P, T, 1]
+        n, p, t, _ = q.shape
+        pad = (0, 0, 0, t_pad - t, 0, p_pad - p)
+        q = torch.nn.functional.pad(q, pad)
+        k = torch.nn.functional.pad(k, pad)
+        s = torch.matmul(k, q.transpose(-1, -2))  # [N, Pp, begin, end]
+        idx = torch.arange(t_pad, device=ctx.device)
+        s.mul_((idx[:, None] - idx[None, :]).abs().to(s.dtype))
+        diag_pad = torch.nn.functional.pad(diag[..., 0], (0, t_pad - t, 0, p_pad - p))
+        s.diagonal(dim1=-2, dim2=-1).add_(diag_pad)
+        s[:, p:] = NEG
+        s[:, :, t:] = NEG
+        s[:, :, :, t:] = NEG
+        s_t = s.permute(2, 3, 0, 1).reshape(t_pad, t_pad, n * p_pad).contiguous()
+        noise = torch.zeros(t_pad, n * p_pad, dtype=torch.float32, device=ctx.device)
+        diag_t = diag_pad.permute(2, 0, 1).reshape(t_pad, n * p_pad).float().contiguous()
+        return s_t, noise, diag_t
