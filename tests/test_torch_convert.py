@@ -34,7 +34,14 @@ def test_flax_params_round_trip_through_state_dict():
     params = jax.tree_util.tree_map(np.asarray, params)
     model = TransKun(ModelConfig.from_dict(TINY))
     model.load_state_dict(state_dict_from_flax(params, conf))  # strict
-    back = convert_state_dict(model.module.state_dict(), conf)
+    # the JAX converter reads the reference's tied [out] upsample bias; at
+    # init the port's untied [8*out] bias is zero, so its first step is it
+    sd = dict(model.module.state_dict())
+    bias = sd["backbone.upConv1dSkip.bias"]
+    out = bias.numel() // 8
+    assert np.array_equal(bias.numpy(), np.tile(bias[:out].numpy(), 8))
+    sd["backbone.upConv1dSkip.bias"] = bias[:out]
+    back = convert_state_dict(sd, conf)
     want = dict(jax.tree_util.tree_flatten_with_path(params)[0])
     got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
     assert set(got) == set(want)
@@ -71,14 +78,24 @@ def test_model_config_matches_jax_dataclass():
 
 def test_port_imports_leave_jax_out():
     """Neither JAX nor the JAX package: the transcription path and
-    ``chip_smoke.py`` run where JAX is not installed."""
+    ``chip_smoke.py`` run where JAX is not installed.  The training path
+    may use the JAX package's JAX-free ``data`` and ``eval`` modules only,
+    also when it runs (a tiny CPU training run is in test_torch_train.py)."""
     code = (
         "import sys\n"
         "import transkun_tpu_torch, transkun_tpu_torch.models.transkun\n"
         "import transkun_tpu_torch.cli.transcribe, transkun_tpu_torch.utils.convert\n"
-        "import transkun_tpu_torch.ops.viterbi, chip_smoke\n"
+        "import transkun_tpu_torch.ops.viterbi, transkun_tpu_torch.ops.logz, chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transkun_tpu')]\n"
+        "assert not bad, bad\n"
+        "import transkun_tpu_torch.cli.train, transkun_tpu_torch.train.step\n"
+        "import transkun_tpu_torch.train.checkpoint, transkun_tpu_torch.train.validate\n"
+        "from transkun_tpu.data import dataset, augment, labels\n"
+        "from transkun_tpu.eval import evaluation\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
+        "       or m.split('.')[:2] in [['transkun_tpu', x] for x in\n"
+        "                              ('models', 'ops', 'utils', 'train', 'parallel')]]\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

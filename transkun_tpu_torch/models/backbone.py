@@ -8,12 +8,13 @@ PyTorch's NCHW with H = time and W = frequency.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from .layers import BasicBlock, SpatialPositionEmbedding, grid_coords
+from .layers import BasicBlock, Dropout, SpatialPositionEmbedding, grid_coords
 
 
 def down_conv(base_size: int, dropout: float) -> nn.Sequential:
@@ -28,11 +29,55 @@ def down_conv(base_size: int, dropout: float) -> nn.Sequential:
             nn.Conv2d(c_in, c, 3, stride=s, padding=1),
             nn.GroupNorm(4, c, eps=1e-5),
             nn.GELU(),
-            nn.Dropout2d(dropout),
+            Dropout(dropout, tied_dims=(2, 3)),
         ]
         c_in = c
     layers += [nn.Conv2d(4 * b, 4 * b, 3, padding=1), nn.GroupNorm(4, 4 * b, eps=1e-5)]
     return nn.Sequential(*layers)
+
+
+class UpConvSkip(nn.Module):
+    """The 8x temporal upsample: a transposed conv with kernel == stride ==
+    8, i.e. a dense map from ``d`` inputs to 8 steps of ``out`` outputs.
+
+    ``weight`` keeps the reference ``ConvTranspose1d`` layout [in, out, 8].
+    ``bias`` is [8*out] in step-major order (entry s*out + o is step s,
+    channel o), one free bias per step as in the JAX package's Dense.  A
+    reference state_dict holds the tied [out] form; loading tiles it 8x."""
+
+    def __init__(self, d: int, out: int, steps: int = 8):
+        super().__init__()
+        self.out, self.steps = out, steps
+        self.weight = nn.Parameter(torch.empty(d, out, steps))
+        self.bias = nn.Parameter(torch.zeros(steps * out))
+        self._register_load_state_dict_pre_hook(self._tile_tied_bias)
+
+    def _tile_tied_bias(self, state_dict, prefix, *_args):
+        bias = state_dict.get(prefix + "bias")
+        if bias is not None and bias.shape == (self.out,):
+            state_dict[prefix + "bias"] = bias.repeat(self.steps)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        """h [B, T, d] -> [B, T * steps, out]."""
+        d = self.weight.shape[0]
+        w = self.weight.permute(0, 2, 1).reshape(d, self.steps * self.out)
+        up = h @ w + self.bias
+        return up.reshape(h.shape[0], h.shape[1] * self.steps, self.out)
+
+
+def _replayed(layer: nn.Module, generator: Optional[torch.Generator]):
+    """``layer`` as a function that first rewinds ``generator`` to its state
+    at this call: a no-op on the forward pass, and on the checkpointed
+    recompute it makes the dropout masks those of the forward pass
+    (``preserve_rng_state`` covers only the global RNG)."""
+    state = generator.get_state() if generator is not None else None
+
+    def run(x):
+        if state is not None:
+            generator.set_state(state)
+        return layer(x)
+
+    return run
 
 
 class Backbone(nn.Module):
@@ -49,6 +94,7 @@ class Backbone(nn.Module):
         enabled_attn: Sequence[str] = ("F", "T"),
         downsample_f: bool = True,
         upsample_proj_only: bool = True,
+        use_gradient_checkpoint: bool = False,
     ):
         super().__init__()
         if not downsample_f or not upsample_proj_only:
@@ -67,8 +113,10 @@ class Backbone(nn.Module):
             BasicBlock(d, n_head, hidden_factor, hidden_factor_attn, enabled_attn, dropout)
             for _ in range(n_layers)
         )
-        # 8x temporal upsample: a transposed conv with kernel == stride == 8
-        self.upConv1dSkip = nn.ConvTranspose1d(d, self.out_d, 8, stride=8)
+        self.upConv1dSkip = UpConvSkip(d, self.out_d)
+        # recompute each encoder layer in the backward pass (training only)
+        self.use_gradient_checkpoint = use_gradient_checkpoint
+        self.generator: Optional[torch.Generator] = None  # see set_dropout_generator
 
     def forward(self, x: torch.Tensor, output_indices: torch.Tensor) -> torch.Tensor:
         """x [N, T, F, C] mel features, output_indices [P] raw MIDI
@@ -89,14 +137,16 @@ class Backbone(nn.Module):
         pos_te = self.posEmbedBuilderAttnTE(grid_coords(coord_t, output_indices.float()))
         h = torch.cat([h, pos_te.expand(n, *pos_te.shape)], dim=-2)  # [N, T', F'+P, 4b]
 
+        remat = self.use_gradient_checkpoint and self.training and torch.is_grad_enabled()
         for layer in self.encoderLayers:
-            h = layer(h)
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    _replayed(layer, self.generator), h, use_reentrant=False
+                )
+            else:
+                h = layer(h)
 
         h = h[:, 1:, fp:]  # pitch tracks, without the t=0 aggregation step
         p, d = h.shape[2], h.shape[3]
-        ht = h.transpose(1, 2).reshape(n * p, tp - 1, d)
-        # the transposed conv as the dense map it is: [in, out, 8] -> [in, 8*out]
-        w = self.upConv1dSkip.weight.permute(0, 2, 1).reshape(d, 8 * self.out_d)
-        up = ht @ w + self.upConv1dSkip.bias.repeat(8)
-        up = up.reshape(n * p, (tp - 1) * 8, self.out_d)[:, :n_t]
+        up = self.upConv1dSkip(h.transpose(1, 2).reshape(n * p, tp - 1, d))[:, :n_t]
         return up.reshape(n, p, n_t, self.out_d).float()

@@ -4,17 +4,51 @@ Port of ``transkun_tpu/models/layers.py``.  Module and parameter names follow
 the reference PyTorch model, so its state_dict keys load as they are (see
 ``utils/convert.py``).  Only the "F" and "T" axial attentions of the
 flagship are ported; the other branches raise ``NotImplementedError``.
+
+Dropout draws its masks from an explicit ``torch.Generator`` (set with
+``set_dropout_generator``), so a training step's masks follow from its seed
+and a recomputed (checkpointed) layer can replay them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.semicrf import NEG
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from ``self.generator`` (the global
+    RNG when it is None).  ``tied_dims`` share one mask entry along those
+    axes: ``(2, 3)`` on NCHW drops whole channels, as ``nn.Dropout2d``."""
+
+    def __init__(self, p: float, tied_dims: Tuple[int, ...] = ()):
+        super().__init__()
+        self.p = p
+        self.tied_dims = tied_dims
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        shape = [1 if d in self.tied_dims else n for d, n in enumerate(x.shape)]
+        keep = 1.0 - self.p
+        mask = torch.empty(shape, dtype=x.dtype, device=x.device)
+        mask.bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every module under ``module`` that draws random numbers (the
+    ``Dropout`` layers, and the backbone that replays them on recompute) at
+    ``generator``."""
+    for m in module.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
 
 
 def rms_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -33,7 +67,7 @@ def mlp(hidden_in: int, hidden: int, out: int, dropout: float) -> nn.Sequential:
     """Linear -> exact-erf GELU -> Dropout -> Linear (indices 0 and 3 hold
     the weights, as in the reference)."""
     return nn.Sequential(
-        nn.Linear(hidden_in, hidden), nn.GELU(), nn.Dropout(dropout),
+        nn.Linear(hidden_in, hidden), nn.GELU(), Dropout(dropout),
         nn.Linear(hidden, out),
     )
 
@@ -106,7 +140,7 @@ class AttnResBlock(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.full((size,), 1e-2))
         self.module = MultiHeadAttention(size, num_heads, hidden_factor_attn)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
         return x + self.drop(self.module(rms_norm(x), mem)) * self.scale
@@ -120,7 +154,7 @@ class FFNResBlock(nn.Module):
         self.scale = nn.Parameter(torch.full((size,), 1e-2))
         hidden = int(math.ceil(size * hidden_factor))
         self.module = mlp(size, hidden, size, dropout)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.drop(self.module(rms_norm(x))) * self.scale
@@ -165,34 +199,50 @@ class BasicBlock(nn.Module):
 
 class ScaledInnerProductIntervalScorer(nn.Module):
     """S[e, b] = <q_e, k_b> * |e - b| + diag on e == b; the skip (noise)
-    score is identically zero in V2."""
+    score is identically zero in V2.
 
-    def __init__(self, in_size: int, size: int, expansion_factor: int = 1, dropout: float = 0.0):
+    No dropout: the JAX scorer has a ``dropout`` field that it never
+    applies, and the reference's ``scoreDropoutProb`` therefore changes
+    nothing.  ``map`` stays a ``Sequential`` so its key is ``scorer.map.0``."""
+
+    def __init__(self, in_size: int, size: int, expansion_factor: int = 1):
         super().__init__()
         self.e = size * expansion_factor
-        self.map = nn.Sequential(nn.Linear(in_size, 2 * self.e + 1), nn.Dropout(dropout))
+        self.map = nn.Sequential(nn.Linear(in_size, 2 * self.e + 1))
 
     def _qkd(self, ctx: torch.Tensor):
         mapped = self.map(ctx)
         q, k, diag = torch.split(mapped, [self.e, self.e, 1], dim=-1)
         return q / math.sqrt(self.e), k, diag
 
-    def decode_scores(
-        self, ctx: torch.Tensor, t_pad: int, p_pad: int
-    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Decode-layout scores for the Viterbi kernel.
+    def forward(self, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ctx [N, P, T, D] -> (S [T, T, N, P] in [end, begin] layout,
+        noise [T-1, N, P] zeros): the alpha layout without padding."""
+        n, p, t, _ = ctx.shape
+        s, noise, _ = self._padded_scores(ctx, t, p, False)
+        return s.reshape(t, t, n, p), noise[:-1].reshape(t - 1, n, p)
 
-        ctx [N, P, T, D] -> (s_t [t_pad, t_pad, N*p_pad] f32 in [begin, end,
-        lane] layout, NEG outside t x t and P; noise [t_pad, N*p_pad] zeros;
-        diag [t_pad, N*p_pad] f32 un-gated, zero in the padding).  The
-        length scale, diag add and padding mask run in place on the one
-        [N, p_pad, t_pad, t_pad] product before its single transpose."""
+    def _padded_scores(
+        self, ctx: torch.Tensor, t_pad: int, p_pad: int, transposed: bool
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The padded, NEG-masked score tensor [t_pad, t_pad, N*p_pad],
+        contiguous: [end, begin, lane] (alpha layout) or, ``transposed``,
+        [begin, end, lane] (decode layout).  Also returns noise zeros
+        [t_pad, N*p_pad] and diag [N, p_pad, t_pad] un-gated, zero in the
+        padding.
+
+        The length scale, diag add and padding mask run in place on the one
+        [N, p_pad, t_pad, t_pad] product before its single transpose.  That
+        is right under autograd too: the product is no saved input of any
+        backward (matmul keeps q and k, the scale keeps the constant
+        lengths), so the in-place writes only route the gradient."""
         q, k, diag = self._qkd(ctx)  # [N, P, T, E], diag [N, P, T, 1]
         n, p, t, _ = q.shape
         pad = (0, 0, 0, t_pad - t, 0, p_pad - p)
         q = torch.nn.functional.pad(q, pad)
         k = torch.nn.functional.pad(k, pad)
-        s = torch.matmul(k, q.transpose(-1, -2))  # [N, Pp, begin, end]
+        a, c = (k, q) if transposed else (q, k)
+        s = torch.matmul(a, c.transpose(-1, -2))  # [N, Pp, axis0, axis1]
         idx = torch.arange(t_pad, device=ctx.device)
         s.mul_((idx[:, None] - idx[None, :]).abs().to(s.dtype))
         diag_pad = torch.nn.functional.pad(diag[..., 0], (0, t_pad - t, 0, p_pad - p))
@@ -200,7 +250,26 @@ class ScaledInnerProductIntervalScorer(nn.Module):
         s[:, p:] = NEG
         s[:, :, t:] = NEG
         s[:, :, :, t:] = NEG
-        s_t = s.permute(2, 3, 0, 1).reshape(t_pad, t_pad, n * p_pad).contiguous()
+        s = s.permute(2, 3, 0, 1).reshape(t_pad, t_pad, n * p_pad).contiguous()
         noise = torch.zeros(t_pad, n * p_pad, dtype=torch.float32, device=ctx.device)
-        diag_t = diag_pad.permute(2, 0, 1).reshape(t_pad, n * p_pad).float().contiguous()
+        return s, noise, diag_pad
+
+    def decode_scores(
+        self, ctx: torch.Tensor, t_pad: int, p_pad: int
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decode-layout scores for the Viterbi kernel: (s_t [t_pad, t_pad,
+        N*p_pad] f32 [begin, end, lane], NEG outside t x t and P; noise
+        [t_pad, N*p_pad] zeros; diag [t_pad, N*p_pad] f32 un-gated, zero in
+        the padding), all contiguous."""
+        s_t, noise, diag_pad = self._padded_scores(ctx, t_pad, p_pad, True)
+        diag_t = diag_pad.permute(2, 0, 1).reshape(t_pad, -1).float().contiguous()
         return s_t, noise, diag_t
+
+    def train_scores(
+        self, ctx: torch.Tensor, t_pad: int, p_pad: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Alpha-layout [end, begin, N*p_pad] scores for the logZ kernels
+        (``ops/logz.log_z_padded``) and ``semicrf.eval_path_padded``, with
+        noise zeros [t_pad, N*p_pad]."""
+        s, noise, _ = self._padded_scores(ctx, t_pad, p_pad, False)
+        return s, noise

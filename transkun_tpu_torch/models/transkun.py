@@ -1,31 +1,43 @@
-"""TransKun V2: frames -> mel -> backbone -> interval scores -> Viterbi ->
-notes, in PyTorch.
+"""TransKun V2: frames -> mel -> backbone -> interval scores -> semi-CRF,
+in PyTorch: the training objective and the decode.
 
-Port of ``transkun_tpu/models/transkun.py`` along its host-walk decode route
-(``_transcribe_segment_group`` -> ``_process_group`` -> ``_attr_and_assemble``
--> ``_assemble_from_arrays``), which gives the same notes as the JAX
-package's default route.  Every segment's device work is independent of the
-stitching state, so all of it is enqueued first; the pointer walk and the
-forcedStartPos chain then run on the host over one fetch.
+Port of ``transkun_tpu/models/transkun.py``.  Transcription follows the JAX
+package's host-walk decode route (``_transcribe_segment_group`` ->
+``_process_group`` -> ``_attr_and_assemble`` -> ``_assemble_from_arrays``),
+which gives the same notes as its default route.  Every segment's device
+work is independent of the stitching state, so all of it is enqueued first;
+the pointer walk and the forcedStartPos chain then run on the host over one
+fetch.  Training runs ``log_prob_padded`` on the fused route: the scorer
+writes the padded alpha-layout score tensor once, and ``ops/logz`` takes
+logZ from it with the alpha and beta kernels.
+
+Train and eval modes are explicit: each entry point sets the mode it needs
+(``make_train_loss`` train; ``log_prob``, the stats and the decode eval).
 """
 
 from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..data.note import Note, resolve_overlapping
-from ..ops import frontend, semicrf
-from ..ops.distributions import continuous_bernoulli_mean
+from ..ops import distributions as dist
+from ..ops import frontend, logz, semicrf
 from ..ops.viterbi import viterbi_backward_tables_padded
-from .backbone import Backbone
+from .backbone import Backbone, UpConvSkip
 from .config import ModelConfig
-from .layers import MultiHeadAttention, ScaledInnerProductIntervalScorer, SpatialPositionEmbedding, mlp
+from .layers import (
+    MultiHeadAttention,
+    ScaledInnerProductIntervalScorer,
+    SpatialPositionEmbedding,
+    mlp,
+    set_dropout_generator,
+)
 
 Config = ModelConfig
 
@@ -120,8 +132,9 @@ class TransKunModule(nn.Module):
             enabled_attn=conf.enabledAttn,
             downsample_f=conf.downsampleF,
             upsample_proj_only=conf.upsampleProjOnly,
+            use_gradient_checkpoint=conf.useGradientCheckpoint,
         )
-        self.scorer = ScaledInnerProductIntervalScorer(d, d, 1, conf.scoreDropoutProb)
+        self.scorer = ScaledInnerProductIntervalScorer(d, d, 1)
         self.velocityPredictor = mlp(
             3 * d, conf.velocityPredictorHiddenSize, 128, conf.velocityDropoutProb
         )
@@ -147,10 +160,10 @@ class TransKunModule(nn.Module):
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose1d)):
-                # a transposed conv is a dense map from its w.shape[0] inputs
+            if isinstance(mod, (nn.Linear, nn.Conv2d, UpConvSkip)):
+                # the upsample is a dense map from its w.shape[0] inputs
                 w = mod.weight
-                lecun_normal(w, w.shape[0] if isinstance(mod, nn.ConvTranspose1d) else w[0].numel())
+                lecun_normal(w, w.shape[0] if isinstance(mod, UpConvSkip) else w[0].numel())
                 mod.bias.zero_()
             elif isinstance(mod, nn.GroupNorm):
                 mod.weight.fill_(1.0)
@@ -171,14 +184,35 @@ class TransKunModule(nn.Module):
         win_gen.sigma.copy_(torch.from_numpy(init["sigma"]))
         win_gen.center.copy_(torch.from_numpy(init["center"]))
 
+    def _ctx(self, frames: torch.Tensor) -> torch.Tensor:
+        return self.backbone(self.framewiseFeatureExtractor(frames), self.pitches)
+
+    def process_frames(
+        self, frames: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """frames [N, C, T, W] -> (S [T, T, N*P] alpha layout, noise
+        [T-1, N*P], ctx [N, P, T, D])."""
+        ctx = self._ctx(frames)
+        s, noise = self.scorer(ctx)
+        t = s.shape[0]
+        return s.reshape(t, t, -1), noise.reshape(t - 1, -1), ctx
+
+    def process_frames_train(
+        self, frames: torch.Tensor, t_pad: int, p_pad: int
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """frames -> (s_pad [t_pad, t_pad, N*p_pad] alpha layout, NEG-padded,
+        for the logZ kernels; noise [t_pad, N*p_pad]; ctx [N, P, T, D])."""
+        ctx = self._ctx(frames)
+        s_pad, noise = self.scorer.train_scores(ctx, t_pad, p_pad)
+        return s_pad, noise, ctx
+
     def process_frames_decode(
         self, frames: torch.Tensor, t_pad: int, p_pad: int
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """frames [N, C, T, W] -> (s_t [t_pad, t_pad, N*p_pad] decode layout,
         noise [t_pad, N*p_pad], diag [t_pad, N*p_pad] un-gated, ctx
         [N, P, T, D])."""
-        features = self.framewiseFeatureExtractor(frames)
-        ctx = self.backbone(features, self.pitches)
+        ctx = self._ctx(frames)
         s_t, noise, diag = self.scorer.decode_scores(ctx, t_pad, p_pad)
         return s_t, noise, diag, ctx
 
@@ -213,7 +247,42 @@ class TransKunModule(nn.Module):
 
 def _gather_ctx(ctx: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """ctx [N, P, T, D], idx [N, P, K] -> [N, P, K, D]."""
-    return torch.take_along_dim(ctx, idx[..., None], dim=2)
+    return torch.take_along_dim(ctx, idx[..., None].long(), dim=2)
+
+
+Labels = Tuple[torch.Tensor, ...]
+
+
+def log_prob_padded(module: TransKunModule, frames: torch.Tensor, labels: Labels) -> torch.Tensor:
+    """The training objective: per-track log-probability [N, P] (ref
+    ``log_prob``), on the fused route of the JAX package's
+    ``log_prob_padded``.  Runs in the module's current mode.
+
+    labels = (begins, ends, mask, velocity [N, P, K], refine, presence
+    [N, P, K, 2]) from ``transkun_tpu.data.labels.encode_batch``, as tensors
+    on the module's device."""
+    begins, ends, mask, velocity, refine, presence = labels
+    n, p, k = begins.shape
+    t = frames.shape[2]
+    t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(n, p)
+    s_pad, noise_pad, ctx = module.process_frames_train(frames, t_pad, p_pad)
+
+    def lanes(a):  # [N, P, K] -> [N * p_pad, K], padded tracks empty
+        return torch.nn.functional.pad(a, (0, 0, 0, p_pad - p)).reshape(n * p_pad, k)
+
+    path = semicrf.eval_path_padded(s_pad, noise_pad[:-1], lanes(begins), lanes(ends), lanes(mask))
+    log_z = logz.log_z_padded(t, s_pad, noise_pad)
+    logp = (path - log_z).reshape(n, p_pad)[:, :p]
+
+    vel_logits, of_value, of_presence = module.attributes(
+        _gather_ctx(ctx, begins), _gather_ctx(ctx, ends)
+    )
+    logp_vel = torch.log_softmax(vel_logits, dim=-1).gather(-1, velocity[..., None].long())[..., 0]
+    refined = refine * 0.99 + 0.5  # [-0.5, 0.5] -> [0.005, 0.995]
+    logp_of = dist.continuous_bernoulli_log_prob(of_value, refined).sum(-1)
+    logp_presence = dist.bernoulli_log_prob(of_presence, presence).sum(-1)
+    attr = torch.where(mask.bool(), logp_vel + logp_of + logp_presence, 0.0).sum(-1)
+    return logp + attr
 
 
 class TransKun:
@@ -241,6 +310,146 @@ class TransKun:
     def load_state_dict(self, state_dict) -> None:
         self.module.load_state_dict(state_dict, strict=True)
 
+    # -- training -------------------------------------------------------------
+
+    def frames(self, audio_batch: np.ndarray) -> torch.Tensor:
+        """audio [N, nSample, C] -> frames [N, C, T, W] on the device."""
+        x = torch.from_numpy(np.ascontiguousarray(np.swapaxes(audio_batch, -1, -2), np.float32))
+        return frontend.make_frame(x.to(self.device), self.hopSize, self.windowSize)
+
+    def labels(self, notes_batch, max_events: int = 32) -> Labels:
+        """Note lists -> padded label tensors on the device."""
+        from transkun_tpu.data.labels import encode_batch
+
+        labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events)
+        return tuple(torch.from_numpy(a).to(self.device) for a in labels.astuple())
+
+    def make_train_loss(self):
+        """loss_fn(frames, labels, generator) -> logp [N, P] in train mode,
+        with every dropout mask drawn from ``generator``."""
+
+        def loss_fn(frames, labels, generator):
+            self.module.train()
+            set_dropout_generator(self.module, generator)
+            return log_prob_padded(self.module, frames, labels)
+
+        return loss_fn
+
+    def log_prob(self, audio_batch: np.ndarray, notes_batch, max_events: int = 32) -> torch.Tensor:
+        """audio [N, nSample, C] + note lists -> per-track log-probability
+        [N, P], in eval mode."""
+        self.module.eval()
+        return log_prob_padded(self.module, self.frames(audio_batch), self.labels(notes_batch, max_events))
+
+    # -- training-time metrics -------------------------------------------------
+
+    @torch.no_grad()
+    def _decode(self, frames: torch.Tensor):
+        """frames -> (ptr [T-1, N*P] int32, diag [T, N*P] bool, ctx), the
+        Viterbi tables through ``semicrf.viterbi_backward_tables`` (the
+        kernel for a CUDA tensor)."""
+        self.module.eval()
+        s, noise, ctx = self.module.process_frames(frames)
+        ptr, diag = semicrf.viterbi_backward_tables(s, noise)
+        return ptr, diag, ctx
+
+    @torch.no_grad()
+    def compute_stats(self, audio_batch: np.ndarray, notes_batch) -> Dict[str, float]:
+        """Decode-vs-GT bracket and framewise counts, and the forced velocity
+        and onset/offset square errors on the GT intervals (ref
+        ``computeStats``)."""
+        from transkun_tpu.data.labels import prepare_intervals
+        from transkun_tpu.eval.evaluation import compare_bracket, compare_framewise
+
+        frames = self.frames(audio_batch)
+        n_batch = frames.shape[0]
+        n_sym = len(self.targetMIDIPitch)
+        ptr, diag, ctx = self._decode(frames)
+        path = semicrf.backtrack_backward(ptr.cpu().numpy(), diag.cpu().numpy())
+
+        intervals_batch, velocity_gt, of_gt = [], [], []
+        for notes in notes_batch:
+            data = prepare_intervals(notes, self.hopSize / self.fs, self.targetMIDIPitch)
+            intervals_batch.append(data["intervals"])
+            velocity_gt.append([v for track in data["velocity"] for v in track])
+            of_gt.append([r for track in data["endPointRefine"] for r in track])
+        flat_gt = [t for b in intervals_batch for t in b]
+        if len(path) != len(flat_gt):
+            raise ValueError(f"{len(path)} decoded tracks for {len(flat_gt)} label tracks")
+
+        # Python sums, in track order, as the JAX package adds them
+        bracket = [sum(c) for c in zip(*(compare_bracket(a, b) for a, b in zip(path, flat_gt)))]
+        framewise = [sum(c) for c in zip(*(compare_framewise(a, b) for a, b in zip(path, flat_gt)))]
+
+        k = max(max((len(t) for b in intervals_batch for t in b), default=1), 1)
+        begins = np.zeros((n_batch, n_sym, k), np.int64)
+        ends = np.zeros((n_batch, n_sym, k), np.int64)
+        mask = np.zeros((n_batch, n_sym, k), bool)
+        vel_arr = np.zeros((n_batch, n_sym, k), np.float64)
+        of_arr = np.zeros((n_batch, n_sym, k, 2), np.float64)
+        for i, b in enumerate(intervals_batch):
+            vi = 0
+            for j, track in enumerate(b):
+                for e_idx, (bb, ee) in enumerate(track):
+                    begins[i, j, e_idx] = bb
+                    ends[i, j, e_idx] = ee
+                    mask[i, j, e_idx] = True
+                    vel_arr[i, j, e_idx] = velocity_gt[i][vi]
+                    of_arr[i, j, e_idx] = of_gt[i][vi]
+                    vi += 1
+        velocity, of_value, _ = self._attr_readout(
+            ctx, torch.from_numpy(begins).to(ctx.device), torch.from_numpy(ends).to(ctx.device), "mse"
+        )
+        velocity = velocity.cpu().numpy()
+        of_value = of_value.cpu().numpy()
+        return {
+            "nGT": bracket[0],
+            "nEst": bracket[1],
+            "nCorrect": bracket[2],
+            "nGTFramewise": framewise[0],
+            "nEstFramewise": framewise[1],
+            "nCorrectFramewise": framewise[2],
+            "seVelocityForced": float((((velocity - vel_arr) ** 2) * mask).sum()),
+            "seOFForced": float((((of_value - of_arr) ** 2) * mask[..., None]).sum()),
+        }
+
+    def compute_stats_mireval(self, audio_batch: np.ndarray, notes_batch) -> Dict[str, float]:
+        """Note-with-offset counts by full decode and matching (ref
+        ``computeStatsMIREVAL``)."""
+        from transkun_tpu.eval.evaluation import compare_transcription
+
+        notes_est, _ = self.transcribe_frames(self.frames(audio_batch))
+        n_gt = n_est = n_correct = 0.0
+        for est, gt in zip(notes_est, notes_batch):
+            metrics = compare_transcription(est, gt)
+            _, r, _, _ = metrics["note+offset"]
+            n_gt += metrics["nGT"]
+            n_est += metrics["nEst"]
+            n_correct += r * metrics["nGT"]
+        return {"nGT": n_gt, "nEst": n_est, "nCorrect": n_correct}
+
+    @torch.no_grad()
+    def transcribe_frames(
+        self,
+        frames: torch.Tensor,
+        forced_start_pos: Optional[Sequence[int]] = None,
+        velocity_criterion: str = "hamming",
+        onset_bound: Optional[int] = None,
+        last_frame_idx: Optional[int] = None,
+    ) -> Tuple[List[List[Note]], List[int]]:
+        """Decode one batch of segments [N, C, T, W] -> (notes per segment,
+        lastP per track) (ref ``transcribeFrames``)."""
+        n_batch = frames.shape[0]
+        n_sym = len(self.targetMIDIPitch)
+        if last_frame_idx is None:
+            last_frame_idx = frames.shape[-2] - 1
+        ptr, diag, ctx = self._decode(frames)
+        path = semicrf.backtrack_backward(ptr.cpu().numpy(), diag.cpu().numpy(), forced_start_pos)
+        if onset_bound is not None:
+            path = [[e for e in p if e[0] < onset_bound] for p in path]
+        intervals_batch = [path[i * n_sym : (i + 1) * n_sym] for i in range(n_batch)]
+        return self._attr_and_assemble(ctx, intervals_batch, velocity_criterion, last_frame_idx)
+
     # -- attribute heads and note assembly ------------------------------------
 
     def _attr_readout(
@@ -266,7 +475,7 @@ class TransKun:
             velocity = torch.argmax(((pcum - 0.5) > 0) * w2, dim=-1)
         else:
             raise ValueError(f"Unrecognized criterion: {criterion}")
-        of = torch.clamp((continuous_bernoulli_mean(of_value) - 0.5) / 0.99, -0.5, 0.5)
+        of = torch.clamp((dist.continuous_bernoulli_mean(of_value) - 0.5) / 0.99, -0.5, 0.5)
         return velocity, of, of_presence > 0
 
     def _attr_and_assemble(
@@ -405,6 +614,7 @@ class TransKun:
 
         x: [nSample, nChannel] float waveform at conf.fs (int16 is read as
         x / 32768)."""
+        self.module.eval()
         if step_in_second is None and segment_size_in_second is None:
             step_in_second = self.segmentHopSizeInSecond
             segment_size_in_second = self.segmentSizeInSecond

@@ -3,21 +3,23 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``transkun_tpu_torch/_build/lib<name>-<hash>.so``
 on first use and loaded with ``ctypes``; a changed source or flag set gives a
-new hash and so a rebuild.  No ``--use_fast_math``: later log-space kernels
-rely on the subnormal constant 1e-38, which flush-to-zero would turn into
-``log(0)``.
+new hash and so a rebuild (the hash covers the ``csrc/*.cuh`` headers too).
+No ``--use_fast_math``: the log-space kernels rely on the subnormal constant
+1e-38, which flush-to-zero would turn into ``log(0)``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -40,10 +42,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the library for ``csrc/<name>.cu`` lives, keyed by a hash of its
-    source and the compiler flags."""
+    source, the headers beside it and the compiler flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, name + ".cu"), *headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
@@ -68,6 +72,13 @@ def build(name: str) -> Tuple[str, float, str]:
         )
     os.replace(tmp, lib)
     return lib, seconds, proc.stdout + proc.stderr
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[str, float, str]]:
+    """``build`` every name at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 @functools.cache

@@ -1,11 +1,19 @@
-"""Semi-Markov CRF decode: constants, the plain Viterbi tables and the host
-pointer walk.
+"""Semi-Markov CRF over time intervals: partition function with its exact
+marginals, path scores, Viterbi tables and the host pointer walk.
 
-Port of the decode half of ``transkun_tpu/ops/semicrf.py``.  ``score[T, T, N]``
-scores every closed interval in ``[end, begin, batch]`` layout (lower
-triangle); the diagonal holds singleton scores, included in a decode iff
-positive.  The padded decode-layout tables, which the CUDA kernel computes,
-live in ``ops/viterbi.py``.
+Port of ``transkun_tpu/ops/semicrf.py``.  ``score[T, T, N]`` scores every
+closed interval in ``[end, begin, batch]`` layout (lower triangle); the
+diagonal holds singleton scores, marginalized through ``softplus`` in logZ
+and included in a decode iff positive.  ``noise[T-1, N]`` scores the skip
+t -> t+1.  The partition recursion is
+
+    v[i] = logaddexp(v[i-1] + noise[i-1], logsumexp_{j<i} v[j] + S[i,j])
+           + softplus(S[i,i])
+
+Everything here is plain PyTorch and is the test oracle.  The padded tables
+that the CUDA kernels compute live in ``ops/logz.py`` (alpha and beta, for
+training) and ``ops/viterbi.py`` (decode); ``viterbi_backward_tables`` pads
+and transposes onto the latter, so on a CUDA tensor it runs the kernel.
 """
 
 from __future__ import annotations
@@ -15,7 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .viterbi import viterbi_backward_tables_plain
+from .viterbi import viterbi_backward_tables_padded
 
 # Large-negative instead of -inf: keeps masked lanes NaN-free.
 NEG = -1e30
@@ -27,6 +35,206 @@ PALLAS_KP = 8
 PALLAS_LN = 128
 
 
+def _pad_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _diag(score: torch.Tensor) -> torch.Tensor:
+    """Diagonal of score[T, T, N] -> [T, N]."""
+    return torch.diagonal(score).transpose(0, 1)
+
+
+def _logsumexp_rows(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over axis 0, max-shifted, with the ``+1e-38`` before the log
+    that the JAX package's scan and kernels add."""
+    m = x.max(dim=0).values
+    return m + torch.log(torch.exp(x - m).sum(dim=0) + 1e-38)
+
+
+def _alpha_scan(score: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Forward (alpha) DP: score [T, T, N] (end, begin, batch), noise
+    [T-1, N] -> the full table v [T, N]; logZ = v[-1].  Differentiable
+    (``log_z_slow``): the in-place row writes touch no tensor a backward
+    reads."""
+    t, _, n = score.shape
+    score = score.float()
+    noise = noise.float()
+    spdiag = torch.nn.functional.softplus(_diag(score))
+    v = torch.zeros(t, n, dtype=torch.float32, device=score.device)
+    v[0] = spdiag[0]
+    for i in range(1, t):
+        interval = _logsumexp_rows(v[:i] + score[i, :i])
+        skip = v[i - 1] + noise[i - 1]
+        v[i] = torch.logaddexp(skip, interval) + spdiag[i]
+    return v
+
+
+def _flip_score(score: torch.Tensor) -> torch.Tensor:
+    """Time-reverse a score tensor: out[e, b] = score[T-1-b, T-1-e].  The
+    forward recursion on the flipped tensor gives the backward (beta)
+    quantities of the original."""
+    return score.flip(0, 1).transpose(0, 1)
+
+
+def _forward_backward(
+    score: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Alpha and beta in one scan over the doubled batch (the flip trick).
+    Returns (logZ [N], v [T, N], q [T, N])."""
+    score_fb = torch.cat([score, _flip_score(score)], dim=-1)
+    noise_fb = torch.cat([noise, noise.flip(0)], dim=-1)
+    v, q = _alpha_scan(score_fb, noise_fb).chunk(2, dim=-1)
+    return v[-1], v, q.flip(0)
+
+
+def _marginals(
+    score: torch.Tensor, noise: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
+    logz: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact posterior marginals, the gradient of logZ:
+
+    grad[e, b]   = exp(v[b] + q[e] + S[e,b] - logZ - 2*softplus(S)[diag only])
+                   on the lower triangle, 0 above it;
+    gradNoise[i] = exp(v[i] + q[i+1] + noise[i] - logZ).
+
+    One [T, T, N] buffer, built in place: nothing differentiates through
+    this function."""
+    t = score.shape[0]
+    g = score.float() + v[None, :, :]
+    g += q[:, None, :]
+    g -= logz
+    spdiag = torch.nn.functional.softplus(_diag(score.float()))
+    torch.diagonal(g).sub_(2.0 * spdiag.t())
+    upper = torch.ones(t, t, dtype=torch.bool, device=g.device).triu_(1)
+    g.masked_fill_(upper[:, :, None], NEG).exp_()
+    grad_noise = torch.exp(v[:-1] + q[1:] + noise.float() - logz)
+    return g, grad_noise
+
+
+class _LogZ(torch.autograd.Function):
+    """logZ [N] whose backward is the exact marginals times the cotangent,
+    without keeping the [T, T, N] marginals between the passes."""
+
+    @staticmethod
+    def forward(ctx, score, noise):
+        logz, v, q = _forward_backward(score.detach(), noise.detach())
+        ctx.save_for_backward(score, noise, v, q, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        score, noise, v, q, logz = ctx.saved_tensors
+        grad, grad_noise = _marginals(score, noise, v, q, logz)
+        return (grad * g).to(score.dtype), (grad_noise * g).to(noise.dtype)
+
+
+def log_z(score: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Log partition function: [T, T, N], [T-1, N] -> [N], with the exact
+    marginals as its gradient."""
+    return _LogZ.apply(score, noise)
+
+
+def log_z_slow(score: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """logZ by autograd through one forward scan (test oracle)."""
+    return _alpha_scan(score, noise)[-1]
+
+
+def marginals(
+    score: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(logZ [N], interval marginals [T, T, N], noise marginals [T-1, N])."""
+    with torch.no_grad():
+        logz, v, q = _forward_backward(score, noise)
+        grad, grad_noise = _marginals(score, noise, v, q, logz)
+    return logz, grad, grad_noise
+
+
+# ---------------------------------------------------------------------------
+# Path scoring
+# ---------------------------------------------------------------------------
+
+
+def eval_path_padded(
+    score: torch.Tensor,
+    noise: torch.Tensor,
+    begins: torch.Tensor,
+    ends: torch.Tensor,
+    mask: torch.Tensor,
+) -> torch.Tensor:
+    """Unnormalized score of interval sets: begins/ends [N, K] frame indices
+    of closed intervals, mask [N, K] -> [N].  The sum of the interval scores
+    plus the noise over the uncovered steps.  Gathers straight from the
+    contiguous [T, T, N] tensor (no transposed copy)."""
+    t, _, n = score.shape
+    ncum = torch.cat(
+        [torch.zeros(1, n, dtype=noise.dtype, device=noise.device), noise.cumsum(0)]
+    )  # [T, N]
+    b = begins.long().clamp(0, t - 1)
+    e = ends.long().clamp(0, t - 1)
+    lane = torch.arange(n, device=score.device)[:, None]
+    vals = score.reshape(-1)[(e * t + b) * n + lane]
+    ncum_t = ncum.t()
+    span = torch.gather(ncum_t, 1, e) - torch.gather(ncum_t, 1, b)
+    contrib = torch.where(mask.bool(), vals - span, torch.zeros_like(vals))
+    return contrib.sum(1) + ncum[-1]
+
+
+def eval_path_slow(
+    intervals: Sequence[Sequence[Tuple[int, int]]], score: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """Per-interval path scoring (ref ``evalPathSlow``), the readable oracle
+    of ``eval_path_padded``."""
+    ncum = torch.cat(
+        [torch.zeros(1, noise.shape[1], dtype=noise.dtype, device=noise.device), noise.cumsum(0)]
+    )
+    out = []
+    for idx, cur in enumerate(intervals):
+        v = ncum[-1, idx]
+        for b, e in cur:
+            v = v + score[e, b, idx] - ncum[e, idx] + ncum[b, idx]
+        out.append(v)
+    return torch.stack(out, dim=-1)
+
+
+def pad_intervals(
+    intervals: Sequence[Sequence[Tuple[int, int]]], k: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Ragged per-track interval lists -> padded (begins, ends, mask)
+    [N, K]; K defaults to the next power of two of the longest track."""
+    n = len(intervals)
+    kmax = max((len(c) for c in intervals), default=0)
+    if k is None:
+        k = 1
+        while k < max(kmax, 1):
+            k *= 2
+    if kmax > k:
+        raise ValueError(f"a track holds {kmax} intervals, more than k={k}")
+    begins = np.zeros((n, k), np.int32)
+    ends = np.zeros((n, k), np.int32)
+    mask = np.zeros((n, k), bool)
+    for i, cur in enumerate(intervals):
+        for j, (b, e) in enumerate(cur):
+            begins[i, j] = b
+            ends[i, j] = e
+            mask[i, j] = True
+    return begins, ends, mask
+
+
+def eval_path(
+    intervals: Sequence[Sequence[Tuple[int, int]]], score: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """List-of-lists form of ``eval_path_padded``."""
+    begins, ends, mask = (
+        torch.from_numpy(a).to(score.device) for a in pad_intervals(intervals)
+    )
+    return eval_path_padded(score, noise, begins, ends, mask)
+
+
+# ---------------------------------------------------------------------------
+# Viterbi: pointer tables on the device, walk on the host
+# ---------------------------------------------------------------------------
+
+
 def viterbi_backward_tables(
     score: torch.Tensor, noise: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -36,17 +244,25 @@ def viterbi_backward_tables(
     Returns (ptr [T-1, N] int32, diag_pos [T, N] bool).  ``ptr[p]`` is the
     best move leaving ``p``: -1 = skip to p+1, s >= 0 = interval
     (p, p+1+s).  Skip wins ties; among intervals the smallest end wins.
+
+    Pads to the decode layout of ``viterbi_backward_tables_padded`` (NEG
+    scores, zero noise, positions to a multiple of PALLAS_KP, lanes to a
+    multiple of PALLAS_LN) and transposes to [begin, end, lane], so a CUDA
+    tensor runs the kernel.  The padded DP is an exact extension: no
+    interval touches the padding and padded skips weigh zero.
     """
-    t = score.shape[0]
+    t, _, n = score.shape
+    tp, nbp = _pad_to(t, PALLAS_KP), _pad_to(n, PALLAS_LN)
     score = score.float()
-    diag = torch.diagonal(score).transpose(0, 1)  # [T, N]
-    # the same DP as the padded decode layout, with Tp = T: the noise row
-    # T-1 is never read
-    noise_t = torch.nn.functional.pad(noise.float(), (0, 0, 0, 1))
-    ptr = viterbi_backward_tables_plain(
-        score.transpose(0, 1), noise_t, diag * (diag > 0)
-    )
-    return ptr[: t - 1], diag > 0
+    diag = _diag(score)
+    s_t = torch.full((tp, tp, nbp), NEG, dtype=torch.float32, device=score.device)
+    s_t[:t, :t, :n] = score.transpose(0, 1)
+    noise_pad = torch.zeros(tp, nbp, dtype=torch.float32, device=score.device)
+    noise_pad[: t - 1, :n] = noise
+    gate = torch.zeros(tp, nbp, dtype=torch.float32, device=score.device)
+    gate[:t, :n] = diag * (diag > 0)
+    ptr = viterbi_backward_tables_padded(s_t, noise_pad, gate)
+    return ptr[: t - 1, :n], diag > 0
 
 
 def backtrack_backward(
@@ -81,3 +297,27 @@ def backtrack_backward(
             out.append((t - 1, t - 1))
         results.append(out)
     return results
+
+
+class NeuralSemiCRFInterval:
+    """Stateless wrapper bundling a score pair with the CRF operations (ref
+    ``NeuralSemiCRFInterval``)."""
+
+    def __init__(self, score: torch.Tensor, noiseScore: torch.Tensor):
+        self.score = score
+        self.noiseScore = noiseScore
+
+    def decode(self, forcedStartPos: Optional[Sequence[int]] = None):
+        ptr, diag = viterbi_backward_tables(self.score, self.noiseScore)
+        return backtrack_backward(ptr.cpu().numpy(), diag.cpu().numpy(), forcedStartPos)
+
+    def evalPath(self, intervals) -> torch.Tensor:
+        return eval_path(intervals, self.score, self.noiseScore)
+
+    def computeLogZ(self, noBackward: bool = False) -> torch.Tensor:
+        if noBackward:
+            return log_z_slow(self.score, self.noiseScore)
+        return log_z(self.score, self.noiseScore)
+
+    def logProb(self, intervals, noBackward: bool = False) -> torch.Tensor:
+        return self.evalPath(intervals) - self.computeLogZ(noBackward=noBackward)

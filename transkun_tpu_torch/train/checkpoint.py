@@ -1,0 +1,91 @@
+"""Training checkpoints: one ``torch.save`` file with the latest and best
+weights, the optimizer and clip state, the step and extra run state.
+
+Port of ``transkun_tpu/train/checkpoint.py`` (orbax there).  The weights sit
+under the reference key names ``state_dict`` and ``best_state_dict``, so
+``utils.convert.load_reference_checkpoint`` and the port's transcribe
+``--weight`` read a training checkpoint as it is.
+
+Crash-safe overwrite: the new file is written to ``path + ".new"`` and
+swapped in with renames, so at every instant ``path``, ``path + ".new"``
+(complete, mid-swap) or ``path + ".old"`` (the previous save) holds a
+complete checkpoint.  ``load_checkpoint`` tries them in the order ``.new``,
+``path``, ``.old``: a ``.new`` exists only when a save stopped before its
+swap finished, and then it is the newest; an incomplete one fails to load
+and the next is tried.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import zipfile
+from typing import Any, Dict, Optional
+
+import torch
+
+from .step import TrainState
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_checkpoint(path: str, state: TrainState, best_state_dict=None, extra: Optional[Dict] = None) -> None:
+    """Write the train state and the best weights to ``path``, crash-safe."""
+    path = os.path.abspath(path)
+    new_path, old_path = path + ".new", path + ".old"
+    ckpt = {
+        "state_dict": _cpu(state.model.module.state_dict()),
+        "optimizer": _cpu(state.optimizer.state_dict()),
+        "clip_buffer": _cpu(state.clip.buffer),
+        "clip_count": _cpu(state.clip.count),
+        "step": int(state.step),
+        "extra": dict(extra or {}),
+    }
+    if best_state_dict is not None:
+        ckpt["best_state_dict"] = _cpu(best_state_dict)
+    torch.save(ckpt, new_path)
+    if os.path.exists(old_path):
+        os.remove(old_path)
+    if os.path.exists(path):
+        os.rename(path, old_path)
+    os.rename(new_path, path)
+    if os.path.exists(old_path):
+        os.remove(old_path)
+
+
+def checkpoint_exists(path: str) -> bool:
+    """True if ``path`` or one of its crash-recovery siblings exists."""
+    path = os.path.abspath(path)
+    return any(os.path.isfile(p) for p in (path, path + ".new", path + ".old"))
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The newest complete checkpoint among ``.new``, ``path``, ``.old``,
+    with every tensor on the CPU."""
+    path = os.path.abspath(path)
+    existing = [p for p in (path + ".new", path, path + ".old") if os.path.isfile(p)]
+    if not existing:
+        raise FileNotFoundError(f"Checkpoint at {path} not found.")
+    last_err = None
+    for cand in existing:
+        try:
+            return torch.load(cand, map_location="cpu", weights_only=False)
+        except (EOFError, RuntimeError, pickle.UnpicklingError, zipfile.BadZipFile) as e:
+            last_err = e
+            print(f"checkpoint fallback: {cand} unreadable ({e})")
+    raise last_err
+
+
+def restore_train_state(state: TrainState, ckpt: Dict[str, Any]) -> None:
+    """Load weights, optimizer, clip state and step of ``ckpt`` into
+    ``state``."""
+    state.model.module.load_state_dict(ckpt["state_dict"], strict=True)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.clip.load(ckpt["clip_buffer"], ckpt["clip_count"])
+    state.step = int(ckpt["step"])

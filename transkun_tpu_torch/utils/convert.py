@@ -9,8 +9,9 @@ function.  Layouts:
 * flax Dense kernel [in, out]          -> Linear weight [out, in]
 * MHA q/k/v kernels [in, out]          -> ``*_proj_weight`` [in, out]
 * flax Conv kernel [kh, kw, in, out]   -> Conv2d weight [out, in, kh, kw]
-* upConv1dSkip Dense [in, 8*out], bias tiled 8x -> ConvTranspose1d
-  weight [in, out, 8], bias [out]
+* upConv1dSkip Dense [in, 8*out]       -> weight [in, out, 8] (the
+  reference ConvTranspose1d layout); its bias [8*out] stays as it is, one
+  free bias per output step (a reference [out] bias is tiled 8x on load)
 """
 
 from __future__ import annotations
@@ -81,17 +82,11 @@ def state_dict_from_flax(params: Dict[str, Any], conf=None) -> "OrderedDict[str,
         i += 1
 
     up = bb["upConv1dSkip"]
-    kernel = np.asarray(up["kernel"])  # [in, 8*out]
-    bias = np.asarray(up["bias"]).reshape(8, -1)
-    if not np.array_equal(bias, np.broadcast_to(bias[0], bias.shape)):
-        raise ValueError(
-            "upConv1dSkip bias is not the same for all 8 output steps, so it "
-            "has no ConvTranspose1d form"
-        )
+    kernel = np.asarray(up["kernel"])  # [in, 8*out], step-major columns
     sd["backbone.upConv1dSkip.weight"] = _t(
         kernel.reshape(kernel.shape[0], 8, -1).transpose(0, 2, 1)
     )
-    sd["backbone.upConv1dSkip.bias"] = _t(bias[0])
+    sd["backbone.upConv1dSkip.bias"] = _t(up["bias"])
 
     linear("scorer.map.0", p["scorer"]["map"])
     mlp("velocityPredictor", p["velocityPredictor"])
