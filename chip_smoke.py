@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from ``transkun_tpu_torch/csrc`` (nvcc, sm_90a),
-   one ``nvcc`` per source, all at once.
+1. Builds the six CUDA kernels from ``transkun_tpu_torch/csrc`` (nvcc,
+   sm_90a), one ``nvcc`` per source, all at once.
 2. Holds the Viterbi kernel against its plain PyTorch version at the
    flagship decode shape [696, 696, 128] and at a ragged shape (t = 123,
    Tp = 128, two segments' lanes): the pointer tables must be equal.
@@ -15,27 +15,53 @@
    logZ gradient through the kernels against autograd of the plain
    ``log_z_slow`` at a small ragged shape.  Every kernel and plain version
    is timed with CUDA events (median of several runs).
+   The attention forward and backward kernels against their plain versions
+   at the flagship shapes of one segment ([89, 149, 256] and [149, 89, 256],
+   8 heads), of a training batch of 4 ([356, 149, 256] and [596, 89, 256])
+   and at a ragged shape (cross-attention, odd lengths, 3 heads of 8):
+   forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal inputs.  The
+   fused MLP at [13261, 256] -> 1024 -> 256, at the training batch's
+   [53044, 256] and at [1000, 128] -> 192 -> 128 within 2e-5.  The forward
+   kernels are timed at the segment's shape and at the batch's, the backward
+   kernel at the batch's, the only one the paths launch it at; the kernels
+   line carries the forward's time at the segment's shape.
+   ``F.scaled_dot_product_attention`` and its backward are timed on the
+   same inputs as the library's yardstick; the port never calls them.
 4. Transcription: a 64 s synthetic piece with the flagship V2
-   configuration (``transkun_tpu/pretrained/2.0.conf``) and random weights
+   configuration (``transkun_tpu_torch/pretrained/2.0.conf``) and random weights
    from a seeded ``torch.Generator``.  Checks that the Viterbi kernel ran
    once per segment, that the notes are valid, and that on one segment's
    real scores the kernel's table equals the plain version's.
 5. Training through the entry point ``transkun_tpu_torch.cli.train.main``
    at flagship width and depth, ``--batchSize 4``: a synthetic
-   MAESTRO-layout corpus of 40 s pieces (MIDI from
-   ``transkun_tpu.data.midi``, pickles from
-   ``transkun_tpu.cli.create_dataset_maestro``, both JAX-free) in a temp
+   MAESTRO-layout corpus of 40 s pieces (MIDI from the port's
+   ``data.midi``, pickles from its ``cli.create_dataset_maestro``) in a temp
    dir; one epoch of steps with stats decodes, checkpoints and validation;
    a resume for two more steps; ``best_state_dict`` loaded into
    ``TransKun`` to transcribe a piece.  Every loss must be finite and the
    alpha, beta and Viterbi launch counts must equal the calls made.
+6. The fused-backbone configuration (``TRANSKUN_TPU_FUSED_ATTN=1`` and
+   ``TRANSKUN_TPU_FUSED_MLP=1``) at full width and depth: the same piece,
+   weights and seed as in 4 are transcribed, then ``cli.train.main`` takes a
+   few steps on the corpus of 5 with the seed of 5.  The attention and MLP
+   launch counts must equal the calls made; on one segment the backbone ctx
+   of the fused route must agree with the default route's within
+   1e-4 * max(1, max |ctx|); every training loss must agree with the
+   default route's at the same step within 1e-5 relative (the losses after
+   the first depend on the gradients, so on the attention backward kernel);
+   the shapes the path gave the kernels must be the ones they were held
+   against their plain versions at; notes valid.
+   The notes that differ between the two routes (pitch, velocity, times to
+   the millisecond) are counted, not refused.
 
-Prints the card, build times, kernel times, the transcription's wall time,
-RTF and peak memory, the training step time and peak memory, then one JSON
-line with the kernels and, as the last line, ``{"ok": true, "device":
-{...}}``.  TF32 is off for matmuls and convolutions.  Any failed check
-raises, so the script exits non-zero without that line; it exits 1 at once
-when no CUDA device is present.
+Prints the card, build times, kernel times, each transcription's wall time,
+RTF and peak memory, each training step time and peak memory, then one JSON
+line with the kernels (launches on the three paths, largest error, kernel,
+plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
+fp32 operations over 67 TFLOP/s, whichever is larger) and, as the last
+line, ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
+convolutions.  Any failed check raises, so the script exits non-zero without
+that line; it exits 1 at once when no CUDA device is present.
 """
 
 import json
@@ -52,8 +78,25 @@ import numpy as np
 NEG = -1e30
 SEED = 0
 PIECE_SECONDS = 64.0
-KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta")
+KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
+           "attention_fwd", "attention_bwd", "fused_mlp")
 TABLE_RTOL = 1e-5  # |kernel - plain| <= TABLE_RTOL * max(1, |plain|)
+FWD_ATOL = 2e-5  # attention forward and MLP: |kernel - plain|, unit-normal inputs
+BWD_ATOL = 1e-4  # attention dq, dk, dv
+CTX_RTOL = 1e-4  # fused vs default backbone ctx: * max(1, max |ctx|)
+LOSS_RTOL = 1e-5  # fused vs default training loss, step by step
+FUSED_TRAIN_STEPS = 4
+TRAIN_BATCH = 4
+# the flagship shapes of one 16 s segment: F- and T-attention [B, S, D] with
+# ATTN_HEADS heads, and the FFN's [tokens, D] -> MLP_HIDDEN -> D
+ATTN_SHAPES, ATTN_HEADS = ((89, 149, 256), (149, 89, 256)), 8
+MLP_SHAPE, MLP_HIDDEN = (13261, 256), 1024
+# the same at --batchSize TRAIN_BATCH: the batch is folded into B and the tokens
+TRAIN_ATTN_SHAPES = tuple((TRAIN_BATCH * b, s, d) for b, s, d in ATTN_SHAPES)
+TRAIN_MLP_SHAPE = (TRAIN_BATCH * MLP_SHAPE[0], MLP_SHAPE[1])
+FUSED_FLAGS = ("TRANSKUN_TPU_FUSED_ATTN", "TRANSKUN_TPU_FUSED_MLP")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 
 
@@ -182,6 +225,97 @@ def check_logz_grad(logz, semicrf, dev):
     return err
 
 
+def bound(n_bytes, flops):
+    """The least milliseconds the card could take: every input read and every
+    output written once at the memory rate, or the fp32 operations at the
+    CUDA cores' peak, whichever is larger; and which of the two."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def table_bound(tp, nbp, ops_per_term, out_bytes=4):
+    """Bound of one pass over a [Tp, Tp, NBp] fp32 score tensor with two
+    [Tp, NBp] inputs and one [Tp, NBp] output; Tp(Tp-1)/2 terms a lane."""
+    n_bytes = 4 * tp * tp * nbp + 2 * 4 * tp * nbp + out_bytes * tp * nbp
+    return bound(n_bytes, ops_per_term * tp * (tp - 1) // 2 * nbp)
+
+
+def attention_inputs(rng, b, sq, skv, d, dev):
+    """Unit-normal q, k, v and cotangent do, flat [B, S, D]."""
+    import torch
+
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d))]
+
+
+def check_attention(attention, q, k, v, do, heads):
+    """Both attention kernels against their plain versions on the same card
+    inputs; returns (forward error, backward error, o)."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    o = attention.attention_fwd_cuda(q, k, v, heads, scale)
+    want = attention.attention_plain(q, k, v, heads, scale)
+    got_grads = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, want, do, heads, scale)
+    torch.cuda.synchronize()
+    fwd_err = float((o - want).abs().max())
+    bwd_err = max(float((g - w).abs().max()) for g, w in zip(got_grads, want_grads))
+    finite = all(bool(torch.isfinite(t).all()) for t in (o, *got_grads))
+    if not finite or fwd_err > FWD_ATOL or bwd_err > BWD_ATOL:
+        raise AssertionError(
+            f"attention kernels != plain at q {tuple(q.shape)}, k {tuple(k.shape)}, {heads} heads: "
+            f"forward max |diff| {fwd_err}, backward {bwd_err}"
+        )
+    return fwd_err, bwd_err, o
+
+
+def mlp_inputs(rng, m, d, hidden, dev):
+    """Unit-normal x; weights [in, out] scaled by 1/sqrt(fan in), small biases."""
+    import torch
+
+    arrays = (rng.normal(size=(m, d)), rng.normal(size=(d, hidden)) / math.sqrt(d),
+              rng.normal(size=hidden) * 0.1, rng.normal(size=(hidden, d)) / math.sqrt(hidden),
+              rng.normal(size=d) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+def check_mlp(mlp, args):
+    """The fused MLP kernel against its plain version; returns the largest
+    absolute difference."""
+    import torch
+
+    got = mlp.mlp_fwd_cuda(*args)
+    want = mlp.mlp_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not bool(torch.isfinite(got).all()) or err > FWD_ATOL:
+        raise AssertionError(f"fused_mlp != plain at x {tuple(args[0].shape)}, "
+                             f"w1 {tuple(args[1].shape)}: max |diff| {err}")
+    return err
+
+
+class CallCounter:
+    """Counts the calls of ``module.name`` while installed, so that a run's
+    kernel launches can be held against the calls made."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls, self.shapes = module, name, 0, set()
+        self.fn = getattr(module, name)
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.calls += 1
+            self.shapes.add(tuple(args[0].shape))  # the first operand's shape
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
 def synth_piece(fs, seconds, seed):
     """Sine notes at ~8 notes/s over low noise, int16-exact like decoded
     audio; [nSample, 1] float32."""
@@ -207,9 +341,9 @@ def build_corpus(root, fs, seed):
 
     from scipy.io import wavfile
 
-    from transkun_tpu.cli.create_dataset_maestro import main as create_dataset
-    from transkun_tpu.data.midi import write_midi
-    from transkun_tpu.data.note import Note as MidiNote
+    from transkun_tpu_torch.cli.create_dataset_maestro import main as create_dataset
+    from transkun_tpu_torch.data.midi import write_midi
+    from transkun_tpu_torch.data.note import Note as MidiNote
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -254,9 +388,10 @@ def main() -> int:
 
     from transkun_tpu_torch.cli import train as train_cli
     from transkun_tpu_torch.data.note import validate_notes
+    from transkun_tpu_torch.models import layers
     from transkun_tpu_torch.models.config import default_conf_path, load_default_conf
     from transkun_tpu_torch.models.transkun import TransKun
-    from transkun_tpu_torch.ops import _build, frontend, logz, semicrf, viterbi
+    from transkun_tpu_torch.ops import _build, attention, frontend, logz, mlp, semicrf, viterbi
     from transkun_tpu_torch.utils.convert import load_reference_checkpoint
 
     card = card_line()
@@ -265,6 +400,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    for flag in (*FUSED_FLAGS, "TRANSKUN_TPU_NO_PALLAS"):
+        os.environ.pop(flag, None)  # paths 1 and 2 are the default route
+
+    def counts():
+        return {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
+                "semicrf_beta": logz.beta_launches, "attention_fwd": attention.fwd_launches,
+                "attention_bwd": attention.bwd_launches, "fused_mlp": mlp.launches}
+
+    def reset_counts():
+        viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
+        attention.fwd_launches = attention.bwd_launches = mlp.launches = 0
+
+    by_path = {}  # launches of each kernel on paths 1, 2 and 3
 
     # -- build, one nvcc per source, all at once -------------------------------
     t0 = time.perf_counter()
@@ -284,6 +432,10 @@ def main() -> int:
     plain_ms = {"viterbi_bwd": cuda_ms(lambda: viterbi.viterbi_backward_tables_plain(*flagship), runs=3)}
     print(f"viterbi [696,696,128] ({card}): kernel {ms['viterbi_bwd']:.3f} ms, "
           f"plain {plain_ms['viterbi_bwd']:.3f} ms, ptr equal at [696,696,128] and [128,128,256]")
+    # an add and a compare a term; 4 operations a logsumexp term (add,
+    # subtract the max, exp, add)
+    bounds = {"viterbi_bwd": table_bound(*flagship[0].shape[1:], 2)}
+    library_ms = dict.fromkeys(KERNELS)  # no single PyTorch call computes kernels 1-3 or 6
     del flagship
 
     s, shift, noise, spdiag = table_inputs(rng, 691, 384, 360, dev)  # the training shape
@@ -296,6 +448,7 @@ def main() -> int:
         err[name] = max(e[name] for e in errs)
         ms[name] = cuda_ms(lambda: kernel(s, rows, spdiag))
         plain_ms[name] = cuda_ms(lambda: plain(s, rows, spdiag), runs=3)
+        bounds[name] = table_bound(*s.shape[1:], 4)
         print(f"{name} [696,696,384] ({card}): kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms")
     print(f"alpha/beta within {TABLE_RTOL}*max(1,|plain|) of plain at [696,696,384] and "
           f"[128,128,256]: max |diff| alpha {err['semicrf_alpha']:.3g}, beta {err['semicrf_beta']:.3g}")
@@ -303,6 +456,78 @@ def main() -> int:
     grad_err = check_logz_grad(logz, semicrf, dev)
     print(f"logZ + score cotangent via kernels vs autograd of log_z_slow [45,45,5]: "
           f"max |diff| {grad_err:.3g}")
+
+    # attention: the segment's and the training batch's shapes and a ragged one
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def time_attention(q, k, v, do, o, heads):
+        """Kernel, plain and library milliseconds and the bound of the
+        forward ("fwd") and the backward ("bwd") on these inputs."""
+        b, sq, d = q.shape
+        dh = d // heads
+        scale = 1.0 / math.sqrt(dh)
+        # the library's call on the same inputs, heads as strided views
+        qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
+        o_lib = sdpa(qh, kh, vh, scale=scale)
+        do_h = do.view(b, sq, heads, dh).transpose(1, 2)
+        lib_err = float((o_lib.detach().transpose(1, 2).reshape(b, sq, d) - o).abs().max())
+        # 2 products forward, 5 backward, 2 operations a multiply-add;
+        # 4 tensors moved forward, 5 read and 3 written backward
+        products = 2 * b * heads * sq * k.shape[1] * dh
+        return {
+            "fwd": (cuda_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
+                    cuda_ms(lambda: attention.attention_plain(q, k, v, heads, scale)),
+                    cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale)),
+                    bound(4 * (2 * q.numel() + 2 * k.numel()), 2 * products)),
+            "bwd": (cuda_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)),
+                    cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale)),
+                    cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h, retain_graph=True)),
+                    bound(4 * (4 * q.numel() + 4 * k.numel()), 5 * products)),
+        }, lib_err
+
+    err["attention_fwd"] = err["attention_bwd"] = 0.0
+    for shape, skv, heads in (
+        [(s, s[1], ATTN_HEADS) for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES] + [((5, 37, 24), 61, 3)]
+    ):
+        b, sq, d = shape
+        q, k, v, do = attention_inputs(rng, b, sq, skv, d, dev)
+        fwd_err, bwd_err, o = check_attention(attention, q, k, v, do, heads)
+        err["attention_fwd"] = max(err["attention_fwd"], fwd_err)
+        err["attention_bwd"] = max(err["attention_bwd"], bwd_err)
+        if shape not in (ATTN_SHAPES[0], TRAIN_ATTN_SHAPES[0]):
+            continue
+        timed, lib_err = time_attention(q, k, v, do, o, heads)
+        # the kernels line: the forward at the segment's shape; the backward
+        # at the batch's, the only one the paths launch it at
+        name, side = ("attention_fwd", "fwd") if shape == ATTN_SHAPES[0] else ("attention_bwd", "bwd")
+        ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side]
+        print(f"attention {list(shape)}, {heads} heads ({card}): forward kernel "
+              f"{timed['fwd'][0]:.3f} ms, plain {timed['fwd'][1]:.3f} ms, SDPA {timed['fwd'][2]:.3f} ms "
+              f"(|SDPA - kernel| {lib_err:.3g}), bound {timed['fwd'][3][0]:.4f} ms; backward kernel "
+              f"{timed['bwd'][0]:.3f} ms, plain {timed['bwd'][1]:.3f} ms, SDPA backward "
+              f"{timed['bwd'][2]:.3f} ms, bound {timed['bwd'][3][0]:.4f} ms")
+    print(f"attention within {FWD_ATOL} (forward) and {BWD_ATOL} (dq, dk, dv) of plain at "
+          f"{[list(s) for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES]} and q [5,37,24] x k [5,61,24], "
+          f"3 heads: max |diff| forward {err['attention_fwd']:.3g}, backward {err['attention_bwd']:.3g}")
+    del q, k, v, do, o
+
+    # fused MLP: the segment's and the training batch's shapes and a ragged
+    # one (last row tile part full); the kernels line carries the segment's
+    err["fused_mlp"] = check_mlp(mlp, mlp_inputs(rng, 1000, 128, 192, dev))
+    for shape in (TRAIN_MLP_SHAPE, MLP_SHAPE):  # the last one's times stay
+        args = mlp_inputs(rng, *shape, MLP_HIDDEN, dev)
+        err["fused_mlp"] = max(err["fused_mlp"], check_mlp(mlp, args))
+        ms["fused_mlp"] = cuda_ms(lambda: mlp.mlp_fwd_cuda(*args))
+        plain_ms["fused_mlp"] = cuda_ms(lambda: mlp.mlp_plain(*args))
+        m_rows, d = shape
+        bounds["fused_mlp"] = bound(4 * (2 * m_rows * d + 2 * d * MLP_HIDDEN + MLP_HIDDEN + d),
+                                    4 * m_rows * d * MLP_HIDDEN)
+        print(f"fused_mlp {list(shape)} -> {MLP_HIDDEN} -> {d} ({card}): kernel "
+              f"{ms['fused_mlp']:.3f} ms, plain {plain_ms['fused_mlp']:.3f} ms, "
+              f"bound {bounds['fused_mlp'][0]:.4f} ms")
+    print(f"fused_mlp within {FWD_ATOL} of plain at {list(MLP_SHAPE)}, {list(TRAIN_MLP_SHAPE)} "
+          f"and [1000,128] -> 192: max |diff| {err['fused_mlp']:.3g}")
+    del args
 
     # -- path 1: flagship transcription on the card ----------------------------
     _, conf = load_default_conf()
@@ -319,33 +544,38 @@ def main() -> int:
     def n_segments(n_samples):
         return math.ceil((n_samples + 2 * pad) / step)
 
-    model.transcribe(audio)  # warm-up: cuBLAS handles, allocator pools
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
-    t0 = time.perf_counter()
-    notes = model.transcribe(audio)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
-                "semicrf_beta": logz.beta_launches}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    def timed_transcription():
+        """(notes, wall seconds, peak GB, launches) of one transcription of
+        the piece, after a warm-up one (cuBLAS handles, allocator pools)."""
+        model.transcribe(audio)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        notes = model.transcribe(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return notes, wall, torch.cuda.max_memory_allocated(dev) / 1e9, counts()
+
+    def check_notes(notes):
+        if not notes:
+            raise AssertionError("no notes decoded")
+        validate_notes(notes)
+        times = np.array([[n.start, n.end] for n in notes])
+        # no note starts before 0 or ends after the last segment's last frame
+        last_end = ((n_seg - 1) * step / conf.fs - pad / conf.fs
+                    + frontend.num_frames(seg_size, conf.hopSize) * conf.hopSize / conf.fs)
+        if not (np.isfinite(times).all() and times.min() >= 0 and times.max() <= last_end):
+            raise AssertionError(f"note times out of range: {times.min()} .. {times.max()}")
 
     n_seg = n_segments(audio.shape[0])
-    if launches != {"viterbi_bwd": n_seg, "semicrf_alpha": 0, "semicrf_beta": 0}:
-        raise AssertionError(f"transcription launches {launches} for {n_seg} segments")
-    if not notes:
-        raise AssertionError("no notes decoded")
-    validate_notes(notes)
-    times = np.array([[n.start, n.end] for n in notes])
-    # no note starts before 0 or ends after the last segment's last frame
-    last_end = ((n_seg - 1) * step / conf.fs - pad / conf.fs
-                + frontend.num_frames(seg_size, conf.hopSize) * conf.hopSize / conf.fs)
-    if not (np.isfinite(times).all() and times.min() >= 0 and times.max() <= last_end):
-        raise AssertionError(f"note times out of range: {times.min()} .. {times.max()}")
+    notes, wall, peak_gb, by_path["transcribe"] = timed_transcription()
+    if by_path["transcribe"] != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}:
+        raise AssertionError(f"transcription launches {by_path['transcribe']} for {n_seg} segments")
+    check_notes(notes)
     print(f"transcribe {PIECE_SECONDS:.0f} s, {n_seg} segments ({card}): wall {wall:.3f} s, "
           f"RTF {PIECE_SECONDS / wall:.1f}x, peak memory {peak_gb:.2f} GB, "
-          f"{len(notes)} notes, launches {launches}")
+          f"{len(notes)} notes, launches {by_path['transcribe']}")
 
     # one segment's real scores: kernel table == plain table
     padded = np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))
@@ -353,10 +583,10 @@ def main() -> int:
     with torch.no_grad():
         frames = frontend.make_frame(seg[None], conf.hopSize, conf.windowSize)
         t = frames.shape[-2]
-        s_t, noise, diag, _ = model.module.process_frames_decode(frames, -(-t // 8) * 8, 128)
+        s_t, noise, diag, ctx = model.module.process_frames_decode(frames, -(-t // 8) * 8, 128)
         err["viterbi_bwd"] = max(err["viterbi_bwd"], check_kernel(viterbi, s_t, noise, diag * (diag > 0)))
     print(f"segment 3 real scores {tuple(s_t.shape)}: kernel ptr == plain ptr")
-    del model, s_t, noise, diag, frames
+    del s_t, noise, diag
 
     # -- path 2: flagship training through the entry point ---------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -365,43 +595,44 @@ def main() -> int:
         print(f"corpus: {TRAIN_PIECES} train + {VAL_PIECES} validation pieces of "
               f"{CORPUS_PIECE_SECONDS:.0f} s in {time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(tmp, "ckpt.pt")
-        args = [ckpt, "--datasetPath", os.path.join(tmp, "corpus"),
+        args = ["--datasetPath", os.path.join(tmp, "corpus"),
                 "--datasetMetaFile_train", os.path.join(pickles, "train.pickle"),
                 "--datasetMetaFile_val", os.path.join(pickles, "val.pickle"),
-                "--modelConf", default_conf_path(), "--batchSize", "4",
-                "--statsEvery", "4", "--ckptEvery", "3", "--logEvery", "1",
-                "--seed", str(SEED), "--device", "cuda"]
-        viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
+                "--modelConf", default_conf_path(), "--batchSize", str(TRAIN_BATCH),
+                "--ckptEvery", "3", "--logEvery", "1", "--seed", str(SEED), "--device", "cuda"]
+        reset_counts()
         t0 = time.perf_counter()
-        first = train_cli.main(args + ["--maxEpoch", "1"])
-        second = train_cli.main(args + ["--maxEpoch", "2", "--stopAtStep", str(first["steps"] + 2)])
+        first = train_cli.main([ckpt, *args, "--statsEvery", "4", "--maxEpoch", "1"])
+        second = train_cli.main([ckpt, *args, "--statsEvery", "4", "--maxEpoch", "2",
+                                 "--stopAtStep", str(first["steps"] + 2)])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
-        train_launches = {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
-                          "semicrf_beta": logz.beta_launches}
+        by_path["train"] = counts()
         runs = (first, second)
         steps = sum(r["steps"] for r in runs)
         val_batches = sum(r["val_batches"] for r in runs)
-        want = {"semicrf_alpha": steps + val_batches, "semicrf_beta": steps + val_batches,
+        want = {**dict.fromkeys(KERNELS, 0),
+                "semicrf_alpha": steps + val_batches, "semicrf_beta": steps + val_batches,
                 "viterbi_bwd": sum(2 * r["stats_passes"] for r in runs) + val_batches}
         losses = [x for r in runs for x in r["losses"]]
-        if train_launches != want:
-            raise AssertionError(f"training launches {train_launches}, calls made {want}")
+        if by_path["train"] != want:
+            raise AssertionError(f"training launches {by_path['train']}, calls made {want}")
         if second["steps"] != 2 or first["val_batches"] == 0 or first["stats_passes"] == 0:
             raise AssertionError(f"training runs {first} / {second}")
         if len(losses) != steps or not np.isfinite(losses).all():
             raise AssertionError(f"losses {losses}")
         step_s = first["step_seconds"][1:] + second["step_seconds"][1:]
-        print(f"train flagship V2 --batchSize 4 ({card}): {steps} steps "
+        train_peak_gb = max(r["step_peak_bytes"] for r in runs) / 1e9
+        print(f"train flagship V2 --batchSize {TRAIN_BATCH} ({card}): {steps} steps "
               f"({first['steps']} + resume {second['steps']}), {val_batches} validation "
               f"batches, {first['stats_passes'] + second['stats_passes']} stats passes, "
               f"wall {train_wall:.1f} s")
         print(f"train step: median {float(np.median(step_s)):.4f} s over {len(step_s)} steps "
               f"after each run's first (all: {[round(x, 4) for x in first['step_seconds'] + second['step_seconds']]}), "
-              f"peak memory {max(r['step_peak_bytes'] for r in runs) / 1e9:.2f} GB")
+              f"peak memory {train_peak_gb:.2f} GB")
         print(f"train losses: {[round(x, 3) for x in losses]}")
         print(f"validation: {first['val_results']}")
-        print(f"training launches {train_launches} (= steps + validation batches; "
+        print(f"training launches {by_path['train']} (= steps + validation batches; "
               f"2 per stats pass + 1 per validation batch)")
 
         # the trained best weights, loaded as a user would, transcribe a piece
@@ -413,35 +644,132 @@ def main() -> int:
 
         _, x = wavfile.read(os.path.join(tmp, "corpus", piece["audio_filename"]))
         x = (x.astype(np.float32) / 32768.0)[:, None]
-        viterbi.launches = 0
-        notes = trained.transcribe(x)
+        reset_counts()
+        trained_notes = trained.transcribe(x)
         torch.cuda.synchronize()
-        validate_notes(notes)
-        if viterbi.launches != n_segments(x.shape[0]):
-            raise AssertionError(f"{viterbi.launches} Viterbi launches for {n_segments(x.shape[0])} segments")
-        launches["viterbi_bwd"] += train_launches["viterbi_bwd"] + viterbi.launches
-        launches["semicrf_alpha"] += train_launches["semicrf_alpha"]
-        launches["semicrf_beta"] += train_launches["semicrf_beta"]
+        validate_notes(trained_notes)
+        if counts() != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_segments(x.shape[0])}:
+            raise AssertionError(f"launches {counts()} for {n_segments(x.shape[0])} segments")
+        by_path["train"]["viterbi_bwd"] += viterbi.launches
         print(f"trained best_state_dict transcribes {CORPUS_PIECE_SECONDS:.0f} s: "
-              f"{len(notes)} notes, {viterbi.launches} Viterbi launches")
+              f"{len(trained_notes)} notes, {viterbi.launches} Viterbi launches")
+        del trained
 
-    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
-           or m.split(".")[:2] in [["transkun_tpu", x] for x in ("models", "ops", "utils", "train", "parallel")]]
+        # -- path 3: the fused-backbone configuration, serving then training -----
+        n_attn = sum(isinstance(m, layers.MultiHeadAttention) for m in model.module.modules())
+        n_ffn = sum(isinstance(m, layers.FFNResBlock) for m in model.module.modules())
+        for flag in FUSED_FLAGS:
+            os.environ[flag] = "1"
+        with CallCounter(attention, "fused_attention") as attn_calls, \
+                CallCounter(mlp, "fused_mlp") as mlp_calls:
+            fused_notes, fused_wall, fused_peak_gb, by_path["fused"] = timed_transcription()
+            # the timed run only: the warm-up one made as many calls again
+            calls = {"attention_fwd": attn_calls.calls // 2, "attention_bwd": 0,
+                     "fused_mlp": mlp_calls.calls // 2}
+            want = {**dict.fromkeys(KERNELS, 0), **calls, "viterbi_bwd": n_seg}
+            if by_path["fused"] != want or calls["attention_fwd"] != n_seg * n_attn \
+                    or calls["fused_mlp"] != n_seg * n_ffn:
+                raise AssertionError(
+                    f"fused transcription launches {by_path['fused']}, calls made {want} "
+                    f"({n_seg} segments, {n_attn} attention and {n_ffn} FFN blocks)")
+            if attn_calls.shapes != set(ATTN_SHAPES) or mlp_calls.shapes != {MLP_SHAPE}:
+                raise AssertionError(f"the kernels were held against their plain versions at "
+                                     f"{ATTN_SHAPES} and {MLP_SHAPE}; the path gave "
+                                     f"{attn_calls.shapes} and {mlp_calls.shapes}")
+            check_notes(fused_notes)
+            with torch.no_grad():
+                ctx_fused = model.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
+            ctx_err, ctx_max = float((ctx_fused - ctx).abs().max()), float(ctx.abs().max())
+            if not bool(torch.isfinite(ctx_fused).all()) or ctx_err > CTX_RTOL * max(1.0, ctx_max):
+                raise AssertionError(f"fused ctx differs from the default route's by {ctx_err} "
+                                     f"(max |ctx| {ctx_max})")
+
+            def key(n):  # times to the millisecond: the refined ends move in their last bits
+                return (round(n.start * 1e3), round(n.end * 1e3), n.pitch, n.velocity)
+
+            differing = len({key(n) for n in notes} ^ {key(n) for n in fused_notes})
+            print(f"fused transcribe {PIECE_SECONDS:.0f} s ({card}): wall {fused_wall:.3f} s "
+                  f"(default route {wall:.3f} s), RTF {PIECE_SECONDS / fused_wall:.1f}x "
+                  f"({PIECE_SECONDS / wall:.1f}x), peak memory {fused_peak_gb:.2f} GB "
+                  f"({peak_gb:.2f} GB), {len(fused_notes)} notes ({len(notes)}), "
+                  f"{differing} notes differ between the routes; launches {by_path['fused']}")
+            print(f"segment 3 ctx {tuple(ctx.shape)}: fused vs default max |diff| {ctx_err:.3g} "
+                  f"(max |ctx| {ctx_max:.3g}, allowed {CTX_RTOL} * max(1, max |ctx|))")
+            del model, ctx, ctx_fused, frames
+
+            attn_calls.calls = mlp_calls.calls = 0
+            attn_calls.shapes.clear()
+            mlp_calls.shapes.clear()
+            reset_counts()
+            fused = train_cli.main([os.path.join(tmp, "ckpt_fused.pt"), *args, "--statsEvery", "0",
+                                    "--maxEpoch", "1", "--stopAtStep", str(FUSED_TRAIN_STEPS)])
+            torch.cuda.synchronize()
+            fused_launches = counts()
+        for flag in FUSED_FLAGS:
+            del os.environ[flag]
+        n = fused["steps"]
+        recompute = 2 if conf.useGradientCheckpoint else 1  # checkpointed layers run twice
+        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n,
+                "attention_fwd": attn_calls.calls, "attention_bwd": n * n_attn,
+                "fused_mlp": mlp_calls.calls}
+        if fused_launches != want or n != FUSED_TRAIN_STEPS \
+                or attn_calls.calls != n * n_attn * recompute or mlp_calls.calls != n * n_ffn * recompute:
+            raise AssertionError(f"fused training launches {fused_launches}, calls made {want} "
+                                 f"({n} steps, {n_attn} attention and {n_ffn} FFN blocks, "
+                                 f"x{recompute} forwards)")
+        if attn_calls.shapes != set(TRAIN_ATTN_SHAPES) or mlp_calls.shapes != {TRAIN_MLP_SHAPE}:
+            raise AssertionError(f"the kernels were held against their plain versions at "
+                                 f"{TRAIN_ATTN_SHAPES} and {TRAIN_MLP_SHAPE}; training gave "
+                                 f"{attn_calls.shapes} and {mlp_calls.shapes}")
+        # same seed, same corpus: the default route's run took these steps too
+        default_losses = first["losses"][:n]
+        if len(fused["losses"]) != n or len(default_losses) != n \
+                or not np.isfinite(fused["losses"]).all():
+            raise AssertionError(f"fused losses {fused['losses']}, default {default_losses}")
+        loss_err = max(abs(f - d) / abs(d) for f, d in zip(fused["losses"], default_losses))
+        if loss_err > LOSS_RTOL:
+            raise AssertionError(f"losses: fused {fused['losses']}, default {default_losses}, "
+                                 f"largest relative difference {loss_err}")
+        for name in KERNELS:
+            by_path["fused"][name] += fused_launches[name]
+        print(f"fused train flagship V2 --batchSize {TRAIN_BATCH} ({card}): {n} steps, step median "
+              f"{float(np.median(fused['step_seconds'][1:])):.4f} s after the first (all: "
+              f"{[round(x, 4) for x in fused['step_seconds']]}; default route "
+              f"{float(np.median(step_s)):.4f} s), peak memory "
+              f"{fused['step_peak_bytes'] / 1e9:.2f} GB ({train_peak_gb:.2f} GB)")
+        print(f"fused train losses: {[round(x, 3) for x in fused['losses']]}; against the default "
+              f"route's, step by step: largest relative difference {loss_err:.3g} (allowed {LOSS_RTOL})")
+        print(f"fused training launches {fused_launches}; attention shapes "
+              f"{sorted(attn_calls.shapes)}, MLP shapes {sorted(mlp_calls.shapes)}")
+
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
     if bad:
         raise AssertionError(f"JAX code was imported: {bad[:5]}")
 
-    sources = {"viterbi_bwd": ("transkun_tpu_torch/csrc/viterbi_bwd.cu", 67),
-               "semicrf_alpha": ("transkun_tpu_torch/csrc/semicrf_alpha.cu", 224),
-               "semicrf_beta": ("transkun_tpu_torch/csrc/semicrf_beta.cu", 321)}
+    pallas = "transkun_tpu/ops/"
+    sources = {"viterbi_bwd": ("viterbi_bwd.cu", pallas + "semicrf_pallas.py:67"),
+               "semicrf_alpha": ("semicrf_alpha.cu", pallas + "semicrf_pallas.py:224"),
+               "semicrf_beta": ("semicrf_beta.cu", pallas + "semicrf_pallas.py:321"),
+               "attention_fwd": ("attention_fwd.cu", pallas + "attention_pallas.py:78"),
+               "attention_bwd": ("attention_bwd.cu", pallas + "attention_pallas.py:127"),
+               "fused_mlp": ("fused_mlp.cu", pallas + "mlp_pallas.py:86")}
+    for name in KERNELS:
+        if sum(by_path[path][name] for path in by_path) == 0:
+            raise AssertionError(f"no path launched {name}")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": sources[name][0],
-        "replaces": f"transkun_tpu/ops/semicrf_pallas.py:{sources[name][1]}",
-        "launches": launches[name],
+        "source": "transkun_tpu_torch/csrc/" + sources[name][0],
+        "replaces": sources[name][1],
+        "launches": sum(by_path[path][name] for path in by_path),
+        "launches_by_path": {path: by_path[path][name] for path in by_path},
         "max_abs_err": err[name],
         "ms": ms[name],
         "plain_ms": plain_ms[name],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": library_ms[name],
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,6 +10,10 @@ clip and optimizer) with a device sync between them, and in a last run under
 ``torch.profiler`` sums the device time of every CUDA kernel.  Prints one
 JSON object: step wall time, peak memory, phase times, the device's busy
 share, the alpha and beta kernels' share of the step and the top kernels.
+
+With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
+environment it profiles the fused-backbone route; the breakdown names the
+attention forward and backward kernels and the fused MLP either way.
 """
 
 import argparse
@@ -38,9 +42,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     import chip_smoke
-    from transkun_tpu.data.note import Note
+    from transkun_tpu_torch.data.note import Note
     from transkun_tpu_torch.models.config import load_default_conf
     from transkun_tpu_torch.models.transkun import TransKun
+    from transkun_tpu_torch.ops import attention, mlp
     from transkun_tpu_torch.train.optim import AdaBelief
     from transkun_tpu_torch.train.step import TrainState, make_train_step
 
@@ -124,6 +129,8 @@ def main(argv=None):
     gemm_ms = ms_of(lambda n: "gemm" in n.lower() or "sm90_xmma" in n or "cutlass" in n.lower())
     print(json.dumps({
         "card": chip_smoke.card_line(),
+        "fused_attention": attention.use_fused_attention(),
+        "fused_mlp": mlp.use_fused_mlp(),
         "batch": args.batch,
         "loss": loss,
         "step_s": step_s,
@@ -135,6 +142,9 @@ def main(argv=None):
         "alpha_ms": alpha_ms,
         "beta_ms": beta_ms,
         "alpha_beta_share_of_device_time": (alpha_ms + beta_ms) / max(device_ms, 1e-9),
+        "attention_fwd_ms": ms_of(lambda n: "attention_fwd_kernel" in n),
+        "attention_bwd_ms": ms_of(lambda n: "attention_bwd_kernel" in n),
+        "fused_mlp_ms": ms_of(lambda n: "fused_mlp_kernel" in n),
         "gemm_ms": gemm_ms,
         "kernel_launches_profiled_step": sum(n for _, _, n in kernels),
         "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:15]],

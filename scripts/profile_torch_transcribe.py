@@ -7,6 +7,11 @@ diagonal bias -8), a synthetic piece from ``chip_smoke.synth_piece``.  After
 one warm-up run it times one run with host-clock spans around the stages of
 ``TransKun.transcribe`` and, in a second run under ``torch.profiler``, sums
 the device time of every CUDA kernel.  Prints one JSON object.
+
+With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
+environment it profiles the fused-backbone route; the breakdown names the
+port's own kernels (Viterbi, attention forward, fused MLP) beside the
+library GEMMs either way.
 """
 
 import argparse
@@ -35,7 +40,7 @@ def main(argv=None):
     import chip_smoke
     import transkun_tpu_torch.models.transkun as tk
     from transkun_tpu_torch.models.config import load_default_conf
-    from transkun_tpu_torch.ops import semicrf
+    from transkun_tpu_torch.ops import attention, mlp, semicrf
 
     _, conf = load_default_conf()
     model = tk.TransKun(conf, device="cuda", seed=args.seed)
@@ -92,8 +97,14 @@ def main(argv=None):
     ]
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
+
+    def ms_of(*parts):
+        return sum(ms for name, ms, _ in kernels if any(p in name.lower() for p in parts))
+
     print(json.dumps({
         "card": chip_smoke.card_line(),
+        "fused_attention": attention.use_fused_attention(),
+        "fused_mlp": mlp.use_fused_mlp(),
         "seconds": args.seconds,
         "notes": len(notes),
         "wall_s": wall,
@@ -102,6 +113,9 @@ def main(argv=None):
         "profiled_wall_s": profiled_wall,
         "device_kernel_ms_profiled_run": device_ms,
         "device_busy_share_profiled_run": device_ms / 1e3 / profiled_wall,
+        "own_kernels_ms": {name: ms_of(name + "_kernel") for name in
+                           ("viterbi_bwd", "attention_fwd", "fused_mlp")},
+        "gemm_ms": ms_of("gemm", "sm90_xmma", "cutlass"),
         "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:12]],
     }, indent=1))
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's six CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -104,3 +104,131 @@ def test_logz_kernels_reject_what_they_do_not_take(cuda):
             fn(s, rows[:-1], spdiag)
         with pytest.raises(ValueError):  # another device
             fn(s, rows.cpu(), spdiag)
+
+
+# -- fused attention and MLP --------------------------------------------------
+
+ATTN_SHAPES = [  # b, sq, skv, heads, head_dim
+    (89, 149, 149, 8, 32),  # flagship F-attention, one segment
+    (149, 89, 89, 8, 32),  # flagship T-attention
+    (5, 37, 61, 3, 8),  # ragged: cross-attention, odd lengths, 3 heads
+    (3, 7, 13, 2, 40),  # head_dim above a warp
+]
+
+
+def _attn_inputs(rng, b, sq, skv, d, dev):
+    shapes = [(b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d)]
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev) for s in shapes]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,h,dh", ATTN_SHAPES)
+def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh):
+    """Forward within 2e-5 and dq, dk, dv within 1e-4 of the plain versions
+    on unit-normal inputs (fp32 sums in another order), through the
+    autograd function as the model calls it."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(sq), b, sq, skv, h * dh, cuda)
+    scale = 1.0 / np.sqrt(dh)
+    f0, b0 = attention.fwd_launches, attention.bwd_launches
+    for a in (q, k, v):
+        a.requires_grad_()
+    o = attention.fused_attention(q, k, v, h, scale)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (attention.fwd_launches, attention.bwd_launches) == (f0 + 1, b0 + 1)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    want = attention.attention_plain(qd, kd, vd, h, scale)
+    assert float((o.detach() - want).abs().max()) <= 2e-5
+    grads = attention.attention_bwd_plain(qd, kd, vd, want, do, h, scale)
+    for got, g in zip((q.grad, k.grad, v.grad), grads):
+        assert float((got - g).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(0), 2, 9, 11, 16, cuda)
+    o = torch.zeros_like(q)
+    for fn, extra in ((attention.attention_fwd_cuda, ()), (attention.attention_bwd_cuda, (o, do))):
+        with pytest.raises(TypeError):
+            fn(q.double(), k, v, *extra, 2, 0.5)
+        with pytest.raises(TypeError):  # fp32 only for now
+            fn(q.bfloat16(), k.bfloat16(), v.bfloat16(), *[e.bfloat16() for e in extra], 2, 0.5)
+        with pytest.raises(ValueError):  # non-contiguous
+            fn(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, *extra, 2, 0.5)
+        with pytest.raises(ValueError):  # k and v disagree
+            fn(q, k, v[:, :-1].contiguous(), *extra, 2, 0.5)
+        with pytest.raises(ValueError):  # heads do not divide the width
+            fn(q, k, v, *extra, 3, 0.5)
+        with pytest.raises(ValueError):  # another device
+            fn(q, k.cpu(), v, *extra, 2, 0.5)
+        with pytest.raises(ValueError):  # more shared memory than a block has
+            long = torch.zeros(1, 30000, 16, device=cuda)
+            fn(long, long, long, *[long for _ in extra], 2, 0.5)
+    with pytest.raises(ValueError):  # do shaped like k, not like q
+        attention.attention_bwd_cuda(q, k, v, o, torch.zeros_like(k), 2, 0.5)
+
+
+def _mlp_inputs(rng, m, d, hidden, dev):
+    arrays = [
+        rng.normal(size=(m, d)), rng.normal(size=(d, hidden)) / np.sqrt(d),
+        rng.normal(size=hidden) * 0.1, rng.normal(size=(hidden, d)) / np.sqrt(hidden),
+        rng.normal(size=d) * 0.1,
+    ]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,hidden", [(13261, 256, 1024), (1000, 128, 192), (1, 256, 64)])
+def test_mlp_kernel_equals_plain(cuda, m, d, hidden):
+    """Within 2e-5 of the plain version (fp32 sums in another order), and
+    the five gradients within 1e-5 of autograd of the plain version.  The
+    weights are leaves in ``nn.Linear``'s [out, in] layout and go in as
+    transposed views, as ``FFNResBlock`` passes them."""
+    from transkun_tpu_torch.ops import mlp
+
+    x, w1, b1, w2, b2 = _mlp_inputs(np.random.default_rng(m), m, d, hidden, cuda)
+    co = torch.from_numpy(
+        np.random.default_rng(m + 1).normal(size=(m, d)).astype(np.float32)).to(cuda)
+
+    def leaves():
+        return [a.clone().requires_grad_() for a in (x, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+
+    got, want = leaves(), leaves()
+    before = mlp.launches
+    out = mlp.mlp(got[0], got[1].t(), got[2], got[3].t(), got[4])
+    (out * co).sum().backward()
+    ref = mlp.mlp_plain(want[0], want[1].t(), want[2], want[3].t(), want[4])
+    (ref * co).sum().backward()
+    torch.cuda.synchronize()
+    assert mlp.launches == before + 1
+    assert float((out.detach() - ref.detach()).abs().max()) <= 2e-5
+    for g, w in zip(got, want):
+        assert g.grad.shape == w.grad.shape
+        assert float((g.grad - w.grad).abs().max()) <= 1e-5 * max(1.0, float(w.grad.abs().max()))
+
+
+@pytest.mark.gpu
+def test_mlp_kernel_rejects_what_it_does_not_take(cuda):
+    from transkun_tpu_torch.ops import mlp
+
+    x, w1, b1, w2, b2 = _mlp_inputs(np.random.default_rng(0), 40, 128, 128, cuda)
+    with pytest.raises(TypeError):
+        mlp.mlp_fwd_cuda(x.double(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):  # a transposed view, as nn.Linear.weight.t()
+        mlp.mlp_fwd_cuda(x, w2.t(), b1, w2, b2)
+    with pytest.raises(ValueError):  # widths the kernel has no instance for
+        mlp.mlp_fwd_cuda(x[:, :96].contiguous(), w1[:96].contiguous(), b1,
+                         w2[:, :96].contiguous(), b2[:96].contiguous())
+    with pytest.raises(ValueError):  # hidden not a multiple of the chunk
+        mlp.mlp_fwd_cuda(x, w1[:, :100].contiguous(), b1[:100].contiguous(),
+                         w2[:100].contiguous(), b2)
+    with pytest.raises(ValueError):  # misaligned bias
+        mlp.mlp_fwd_cuda(x, w1, torch.zeros(129, device=cuda)[1:], w2, b2)
+    with pytest.raises(ValueError):  # another device
+        mlp.mlp_fwd_cuda(x, w1.cpu(), b1, w2, b2)
+    with pytest.raises(ValueError):  # no rows
+        mlp.mlp_fwd_cuda(x[:0], w1, b1, w2, b2)

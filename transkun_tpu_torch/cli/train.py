@@ -8,8 +8,8 @@ the reference ``python3 -m transkun.train``), one process on one device:
 Host loader -> label encoding -> semi-CRF NLL + attribute NLLs -> backward ->
 quantile clip -> rectified AdaBelief, with a stats decode every
 ``--statsEvery`` steps, validation every ``--validateEvery`` epochs and a
-crash-safe checkpoint file.  The data modules are the JAX package's
-JAX-free ``transkun_tpu.data``.  fp32 only: TF32 is turned off for matmuls
+crash-safe checkpoint file.  The data modules are the port's own
+``data`` package.  fp32 only: TF32 is turned off for matmuls
 and convolutions.  The default device is ``cuda`` and the command fails when
 CUDA is absent; ``--device cpu`` runs the plain PyTorch versions of the
 kernels.
@@ -85,9 +85,8 @@ def main(argv=None):
 
     import torch
 
-    from transkun_tpu.data import dataset as D
-    from transkun_tpu.data.augment import Augmentator
-
+    from ..data import dataset as D
+    from ..data.augment import Augmentator
     from ..models.config import parse_conf_file
     from ..train.checkpoint import checkpoint_exists, load_checkpoint, restore_train_state, save_checkpoint
     from ..train.optim import AdaBelief

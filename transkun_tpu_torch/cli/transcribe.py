@@ -33,9 +33,8 @@ def main(argv=None):
 
     import torch
 
-    from transkun_tpu.data.audio import read_audio, resample
-    from transkun_tpu.data.midi import write_midi
-
+    from ..data.audio import read_audio, resample
+    from ..data.midi import write_midi
     from ..models.config import load_default_conf, parse_conf_file
     from ..models.transkun import TransKun
     from ..utils.convert import load_reference_checkpoint

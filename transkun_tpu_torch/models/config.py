@@ -102,12 +102,9 @@ def parse_conf_file(path: str):
 
 
 def default_conf_path() -> str:
-    """Path of the shipped flagship V2 conf, read by path from the JAX
-    package's data directory (never through an import of that package)."""
+    """Path of the shipped flagship V2 conf, the port's own copy."""
     here = os.path.dirname(os.path.abspath(__file__))
-    return os.path.normpath(
-        os.path.join(here, "..", "..", "transkun_tpu", "pretrained", "2.0.conf")
-    )
+    return os.path.normpath(os.path.join(here, "..", "pretrained", "2.0.conf"))
 
 
 def load_default_conf():

@@ -18,6 +18,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import attention as attention_ops
+from ..ops import mlp as mlp_ops
 from ..ops.semicrf import NEG
 
 
@@ -123,13 +125,23 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(hidden, embed_dim)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-        out = attention(
-            query @ self.q_proj_weight,
-            key @ self.k_proj_weight,
-            key @ self.v_proj_weight,
-            self.num_heads,
-            1.0 / math.sqrt(self.head_dim),
-        )
+        q = query @ self.q_proj_weight
+        k = key @ self.k_proj_weight
+        v = key @ self.v_proj_weight
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if attention_ops.use_fused_attention():
+            # the fused route wants flat [B, S, hidden]: broadcast the
+            # leading dims of the query against the key/value's explicitly
+            lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+            hidden = q.shape[-1]
+            flat = [
+                x.expand(*lead, *x.shape[-2:]).reshape(-1, x.shape[-2], hidden).contiguous()
+                for x in (q, k, v)
+            ]
+            out = attention_ops.fused_attention(*flat, self.num_heads, scale)
+            out = out.reshape(*lead, q.shape[-2], hidden)
+        else:
+            out = attention(q, k, v, self.num_heads, scale)
         return self.out_proj(out)
 
 
@@ -157,7 +169,16 @@ class FFNResBlock(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.drop(self.module(rms_norm(x))) * self.scale
+        xin = rms_norm(x)
+        if mlp_ops.use_fused_mlp() and (not self.training or self.module[2].p == 0.0):
+            # the hidden activation stays on chip; the mid-FFN dropout is a
+            # no-op under this condition.  nn.Linear stores [out, in], the
+            # fused route takes [in, out]
+            lin1, lin2 = self.module[0], self.module[3]
+            h = mlp_ops.mlp(xin, lin1.weight.t(), lin1.bias, lin2.weight.t(), lin2.bias)
+        else:
+            h = self.module(xin)
+        return x + self.drop(h) * self.scale
 
 
 class BasicBlock(nn.Module):

@@ -259,7 +259,7 @@ def log_prob_padded(module: TransKunModule, frames: torch.Tensor, labels: Labels
     ``log_prob_padded``.  Runs in the module's current mode.
 
     labels = (begins, ends, mask, velocity [N, P, K], refine, presence
-    [N, P, K, 2]) from ``transkun_tpu.data.labels.encode_batch``, as tensors
+    [N, P, K, 2]) from ``data.labels.encode_batch``, as tensors
     on the module's device."""
     begins, ends, mask, velocity, refine, presence = labels
     n, p, k = begins.shape
@@ -319,7 +319,7 @@ class TransKun:
 
     def labels(self, notes_batch, max_events: int = 32) -> Labels:
         """Note lists -> padded label tensors on the device."""
-        from transkun_tpu.data.labels import encode_batch
+        from ..data.labels import encode_batch
 
         labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events)
         return tuple(torch.from_numpy(a).to(self.device) for a in labels.astuple())
@@ -358,8 +358,8 @@ class TransKun:
         """Decode-vs-GT bracket and framewise counts, and the forced velocity
         and onset/offset square errors on the GT intervals (ref
         ``computeStats``)."""
-        from transkun_tpu.data.labels import prepare_intervals
-        from transkun_tpu.eval.evaluation import compare_bracket, compare_framewise
+        from ..data.labels import prepare_intervals
+        from ..eval.evaluation import compare_bracket, compare_framewise
 
         frames = self.frames(audio_batch)
         n_batch = frames.shape[0]
@@ -416,7 +416,7 @@ class TransKun:
     def compute_stats_mireval(self, audio_batch: np.ndarray, notes_batch) -> Dict[str, float]:
         """Note-with-offset counts by full decode and matching (ref
         ``computeStatsMIREVAL``)."""
-        from transkun_tpu.eval.evaluation import compare_transcription
+        from ..eval.evaluation import compare_transcription
 
         notes_est, _ = self.transcribe_frames(self.frames(audio_batch))
         n_gt = n_est = n_correct = 0.0

@@ -31,6 +31,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")

@@ -1,0 +1,206 @@
+"""Fused multi-head attention over flat ``[B, S, H*dh]`` inputs: the CUDA
+kernels ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` with their
+plain PyTorch versions, and ``fused_attention``, the autograd function that
+joins them.
+
+Port of ``transkun_tpu/ops/attention_pallas.py``, whose TPU kernels are
+``_fwd_kernel`` (``:78``) and ``_bwd_kernel`` (``:127``).  Heads are column
+slices of the last axis; q is ``[B, Sq, H*dh]``, k and v ``[B, Skv, H*dh]``.
+Logits, softmax and every product accumulate in fp32.  The backward
+recomputes the softmax from q and k and takes ``delta = rowsum(do * o)``
+from the saved output, so nothing of size ``[Sq, Skv]`` is kept.
+
+The route is opt-in, as in the JAX package: ``use_fused_attention`` reads
+``TRANSKUN_TPU_FUSED_ATTN`` (and ``TRANSKUN_TPU_NO_PALLAS``, which turns it
+off) at call time.  The flag alone selects the route.  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel or
+raises, and never falls back.  fp32 only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+# Kernel launches made by attention_fwd_cuda / attention_bwd_cuda; nothing
+# else changes them except a caller resetting them to 0.
+fwd_launches = 0
+bwd_launches = 0
+
+
+def use_fused_attention() -> bool:
+    """The JAX package's gate (``use_pallas_attention``) without its backend
+    test: off unless ``TRANSKUN_TPU_FUSED_ATTN`` is set, and off whenever
+    ``TRANSKUN_TPU_NO_PALLAS`` is."""
+    if os.environ.get("TRANSKUN_TPU_NO_PALLAS"):
+        return False
+    return bool(os.environ.get("TRANSKUN_TPU_FUSED_ATTN"))
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*dh] -> [B, H, S, dh] fp32 (a view where x is fp32)."""
+    b, s, d = x.shape
+    return x.float().reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, dh] -> [B, S, H*dh]."""
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _softmax_parts(q, k, num_heads: int, scale: float):
+    """(q*scale, k, exp(logits - rowmax), its row sum) per head, fp32."""
+    qs, kh = _heads(q, num_heads) * scale, _heads(k, num_heads)
+    logits = torch.matmul(qs, kh.transpose(-1, -2))  # [B, H, Sq, Skv]
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return qs, kh, p, p.sum(dim=-1, keepdim=True)
+
+
+def attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """softmax((q*scale) k^T) v per head, as the TPU forward kernel takes
+    it: fp32 logits from the scaled q, row max, exp, sum, weighted sum, one
+    division."""
+    _, _, p, s = _softmax_parts(q, k, num_heads, scale)
+    o = torch.matmul(p, _heads(v, num_heads)) / s
+    return _flat(o).to(q.dtype)
+
+
+def attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, num_heads: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``attention_plain`` written out, as the TPU backward
+    kernel takes it: the softmax recomputed, delta = rowsum(do*o),
+    dl = p*(dp - delta), dq = dl k * scale, dk = dl^T (q*scale), dv = p^T do."""
+    qs, kh, p, s = _softmax_parts(q, k, num_heads, scale)
+    pn = p / s
+    doh = _heads(do, num_heads)
+    delta = (doh * _heads(o, num_heads)).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(doh, _heads(v, num_heads).transpose(-1, -2))
+    dl = pn * (dp - delta)
+    dq = torch.matmul(dl, kh) * scale
+    dk = torch.matmul(dl.transpose(-1, -2), qs)
+    dv = torch.matmul(pn.transpose(-1, -2), doh)
+    return _flat(dq).to(q.dtype), _flat(dk).to(k.dtype), _flat(dv).to(v.dtype)
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.cache
+def _library(name: str, n_tensors: int) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    # tensors, then b, sq, skv, heads, head_dim, scale, device, stream
+    fn.argtypes = [_PTR] * n_tensors + [_INT] * 5 + [ctypes.c_float, _INT, _PTR]
+    fn.restype = _INT
+    getattr(lib, name + "_smem_bytes").argtypes = [_INT, _INT, _INT]
+    getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
+    getattr(lib, name + "_error_string").argtypes = [_INT]
+    getattr(lib, name + "_error_string").restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float):
+    """Check ``inputs`` (q, k, v and, for the backward, o and do), allocate
+    the outputs and launch ``name`` on the current stream."""
+    q, k, v = inputs[:3]
+    for arg, a in zip(("q", "k", "v", "o", "do"), inputs):
+        if a.device != q.device or a.device.type != "cuda":
+            raise ValueError(f"{arg} is on {a.device}, q on {q.device}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{arg} must be float32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must be [B, S, H*dh]")
+    b, sq, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, d) or v.shape != k.shape or any(a.shape != q.shape for a in inputs[3:]):
+        raise ValueError(
+            f"shapes {[tuple(a.shape) for a in inputs]}: want q, o, do [B, Sq, D] "
+            "and k, v [B, Skv, D]"
+        )
+    if num_heads < 1 or d % num_heads or 0 in (b, sq, skv, d):
+        raise ValueError(f"D={d} must be a positive multiple of num_heads={num_heads}, B and S positive")
+    lib = _library(name, len(inputs) + n_out)
+    smem = getattr(lib, name + "_smem_bytes")(sq, skv, d // num_heads)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"Sq={sq}, Skv={skv}, head_dim={d // num_heads} need {smem} B of shared "
+            f"memory, above {_build.SMEM_LIMIT} B: sequence too long for the kernel"
+        )
+    outs = [torch.empty_like(a) for a in ((q,) if n_out == 1 else (q, k, v))]
+    err = getattr(lib, name)(
+        *[a.data_ptr() for a in (*inputs, *outs)],
+        b, sq, skv, num_heads, d // num_heads, float(scale), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {getattr(lib, name + '_error_string')(err).decode()}"
+        )
+    return outs
+
+
+def attention_fwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Launch the forward kernel; raises on anything it does not take."""
+    global fwd_launches
+    (o,) = _launch("attention_fwd", (q, k, v), 1, num_heads, scale)
+    fwd_launches += 1
+    return o
+
+
+def attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, num_heads: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel; raises on anything it does not take."""
+    global bwd_launches
+    dq, dk, dv = _launch("attention_bwd", (q, k, v, o, do), 3, num_heads, scale)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def _by_device(x: torch.Tensor, plain, cuda):
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return cuda
+    raise ValueError(f"no attention kernel for device {x.device}")
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        o = _by_device(q, attention_plain, attention_fwd_cuda)(q, k, v, num_heads, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = _by_device(q, attention_bwd_plain, attention_bwd_cuda)
+        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), ctx.num_heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """softmax((q @ k^T) * scale) @ v per head; q/k/v ``[B, S, H*dh]``.  The
+    plain versions for CPU tensors, the CUDA kernels for CUDA tensors, in
+    the forward and in the backward."""
+    return _FusedAttention.apply(q, k, v, num_heads, scale)

@@ -31,8 +31,6 @@ from . import _build, semicrf
 alpha_launches = 0
 beta_launches = 0
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-
 
 def _lse_step(terms: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     """logaddexp(skip, logsumexp over axis 0 of ``terms``) as one sum, as
@@ -106,9 +104,9 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
     if tp == 0 or nbp == 0 or nbp % lanes:
         raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
     smem = getattr(lib, name + "_smem_bytes")(tp)
-    if smem > _SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"Tp={tp} needs {smem} B of shared memory, above {_SMEM_LIMIT} B: "
+            f"Tp={tp} needs {smem} B of shared memory, above {_build.SMEM_LIMIT} B: "
             "chunk too long for the kernel"
         )
     out = torch.empty(tp, nbp, dtype=torch.float32, device=s_pad.device)

@@ -26,8 +26,6 @@ from . import _build
 # changes it except a caller resetting it to 0.
 launches = 0
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-
 
 def viterbi_backward_tables_plain(
     s_t: torch.Tensor, noise: torch.Tensor, diag_gate: torch.Tensor
@@ -96,9 +94,9 @@ def viterbi_backward_tables_cuda(
     if tp % 8 or nbp % lanes or tp == 0 or nbp == 0:
         raise ValueError(f"Tp={tp} must be a multiple of 8, NBp={nbp} of {lanes}")
     smem = lib.viterbi_bwd_smem_bytes(tp)
-    if smem > _SMEM_LIMIT:
+    if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"Tp={tp} needs {smem} B of shared memory, above {_SMEM_LIMIT} B: "
+            f"Tp={tp} needs {smem} B of shared memory, above {_build.SMEM_LIMIT} B: "
             "segment too long for the kernel"
         )
     ptr = torch.empty(tp, nbp, dtype=torch.int32, device=s_t.device)
