@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-1. Builds the six CUDA kernels from ``transkun_tpu_torch/csrc`` (nvcc,
-   sm_90a), one ``nvcc`` per source, all at once.
+1. Builds the eight CUDA kernels from the seven sources of
+   ``transkun_tpu_torch/csrc`` (nvcc, sm_90a), one ``nvcc`` per source, all
+   at once.
 2. Holds the Viterbi kernel against its plain PyTorch version at the
    flagship decode shape [696, 696, 128] and at a ragged shape (t = 123,
    Tp = 128, two segments' lanes): the pointer tables must be equal.
@@ -27,6 +28,18 @@
    line carries the forward's time at the segment's shape.
    ``F.scaled_dot_product_attention`` and its backward are timed on the
    same inputs as the library's yardstick; the port never calls them.
+   The Viterbi, alpha and beta kernels again with the same scores rounded to
+   bf16, at the same shapes: Viterbi bit for bit, alpha and beta within the
+   same 1e-5 * max(1, |plain|) (the plain versions upcast the same bits).
+   The row softmax kernels, forward and backward, against their plain
+   versions at the attention logits of one segment ([106088, 149] and
+   [106088, 89]), of a training batch of 4 (four times the rows) and at
+   ragged shapes (1003 rows of 1, 9, 33, 149 and 300 columns), fp32 and
+   bf16.  fp32: the forward within 1e-6 absolute, the backward within 1e-6
+   times the largest cotangent (dl is linear in do).  bf16: within one bf16
+   unit in the last place of the plain result; in the backward, where
+   ``do - delta`` cancels, plus that fp32 bound.  Timed with the L2 cache flushed
+   before each run, beside ``torch.softmax`` and its autograd backward.
 4. Transcription: a 64 s synthetic piece with the flagship V2
    configuration (``transkun_tpu_torch/pretrained/2.0.conf``) and random weights
    from a seeded ``torch.Generator``.  Checks that the Viterbi kernel ran
@@ -54,11 +67,32 @@
    The notes that differ between the two routes (pitch, velocity, times to
    the millisecond) are counted, not refused.
 
+7. The bf16 configuration (``compute_dtype=torch.bfloat16``, the CLIs'
+   ``--bf16``) at full width and depth on the default route: the piece,
+   weights and seed of 4 are transcribed, then ``cli.train.main --bf16``
+   takes a few steps on the corpus of 5 with the seed of 5.  The score
+   tensors handed to the Viterbi, alpha and beta wrappers must be bf16 and
+   of the shapes the kernels were held against their plain versions at; the
+   launch counts must equal the calls made; every loss must be finite and
+   within 1e-3 relative of the fp32 route's at the same step, and one
+   segment's ctx within 5e-2 * max |ctx| of the fp32 route's (bf16 carries
+   8 significant bits through six layers).  Notes that differ from the fp32
+   route's are counted, not refused.
+8. The softmax study path (``TRANSKUN_TPU_FUSED_SOFTMAX=1``): the
+   explicit-softmax attention core, ``q k^T * scale`` by ``torch.matmul``,
+   ``ops.softmax.softmax_last``, ``p v``, forward and backward at
+   [89, 8, 149, 32] and [149, 8, 89, 32], fp32 and bf16, held against
+   ``attention_plain`` / ``attention_bwd_plain`` (fp32: 2e-5 forward, 1e-4
+   backward; bf16, whose logits and probabilities are rounded where the
+   plain version keeps fp32: 4e-2 and 6e-2 on unit-normal inputs); the
+   softmax launch counts must equal the calls made.
+
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, then one JSON
-line with the kernels (launches on the three paths, largest error, kernel,
+line with the kernels (launches on the five paths, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
-fp32 operations over 67 TFLOP/s, whichever is larger) and, as the last
+fp32 operations over 67 TFLOP/s, whichever is larger; the times with bf16
+input under ``bf16``) and, as the last
 line, ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.  Any failed check raises, so the script exits non-zero without
 that line; it exits 1 at once when no CUDA device is present.
@@ -79,13 +113,22 @@ NEG = -1e30
 SEED = 0
 PIECE_SECONDS = 64.0
 KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
-           "attention_fwd", "attention_bwd", "fused_mlp")
+           "attention_fwd", "attention_bwd", "fused_mlp", "softmax_fwd", "softmax_bwd")
+# the sources to build: softmax_rows.cu holds both softmax kernels
+SOURCES = KERNELS[:6] + ("softmax_rows",)
 TABLE_RTOL = 1e-5  # |kernel - plain| <= TABLE_RTOL * max(1, |plain|)
 FWD_ATOL = 2e-5  # attention forward and MLP: |kernel - plain|, unit-normal inputs
 BWD_ATOL = 1e-4  # attention dq, dk, dv
 CTX_RTOL = 1e-4  # fused vs default backbone ctx: * max(1, max |ctx|)
 LOSS_RTOL = 1e-5  # fused vs default training loss, step by step
 FUSED_TRAIN_STEPS = 4
+BF16_TRAIN_STEPS = 4
+BF16_LOSS_RTOL = 1e-3  # bf16 vs fp32 training loss, step by step
+BF16_CTX_RTOL = 5e-2  # bf16 vs fp32 backbone ctx: * max |ctx|
+SOFTMAX_ATOL = 1e-6  # softmax kernels at fp32: forward; backward * max(1, max |do|)
+# the explicit-softmax attention core against attention_plain, by dtype:
+# (forward, backward) absolute on unit-normal inputs
+CORE_ATOL = {"float32": (FWD_ATOL, BWD_ATOL), "bfloat16": (4e-2, 6e-2)}
 TRAIN_BATCH = 4
 # the flagship shapes of one 16 s segment: F- and T-attention [B, S, D] with
 # ATTN_HEADS heads, and the FFN's [tokens, D] -> MLP_HIDDEN -> D
@@ -95,6 +138,11 @@ MLP_SHAPE, MLP_HIDDEN = (13261, 256), 1024
 TRAIN_ATTN_SHAPES = tuple((TRAIN_BATCH * b, s, d) for b, s, d in ATTN_SHAPES)
 TRAIN_MLP_SHAPE = (TRAIN_BATCH * MLP_SHAPE[0], MLP_SHAPE[1])
 FUSED_FLAGS = ("TRANSKUN_TPU_FUSED_ATTN", "TRANSKUN_TPU_FUSED_MLP")
+SOFTMAX_FLAG = "TRANSKUN_TPU_FUSED_SOFTMAX"
+# attention logits of one segment as softmax rows: [B * heads * Sq, Skv]
+SOFTMAX_SHAPES = tuple((b * ATTN_HEADS * s, s) for b, s, _ in ATTN_SHAPES)
+TRAIN_SOFTMAX_SHAPES = tuple((TRAIN_BATCH * r, c) for r, c in SOFTMAX_SHAPES)
+RAGGED_SOFTMAX_SHAPES = tuple((1003, c) for c in (1, 9, 33, 149, 300))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
@@ -107,9 +155,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs=5):
+def cuda_ms(fn, runs=5, before=None):
     """Median milliseconds of ``fn()`` over ``runs`` timed runs (CUDA
-    events), after one warm-up run."""
+    events), after one warm-up run.  ``before()`` runs ahead of each timed
+    run, outside the events (an L2 flush)."""
     import torch
 
     fn()
@@ -117,6 +166,8 @@ def cuda_ms(fn, runs=5):
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         a.record()
         fn()
         b.record()
@@ -233,10 +284,11 @@ def bound(n_bytes, flops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def table_bound(tp, nbp, ops_per_term, out_bytes=4):
-    """Bound of one pass over a [Tp, Tp, NBp] fp32 score tensor with two
-    [Tp, NBp] inputs and one [Tp, NBp] output; Tp(Tp-1)/2 terms a lane."""
-    n_bytes = 4 * tp * tp * nbp + 2 * 4 * tp * nbp + out_bytes * tp * nbp
+def table_bound(tp, nbp, ops_per_term, score_bytes=4):
+    """Bound of one pass over a [Tp, Tp, NBp] score tensor of ``score_bytes``
+    a value with two fp32 [Tp, NBp] inputs and one 4-byte [Tp, NBp] output;
+    Tp(Tp-1)/2 terms a lane."""
+    n_bytes = score_bytes * tp * tp * nbp + 3 * 4 * tp * nbp
     return bound(n_bytes, ops_per_term * tp * (tp - 1) // 2 * nbp)
 
 
@@ -295,18 +347,57 @@ def check_mlp(mlp, args):
     return err
 
 
+def softmax_inputs(rng, rows, cols, dtype, dev):
+    """Logits of spread 3 and a unit-normal cotangent, made on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    l = torch.randn(rows, cols, generator=gen, device=dev) * 3
+    do = torch.randn(rows, cols, generator=gen, device=dev)
+    return l.to(dtype), do.to(dtype)
+
+
+def check_softmax(softmax, l, do):
+    """Both softmax kernels against their plain versions on the same card
+    inputs; returns the largest absolute differences (forward, backward).
+    fp32: SOFTMAX_ATOL forward, times the largest cotangent backward.  bf16:
+    one bf16 unit in the last place of the plain result, plus that fp32
+    bound in the backward."""
+    import torch
+
+    bwd_atol = SOFTMAX_ATOL * max(1.0, float(do.float().abs().max()))
+    pairs = ((softmax.softmax_fwd_cuda(l), softmax.softmax_plain(l), SOFTMAX_ATOL, 0.0),
+             (softmax.softmax_bwd_cuda(l, do), softmax.softmax_bwd_plain(l, do), bwd_atol, bwd_atol))
+    torch.cuda.synchronize()
+    errs = []
+    for got, want, atol, extra in pairs:
+        diff = (got.float() - want.float()).abs()
+        if l.dtype == torch.float32:
+            allowed = torch.full_like(diff, atol)
+        else:  # |want| = m * 2**e with m in [0.5, 1): the spacing there is 2**(e - 8)
+            exponent = torch.frexp(want.float()).exponent
+            allowed = torch.ldexp(torch.ones_like(diff), (exponent - 8).clamp(min=-133)) + extra
+        if got.dtype != l.dtype or not bool(torch.isfinite(got).all()) or bool((diff > allowed).any()):
+            raise AssertionError(f"softmax kernel != plain at {tuple(l.shape)} {l.dtype}: "
+                                 f"max |diff| {float(diff.max())}")
+        errs.append(float(diff.max()))
+    return errs
+
+
 class CallCounter:
     """Counts the calls of ``module.name`` while installed, so that a run's
     kernel launches can be held against the calls made."""
 
     def __init__(self, module, name):
         self.module, self.name, self.calls, self.shapes = module, name, 0, set()
+        self.dtypes = set()
         self.fn = getattr(module, name)
 
     def __enter__(self):
         def counted(*args, **kwargs):
             self.calls += 1
             self.shapes.add(tuple(args[0].shape))  # the first operand's shape
+            self.dtypes.add(args[0].dtype)
             return self.fn(*args, **kwargs)
 
         setattr(self.module, self.name, counted)
@@ -391,7 +482,10 @@ def main() -> int:
     from transkun_tpu_torch.models import layers
     from transkun_tpu_torch.models.config import default_conf_path, load_default_conf
     from transkun_tpu_torch.models.transkun import TransKun
-    from transkun_tpu_torch.ops import _build, attention, frontend, logz, mlp, semicrf, viterbi
+    import transkun_tpu_torch.models.transkun as transkun_module
+    from transkun_tpu_torch.ops import (
+        _build, attention, frontend, logz, mlp, semicrf, softmax, viterbi,
+    )
     from transkun_tpu_torch.utils.convert import load_reference_checkpoint
 
     card = card_line()
@@ -400,23 +494,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    for flag in (*FUSED_FLAGS, "TRANSKUN_TPU_NO_PALLAS"):
+    for flag in (*FUSED_FLAGS, SOFTMAX_FLAG, "TRANSKUN_TPU_NO_PALLAS"):
         os.environ.pop(flag, None)  # paths 1 and 2 are the default route
 
     def counts():
         return {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
                 "semicrf_beta": logz.beta_launches, "attention_fwd": attention.fwd_launches,
-                "attention_bwd": attention.bwd_launches, "fused_mlp": mlp.launches}
+                "attention_bwd": attention.bwd_launches, "fused_mlp": mlp.launches,
+                "softmax_fwd": softmax.fwd_launches, "softmax_bwd": softmax.bwd_launches}
 
     def reset_counts():
         viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
         attention.fwd_launches = attention.bwd_launches = mlp.launches = 0
+        softmax.fwd_launches = softmax.bwd_launches = 0
 
-    by_path = {}  # launches of each kernel on paths 1, 2 and 3
+    by_path = {}  # launches of each kernel on paths 1 to 5
 
     # -- build, one nvcc per source, all at once -------------------------------
     t0 = time.perf_counter()
-    for name, (_, build_s, log) in _build.build_all(KERNELS).items():
+    for name, (_, build_s, log) in _build.build_all(SOURCES).items():
         print(f"build {name}: {build_s:.2f} s")
         if log:
             print(log.strip())
@@ -436,7 +532,26 @@ def main() -> int:
     # subtract the max, exp, add)
     bounds = {"viterbi_bwd": table_bound(*flagship[0].shape[1:], 2)}
     library_ms = dict.fromkeys(KERNELS)  # no single PyTorch call computes kernels 1-3 or 6
-    del flagship
+
+    def decode_bf16(s_t, noise, _gate):
+        """The same inputs with the scores rounded to bf16 and the gate
+        taken from the rounded diagonal, as the scorer emits them."""
+        s_b = s_t.bfloat16()
+        diag = torch.diagonal(s_b).t().float().contiguous()
+        return s_b, noise, diag * (diag > 0)
+
+    bf16 = {}  # per kernel: the times and the bound with bf16 input
+    flagship_b = decode_bf16(*flagship)
+    check_kernel(viterbi, *flagship_b)
+    check_kernel(viterbi, *decode_bf16(*decode_inputs(rng, 123, 256, dev)))
+    bf16["viterbi_bwd"] = {
+        "max_abs_err": 0,
+        "ms": cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(*flagship_b)),
+        "plain_ms": cuda_ms(lambda: viterbi.viterbi_backward_tables_plain(*flagship_b), runs=3),
+        "bound": table_bound(*flagship[0].shape[1:], 2, score_bytes=2)}
+    print(f"viterbi [696,696,128] bf16 scores ({card}): kernel {bf16['viterbi_bwd']['ms']:.3f} ms, "
+          f"plain {bf16['viterbi_bwd']['plain_ms']:.3f} ms, ptr equal at [696,696,128] and [128,128,256]")
+    del flagship, flagship_b
 
     s, shift, noise, spdiag = table_inputs(rng, 691, 384, 360, dev)  # the training shape
     errs = [check_tables(logz, s, shift, noise, spdiag),
@@ -452,7 +567,29 @@ def main() -> int:
         print(f"{name} [696,696,384] ({card}): kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms")
     print(f"alpha/beta within {TABLE_RTOL}*max(1,|plain|) of plain at [696,696,384] and "
           f"[128,128,256]: max |diff| alpha {err['semicrf_alpha']:.3g}, beta {err['semicrf_beta']:.3g}")
-    del s, shift, noise, spdiag
+
+    def table_bf16(s, shift, noise, _spdiag):
+        """The same inputs with the scores rounded to bf16 and spdiag taken
+        from the rounded diagonal, as ``logz._fb_padded`` takes it."""
+        s_b = s.bfloat16()
+        spdiag = torch.nn.functional.softplus(torch.diagonal(s_b).t().float()).contiguous()
+        return s_b, shift, noise, spdiag
+
+    s_b, shift, noise, spdiag_b = table_bf16(s, shift, noise, spdiag)
+    del s, spdiag
+    errs = [check_tables(logz, s_b, shift, noise, spdiag_b),
+            check_tables(logz, *table_bf16(*table_inputs(rng, 123, 256, 200, dev)))]
+    for name, kernel, plain, rows in (
+        ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift),
+        ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
+    ):
+        bf16[name] = {"max_abs_err": max(e[name] for e in errs),
+                      "ms": cuda_ms(lambda: kernel(s_b, rows, spdiag_b)),
+                      "plain_ms": cuda_ms(lambda: plain(s_b, rows, spdiag_b), runs=3),
+                      "bound": table_bound(*s_b.shape[1:], 4, score_bytes=2)}
+        print(f"{name} [696,696,384] bf16 scores ({card}): kernel {bf16[name]['ms']:.3f} ms, "
+              f"plain {bf16[name]['plain_ms']:.3f} ms, max |diff| {bf16[name]['max_abs_err']:.3g}")
+    del s_b, shift, noise, spdiag_b
     grad_err = check_logz_grad(logz, semicrf, dev)
     print(f"logZ + score cotangent via kernels vs autograd of log_z_slow [45,45,5]: "
           f"max |diff| {grad_err:.3g}")
@@ -529,6 +666,52 @@ def main() -> int:
           f"and [1000,128] -> 192: max |diff| {err['fused_mlp']:.3g}")
     del args
 
+    # row softmax: the segment's and the training batch's logits and ragged
+    # shapes, fp32 and bf16; timed at the segment's F-attention logits with
+    # the L2 cache flushed before each run (the bf16 tensors would fit it)
+    flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    err["softmax_fwd"] = err["softmax_bwd"] = 0.0
+    bf16["softmax_fwd"], bf16["softmax_bwd"] = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SOFTMAX_SHAPES + TRAIN_SOFTMAX_SHAPES + RAGGED_SOFTMAX_SHAPES:
+            l, do = softmax_inputs(rng, *shape, dtype, dev)
+            errs = check_softmax(softmax, l, do)
+            for name, e in zip(("softmax_fwd", "softmax_bwd"), errs):
+                into = err if dtype == torch.float32 else bf16[name]
+                key = name if dtype == torch.float32 else "max_abs_err"
+                into[key] = max(into[key], e)
+        l, do = softmax_inputs(rng, *SOFTMAX_SHAPES[0], dtype, dev)
+        l_lib = l.clone().requires_grad_()
+        p_lib = torch.softmax(l_lib, -1)
+        n_bytes = l.numel() * l.element_size()
+        timed = {
+            "softmax_fwd": (cuda_ms(lambda: softmax.softmax_fwd_cuda(l), before=flush_buf.zero_),
+                            cuda_ms(lambda: softmax.softmax_plain(l), before=flush_buf.zero_),
+                            cuda_ms(lambda: torch.softmax(l, -1), before=flush_buf.zero_),
+                            bound(2 * n_bytes, 5 * l.numel())),
+            "softmax_bwd": (cuda_ms(lambda: softmax.softmax_bwd_cuda(l, do), before=flush_buf.zero_),
+                            cuda_ms(lambda: softmax.softmax_bwd_plain(l, do), before=flush_buf.zero_),
+                            cuda_ms(lambda: torch.autograd.grad(p_lib, l_lib, do, retain_graph=True),
+                                    before=flush_buf.zero_),
+                            bound(3 * n_bytes, 8 * l.numel())),
+        }
+        for name, (k_ms, p_ms, lib_ms, bnd) in timed.items():
+            if dtype == torch.float32:
+                ms[name], plain_ms[name], library_ms[name], bounds[name] = k_ms, p_ms, lib_ms, bnd
+            else:
+                bf16[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound=bnd)
+            print(f"{name} {list(SOFTMAX_SHAPES[0])} {str(dtype)[6:]} ({card}): kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, torch.softmax{' backward' if name.endswith('bwd') else ''} "
+                  f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del l, do, l_lib, p_lib
+    del flush_buf
+    print(f"softmax kernels vs plain at {[list(s) for s in SOFTMAX_SHAPES + TRAIN_SOFTMAX_SHAPES]} and "
+          f"{[list(s) for s in RAGGED_SOFTMAX_SHAPES]}: fp32 within {SOFTMAX_ATOL} forward and "
+          f"{SOFTMAX_ATOL} * max |do| backward (max |diff| forward "
+          f"{err['softmax_fwd']:.3g}, backward {err['softmax_bwd']:.3g}); bf16 within one bf16 unit "
+          f"of the plain result, + the fp32 bound backward (max |diff| forward "
+          f"{bf16['softmax_fwd']['max_abs_err']:.3g}, backward {bf16['softmax_bwd']['max_abs_err']:.3g})")
+
     # -- path 1: flagship transcription on the card ----------------------------
     _, conf = load_default_conf()
     model = TransKun(conf, device=dev, seed=SEED)
@@ -544,7 +727,7 @@ def main() -> int:
     def n_segments(n_samples):
         return math.ceil((n_samples + 2 * pad) / step)
 
-    def timed_transcription():
+    def timed_transcription(model):
         """(notes, wall seconds, peak GB, launches) of one transcription of
         the piece, after a warm-up one (cuBLAS handles, allocator pools)."""
         model.transcribe(audio)
@@ -556,6 +739,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return notes, wall, torch.cuda.max_memory_allocated(dev) / 1e9, counts()
+
+    def key(n):  # times to the millisecond: the refined ends move in their last bits
+        return (round(n.start * 1e3), round(n.end * 1e3), n.pitch, n.velocity)
 
     def check_notes(notes):
         if not notes:
@@ -569,7 +755,7 @@ def main() -> int:
             raise AssertionError(f"note times out of range: {times.min()} .. {times.max()}")
 
     n_seg = n_segments(audio.shape[0])
-    notes, wall, peak_gb, by_path["transcribe"] = timed_transcription()
+    notes, wall, peak_gb, by_path["transcribe"] = timed_transcription(model)
     if by_path["transcribe"] != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}:
         raise AssertionError(f"transcription launches {by_path['transcribe']} for {n_seg} segments")
     check_notes(notes)
@@ -662,7 +848,7 @@ def main() -> int:
             os.environ[flag] = "1"
         with CallCounter(attention, "fused_attention") as attn_calls, \
                 CallCounter(mlp, "fused_mlp") as mlp_calls:
-            fused_notes, fused_wall, fused_peak_gb, by_path["fused"] = timed_transcription()
+            fused_notes, fused_wall, fused_peak_gb, by_path["fused"] = timed_transcription(model)
             # the timed run only: the warm-up one made as many calls again
             calls = {"attention_fwd": attn_calls.calls // 2, "attention_bwd": 0,
                      "fused_mlp": mlp_calls.calls // 2}
@@ -684,9 +870,6 @@ def main() -> int:
                 raise AssertionError(f"fused ctx differs from the default route's by {ctx_err} "
                                      f"(max |ctx| {ctx_max})")
 
-            def key(n):  # times to the millisecond: the refined ends move in their last bits
-                return (round(n.start * 1e3), round(n.end * 1e3), n.pitch, n.velocity)
-
             differing = len({key(n) for n in notes} ^ {key(n) for n in fused_notes})
             print(f"fused transcribe {PIECE_SECONDS:.0f} s ({card}): wall {fused_wall:.3f} s "
                   f"(default route {wall:.3f} s), RTF {PIECE_SECONDS / fused_wall:.1f}x "
@@ -695,7 +878,7 @@ def main() -> int:
                   f"{differing} notes differ between the routes; launches {by_path['fused']}")
             print(f"segment 3 ctx {tuple(ctx.shape)}: fused vs default max |diff| {ctx_err:.3g} "
                   f"(max |ctx| {ctx_max:.3g}, allowed {CTX_RTOL} * max(1, max |ctx|))")
-            del model, ctx, ctx_fused, frames
+            del model, ctx_fused
 
             attn_calls.calls = mlp_calls.calls = 0
             attn_calls.shapes.clear()
@@ -742,6 +925,118 @@ def main() -> int:
         print(f"fused training launches {fused_launches}; attention shapes "
               f"{sorted(attn_calls.shapes)}, MLP shapes {sorted(mlp_calls.shapes)}")
 
+        # -- path 4: the bf16 configuration, serving then training ------------------
+        model_b = TransKun(conf, device=dev, seed=SEED, compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            model_b.module.scorer.map[0].bias[-1] = -8.0
+        with CallCounter(transkun_module, "viterbi_backward_tables_padded") as vit_calls, \
+                CallCounter(logz, "alpha_table_padded") as alpha_calls, \
+                CallCounter(logz, "beta_table_padded") as beta_calls:
+            bf16_notes, bf16_wall, bf16_peak_gb, by_path["bf16"] = timed_transcription(model_b)
+            want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}
+            if by_path["bf16"] != want or vit_calls.calls != 2 * n_seg:  # warm-up + timed run
+                raise AssertionError(f"bf16 transcription launches {by_path['bf16']}, calls made "
+                                     f"{vit_calls.calls} over two runs of {n_seg} segments")
+            if vit_calls.shapes != {(696, 696, 128)} or vit_calls.dtypes != {torch.bfloat16}:
+                raise AssertionError(f"the Viterbi kernel was held against its plain version at "
+                                     f"[696,696,128] bf16; the path gave {vit_calls.shapes} {vit_calls.dtypes}")
+            check_notes(bf16_notes)
+            with torch.no_grad():
+                ctx_b = model_b.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
+            ctx_err, ctx_max = float((ctx_b - ctx).abs().max()), float(ctx.abs().max())
+            if ctx_b.dtype != torch.float32 or not bool(torch.isfinite(ctx_b).all()) \
+                    or ctx_err > BF16_CTX_RTOL * ctx_max:
+                raise AssertionError(f"bf16 ctx differs from the fp32 route's by {ctx_err} "
+                                     f"(max |ctx| {ctx_max})")
+            differing = len({key(n) for n in notes} ^ {key(n) for n in bf16_notes})
+            print(f"bf16 transcribe {PIECE_SECONDS:.0f} s ({card}): wall {bf16_wall:.3f} s "
+                  f"(fp32 route {wall:.3f} s), RTF {PIECE_SECONDS / bf16_wall:.1f}x "
+                  f"({PIECE_SECONDS / wall:.1f}x), peak memory {bf16_peak_gb:.2f} GB "
+                  f"({peak_gb:.2f} GB), {len(bf16_notes)} notes ({len(notes)}), "
+                  f"{differing} notes differ from the fp32 route's; launches {by_path['bf16']}")
+            print(f"segment 3 ctx {tuple(ctx.shape)}: bf16 vs fp32 max |diff| {ctx_err:.3g} "
+                  f"(max |ctx| {ctx_max:.3g}, allowed {BF16_CTX_RTOL} * max |ctx|)")
+            del model_b, ctx, ctx_b, frames
+
+            reset_counts()
+            bf16_run = train_cli.main([os.path.join(tmp, "ckpt_bf16.pt"), *args, "--statsEvery", "0",
+                                       "--maxEpoch", "1", "--stopAtStep", str(BF16_TRAIN_STEPS),
+                                       "--bf16"])
+            torch.cuda.synchronize()
+            bf16_launches = counts()
+        n = bf16_run["steps"]
+        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n}
+        if bf16_launches != want or n != BF16_TRAIN_STEPS \
+                or (alpha_calls.calls, beta_calls.calls) != (n, n):
+            raise AssertionError(f"bf16 training launches {bf16_launches}, calls made "
+                                 f"alpha {alpha_calls.calls}, beta {beta_calls.calls} in {n} steps")
+        for calls in (alpha_calls, beta_calls):
+            if calls.shapes != {(696, 696, 384)} or calls.dtypes != {torch.bfloat16}:
+                raise AssertionError(f"{calls.name} was held against its plain version at "
+                                     f"[696,696,384] bf16; training gave {calls.shapes} {calls.dtypes}")
+        fp32_losses = first["losses"][:n]  # same seed, same corpus
+        if len(bf16_run["losses"]) != n or len(fp32_losses) != n \
+                or not np.isfinite(bf16_run["losses"]).all():
+            raise AssertionError(f"bf16 losses {bf16_run['losses']}, fp32 {fp32_losses}")
+        loss_err = max(abs(b - d) / abs(d) for b, d in zip(bf16_run["losses"], fp32_losses))
+        if loss_err > BF16_LOSS_RTOL:
+            raise AssertionError(f"losses: bf16 {bf16_run['losses']}, fp32 {fp32_losses}, "
+                                 f"largest relative difference {loss_err}")
+        for name in KERNELS:
+            by_path["bf16"][name] += bf16_launches[name]
+        print(f"bf16 train flagship V2 --batchSize {TRAIN_BATCH} --bf16 ({card}): {n} steps, step "
+              f"median {float(np.median(bf16_run['step_seconds'][1:])):.4f} s after the first (all: "
+              f"{[round(x, 4) for x in bf16_run['step_seconds']]}; fp32 route "
+              f"{float(np.median(step_s)):.4f} s), peak memory "
+              f"{bf16_run['step_peak_bytes'] / 1e9:.2f} GB ({train_peak_gb:.2f} GB)")
+        print(f"bf16 train losses: {[round(x, 3) for x in bf16_run['losses']]}; against the fp32 "
+              f"route's, step by step: largest relative difference {loss_err:.3g} "
+              f"(allowed {BF16_LOSS_RTOL}); launches {bf16_launches}")
+
+    # -- path 5: the softmax study, the explicit-softmax attention core -----------
+    os.environ[SOFTMAX_FLAG] = "1"
+    reset_counts()
+    core_calls = 0
+    for b, sq, d in ATTN_SHAPES:
+        dh = d // ATTN_HEADS
+        scale = 1.0 / math.sqrt(dh)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (a.to(dtype) for a in attention_inputs(rng, b, sq, sq, d, dev))
+
+            def heads(a):  # flat [B, S, H*dh] -> [B, H, S, dh]
+                return a.view(b, sq, ATTN_HEADS, dh).transpose(1, 2)
+
+            qh, kh, vh = (heads(a).detach().requires_grad_() for a in (q, k, v))
+            logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+            o = torch.matmul(softmax.softmax_last(logits), vh)
+            o.backward(heads(do))
+            core_calls += 1
+            want = attention.attention_plain(q, k, v, ATTN_HEADS, scale)
+            want_grads = attention.attention_bwd_plain(q, k, v, want, do, ATTN_HEADS, scale)
+            torch.cuda.synchronize()
+
+            def flat(a):
+                return a.transpose(1, 2).reshape(b, sq, d).float()
+
+            fwd_err = float((flat(o.detach()) - want.float()).abs().max())
+            bwd_err = max(float((flat(g.grad) - w.float()).abs().max())
+                          for g, w in zip((qh, kh, vh), want_grads))
+            fwd_tol, bwd_tol = CORE_ATOL[str(dtype)[6:]]
+            if tuple(logits.shape) != (b, ATTN_HEADS, sq, sq) or o.dtype != dtype \
+                    or not (fwd_err <= fwd_tol and bwd_err <= bwd_tol):
+                raise AssertionError(f"explicit-softmax core at {[b, ATTN_HEADS, sq, dh]} {dtype}: "
+                                     f"forward max |diff| {fwd_err}, backward {bwd_err}")
+            print(f"softmax study core {[b, ATTN_HEADS, sq, dh]} {str(dtype)[6:]}: vs attention_plain "
+                  f"forward max |diff| {fwd_err:.3g} (allowed {fwd_tol}), dq/dk/dv {bwd_err:.3g} "
+                  f"(allowed {bwd_tol})")
+    del os.environ[SOFTMAX_FLAG]
+    by_path["softmax"] = counts()
+    want = {**dict.fromkeys(KERNELS, 0), "softmax_fwd": core_calls, "softmax_bwd": core_calls}
+    if by_path["softmax"] != want:
+        raise AssertionError(f"softmax study launches {by_path['softmax']}, calls made {want}")
+    print(f"softmax study launches {by_path['softmax']}: rows {[list(s) for s in SOFTMAX_SHAPES]}, "
+          f"the shapes the kernels were held against their plain versions at")
+
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
     if bad:
@@ -753,7 +1048,19 @@ def main() -> int:
                "semicrf_beta": ("semicrf_beta.cu", pallas + "semicrf_pallas.py:321"),
                "attention_fwd": ("attention_fwd.cu", pallas + "attention_pallas.py:78"),
                "attention_bwd": ("attention_bwd.cu", pallas + "attention_pallas.py:127"),
-               "fused_mlp": ("fused_mlp.cu", pallas + "mlp_pallas.py:86")}
+               "fused_mlp": ("fused_mlp.cu", pallas + "mlp_pallas.py:86"),
+               "softmax_fwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:54"),
+               "softmax_bwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:62")}
+
+    def bf16_entry(name):
+        """The same numbers with bf16 input (kernels 1-3, 7 and 8)."""
+        if name not in bf16:
+            return None
+        e = bf16[name]
+        return {"max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+                "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+                "library_ms": e.get("library_ms")}
+
     for name in KERNELS:
         if sum(by_path[path][name] for path in by_path) == 0:
             raise AssertionError(f"no path launched {name}")
@@ -770,6 +1077,7 @@ def main() -> int:
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
         "library_ms": library_ms[name],
+        "bf16": bf16_entry(name),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,6 +1,6 @@
 """Where the time of one flagship training step goes, in the PyTorch port.
 
-    python scripts/profile_torch_train.py [--batch 4] [--steps 3] [--seed 0]
+    python scripts/profile_torch_train.py [--batch 4] [--steps 3] [--seed 0] [--bf16]
 
 Needs a CUDA device.  Random flagship weights from ``--seed``, a batch of
 16 s synthetic pieces from ``chip_smoke.synth_piece`` with sine-note labels.
@@ -14,6 +14,7 @@ share, the alpha and beta kernels' share of the step and the top kernels.
 With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
 environment it profiles the fused-backbone route; the breakdown names the
 attention forward and backward kernels and the fused MLP either way.
+``--bf16`` profiles the bf16 configuration (``compute_dtype=torch.bfloat16``).
 """
 
 import argparse
@@ -32,6 +33,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -51,7 +53,8 @@ def main(argv=None):
 
     _, conf = load_default_conf()
     dev = torch.device("cuda")
-    model = TransKun(conf, device=dev, seed=args.seed)
+    model = TransKun(conf, device=dev, seed=args.seed,
+                     compute_dtype=torch.bfloat16 if args.bf16 else None)
     state = TrainState(model, AdaBelief(model.module.named_parameters()))
     step_fn = make_train_step(model)
     seconds = conf.segmentSizeInSecond
@@ -124,13 +127,14 @@ def main(argv=None):
     def ms_of(pred):
         return sum(ms for name, ms, _ in kernels if pred(name))
 
-    alpha_ms = ms_of(lambda n: "lse_table_kernel<true>" in n)
-    beta_ms = ms_of(lambda n: "lse_table_kernel<false>" in n)
+    alpha_ms = ms_of(lambda n: "lse_table_kernel<true" in n)
+    beta_ms = ms_of(lambda n: "lse_table_kernel<false" in n)
     gemm_ms = ms_of(lambda n: "gemm" in n.lower() or "sm90_xmma" in n or "cutlass" in n.lower())
     print(json.dumps({
         "card": chip_smoke.card_line(),
         "fused_attention": attention.use_fused_attention(),
         "fused_mlp": mlp.use_fused_mlp(),
+        "bf16": args.bf16,
         "batch": args.batch,
         "loss": loss,
         "step_s": step_s,

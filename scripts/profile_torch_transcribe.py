@@ -1,6 +1,6 @@
 """Where the time of one flagship transcription goes, in the PyTorch port.
 
-    python scripts/profile_torch_transcribe.py [--seconds 64] [--seed 0]
+    python scripts/profile_torch_transcribe.py [--seconds 64] [--seed 0] [--bf16]
 
 Needs a CUDA device.  Random flagship weights from ``--seed`` (scorer
 diagonal bias -8), a synthetic piece from ``chip_smoke.synth_piece``.  After
@@ -11,7 +11,8 @@ the device time of every CUDA kernel.  Prints one JSON object.
 With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
 environment it profiles the fused-backbone route; the breakdown names the
 port's own kernels (Viterbi, attention forward, fused MLP) beside the
-library GEMMs either way.
+library GEMMs either way.  ``--bf16`` profiles the bf16 configuration
+(``compute_dtype=torch.bfloat16``).
 """
 
 import argparse
@@ -28,6 +29,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -43,7 +45,8 @@ def main(argv=None):
     from transkun_tpu_torch.ops import attention, mlp, semicrf
 
     _, conf = load_default_conf()
-    model = tk.TransKun(conf, device="cuda", seed=args.seed)
+    model = tk.TransKun(conf, device="cuda", seed=args.seed,
+                        compute_dtype=torch.bfloat16 if args.bf16 else None)
     with torch.no_grad():
         model.module.scorer.map[0].bias[-1] = -8.0
     audio = chip_smoke.synth_piece(conf.fs, args.seconds, args.seed)
@@ -105,6 +108,7 @@ def main(argv=None):
         "card": chip_smoke.card_line(),
         "fused_attention": attention.use_fused_attention(),
         "fused_mlp": mlp.use_fused_mlp(),
+        "bf16": args.bf16,
         "seconds": args.seconds,
         "notes": len(notes),
         "wall_s": wall,

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's eight CUDA kernels against their plain PyTorch versions, on the card.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from transkun_tpu_torch.ops import logz, viterbi
+from transkun_tpu_torch.ops import logz, softmax, viterbi
 
 NEG = -1e30
 
@@ -47,10 +47,32 @@ def test_kernel_equals_plain(cuda, t, nbp):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,nbp", [(691, 128), (123, 256)])
+def test_kernel_equals_plain_from_bf16_scores(cuda, t, nbp):
+    """The scores rounded to bf16, the gate from the rounded diagonal: the
+    kernel upcasts as it loads, and the table equals the plain version's
+    and the fp32 kernel's on the upcast tensor, exactly."""
+    s_t, noise, _ = _decode_inputs(np.random.default_rng(t), t, nbp, cuda)
+    s_b = s_t.bfloat16()
+    diag = torch.diagonal(s_b).t().float().contiguous()
+    gate = diag * (diag > 0)
+    before = viterbi.launches
+    got = viterbi.viterbi_backward_tables_padded(s_b, noise, gate)
+    torch.cuda.synchronize()
+    assert viterbi.launches == before + 1
+    assert torch.equal(got, viterbi.viterbi_backward_tables_plain(s_b, noise, gate))
+    assert torch.equal(got, viterbi.viterbi_backward_tables_padded(s_b.float(), noise, gate))
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda):
     s_t, noise, diag = _decode_inputs(np.random.default_rng(0), 20, 128, cuda)
     with pytest.raises(TypeError):
         viterbi.viterbi_backward_tables_padded(s_t.double(), noise, diag)
+    with pytest.raises(TypeError):  # fp32 or bf16 scores only
+        viterbi.viterbi_backward_tables_padded(s_t.half(), noise, diag)
+    with pytest.raises(TypeError):  # noise and the gate stay fp32
+        viterbi.viterbi_backward_tables_padded(s_t.bfloat16(), noise.bfloat16(), diag)
     with pytest.raises(ValueError):
         viterbi.viterbi_backward_tables_padded(s_t[:, :, :96], noise[:, :96], diag[:, :96])
     with pytest.raises(ValueError):
@@ -91,11 +113,40 @@ def test_logz_kernels_equal_plain(cuda, t, nbp, nb_real):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,nbp,nb_real", [(691, 384, 360), (123, 256, 200)])
+def test_logz_kernels_equal_plain_from_bf16_scores(cuda, t, nbp, nb_real):
+    """bf16 scores, spdiag from the rounded diagonal: within the fp32 bound
+    of the plain versions (which upcast the same bits), and equal to the
+    fp32 kernels on the upcast tensor bit for bit; then ``log_z_padded``
+    gives a bf16 score cotangent that is zero on the padded lanes."""
+    s, shift, noise, _ = _table_inputs(np.random.default_rng(t), t, nbp, nb_real, cuda)
+    s_b = s.bfloat16()
+    spdiag = torch.nn.functional.softplus(torch.diagonal(s_b).t().float()).contiguous()
+    a0, b0 = logz.alpha_launches, logz.beta_launches
+    v = logz.alpha_table_padded(s_b, shift, spdiag)
+    q = logz.beta_table_padded(s_b, noise, spdiag)
+    torch.cuda.synchronize()
+    assert (logz.alpha_launches, logz.beta_launches) == (a0 + 1, b0 + 1)
+    _assert_table_close(v, logz.alpha_table_padded_plain(s_b, shift, spdiag))
+    _assert_table_close(q, logz.beta_table_padded_plain(s_b, noise, spdiag))
+    assert torch.equal(v, logz.alpha_table_padded(s_b.float(), shift, spdiag))
+    assert torch.equal(q, logz.beta_table_padded(s_b.float(), noise, spdiag))
+    s_b.requires_grad_()
+    logz.log_z_padded(t, s_b, noise).sum().backward()
+    assert s_b.grad.dtype == torch.bfloat16 and bool(torch.isfinite(s_b.grad).all())
+    assert bool((s_b.grad[:, :, nb_real:] == 0).all())
+
+
+@pytest.mark.gpu
 def test_logz_kernels_reject_what_they_do_not_take(cuda):
     s, shift, noise, spdiag = _table_inputs(np.random.default_rng(0), 20, 128, 128, cuda)
     for fn, rows in ((logz.alpha_table_padded, shift), (logz.beta_table_padded, noise)):
         with pytest.raises(TypeError):
             fn(s.double(), rows, spdiag)
+        with pytest.raises(TypeError):  # fp32 or bf16 scores only
+            fn(s.half(), rows, spdiag)
+        with pytest.raises(TypeError):  # the other tensors stay fp32
+            fn(s.bfloat16(), rows, spdiag.bfloat16())
         with pytest.raises(ValueError):  # lanes not a multiple of 32
             fn(s[:, :, :100].contiguous(), rows[:, :100].contiguous(), spdiag[:, :100].contiguous())
         with pytest.raises(ValueError):  # non-contiguous
@@ -232,3 +283,96 @@ def test_mlp_kernel_rejects_what_it_does_not_take(cuda):
         mlp.mlp_fwd_cuda(x, w1.cpu(), b1, w2, b2)
     with pytest.raises(ValueError):  # no rows
         mlp.mlp_fwd_cuda(x[:0], w1, b1, w2, b2)
+
+
+# -- row softmax ----------------------------------------------------------------
+
+SOFTMAX_SHAPES = [  # rows, columns
+    (106088, 149),  # flagship F-attention logits, one segment
+    (106088, 89),  # flagship T-attention logits
+    (1003, 1), (1003, 9), (1003, 33), (1003, 149),  # ragged: last block part full
+    (1003, 300),  # wider than the registers hold: the re-reading kernel
+]
+
+
+def _assert_softmax_close(got, want, atol, extra=0.0):
+    """fp32: ``atol`` absolute.  bf16: one bf16 unit in the last place of the
+    plain result (|want| = m * 2**e, m in [0.5, 1): the spacing is
+    2**(e - 8)), plus ``extra``."""
+    assert got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert float(diff.max()) <= atol
+    else:
+        exponent = torch.frexp(want.float()).exponent
+        ulp = torch.ldexp(torch.ones_like(diff), (exponent - 8).clamp(min=-133))
+        assert bool((diff <= ulp + extra).all()), float((diff - ulp).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", SOFTMAX_SHAPES)
+def test_softmax_kernels_equal_plain(cuda, r, c, dtype):
+    """Forward within 1e-6 of the plain version, backward within 1e-6 times
+    the largest cotangent (dl is linear in do; the sums run in another
+    order).  The backward's ``do - delta`` cancels, so at bf16 it gets that
+    fp32 bound besides the one bf16 unit."""
+    gen = torch.Generator(device=cuda).manual_seed(r + c)
+    l = (torch.randn(r, c, generator=gen, device=cuda) * 3).to(dtype)
+    do = torch.randn(r, c, generator=gen, device=cuda).to(dtype)
+    f0, b0 = softmax.fwd_launches, softmax.bwd_launches
+    p = softmax.softmax_fwd_cuda(l)
+    dl = softmax.softmax_bwd_cuda(l, do)
+    torch.cuda.synchronize()
+    assert (softmax.fwd_launches, softmax.bwd_launches) == (f0 + 1, b0 + 1)
+    _assert_softmax_close(p, softmax.softmax_plain(l), 1e-6)
+    bwd_atol = 1e-6 * max(1.0, float(do.float().abs().max()))
+    _assert_softmax_close(dl, softmax.softmax_bwd_plain(l, do), bwd_atol, extra=bwd_atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_last_autograd_runs_the_kernels(cuda, dtype, monkeypatch):
+    """``softmax_last`` over an N-d, non-contiguous tensor with the flag
+    set: one forward and one backward launch, the cotangent that autograd
+    gives ``torch.softmax``; with the flag unset, no launch."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    l = (torch.randn(3, 37, 4, 61, generator=gen, device=cuda) * 2).to(dtype).transpose(1, 2)
+    do = torch.randn(3, 4, 37, 61, generator=gen, device=cuda).to(dtype)
+    assert not l.is_contiguous()
+    monkeypatch.delenv("TRANSKUN_TPU_NO_PALLAS", raising=False)
+    monkeypatch.delenv("TRANSKUN_TPU_FUSED_SOFTMAX", raising=False)
+    f0, b0 = softmax.fwd_launches, softmax.bwd_launches
+    ref_in = l.detach().clone().requires_grad_()
+    ref = softmax.softmax_last(ref_in)  # torch.softmax
+    ref.backward(do)
+    assert (softmax.fwd_launches, softmax.bwd_launches) == (f0, b0)
+    monkeypatch.setenv("TRANSKUN_TPU_FUSED_SOFTMAX", "1")
+    x = l.detach().clone().requires_grad_()
+    out = softmax.softmax_last(x)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (softmax.fwd_launches, softmax.bwd_launches) == (f0 + 1, b0 + 1)
+    assert out.shape == l.shape and out.dtype == dtype and x.grad.dtype == dtype
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7  # bf16: a unit at magnitude 1
+    assert float((out.detach().float() - ref.detach().float()).abs().max()) <= tol
+    assert float((x.grad.float() - ref_in.grad.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_softmax_kernels_reject_what_they_do_not_take(cuda):
+    l = torch.zeros(8, 5, device=cuda)
+    with pytest.raises(TypeError):
+        softmax.softmax_fwd_cuda(l.double())
+    with pytest.raises(TypeError):  # do has the dtype of l
+        softmax.softmax_bwd_cuda(l, l.bfloat16())
+    with pytest.raises(TypeError):  # and its shape
+        softmax.softmax_bwd_cuda(l, l[:4])
+    with pytest.raises(ValueError):  # non-contiguous
+        softmax.softmax_fwd_cuda(l.t())
+    with pytest.raises(ValueError):  # not [R, C]
+        softmax.softmax_fwd_cuda(l[None])
+    with pytest.raises(ValueError):  # no rows
+        softmax.softmax_fwd_cuda(l[:0])
+    with pytest.raises(ValueError):  # another device
+        softmax.softmax_bwd_cuda(l, l.cpu())

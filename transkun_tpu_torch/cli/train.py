@@ -9,10 +9,11 @@ Host loader -> label encoding -> semi-CRF NLL + attribute NLLs -> backward ->
 quantile clip -> rectified AdaBelief, with a stats decode every
 ``--statsEvery`` steps, validation every ``--validateEvery`` epochs and a
 crash-safe checkpoint file.  The data modules are the port's own
-``data`` package.  fp32 only: TF32 is turned off for matmuls
-and convolutions.  The default device is ``cuda`` and the command fails when
-CUDA is absent; ``--device cpu`` runs the plain PyTorch versions of the
-kernels.
+``data`` package.  fp32 unless ``--bf16`` (bfloat16 activations; parameters,
+loss, gradients, clip and optimizer stay fp32, and so do the checkpoints);
+TF32 is turned off for matmuls and convolutions.  The default device is
+``cuda`` and the command fails when CUDA is absent; ``--device cpu`` runs
+the plain PyTorch versions of the kernels.
 
 ``main`` returns a record of the run (losses, per-step seconds, the largest
 per-step device memory, and the counts of steps, stats passes and
@@ -65,17 +66,17 @@ def main(argv=None):
     parser.add_argument("--stopAtStep", default=None, type=int,
                         help="stop after this many global steps, saving a checkpoint first")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 activations (params stay fp32)")
     # options of the JAX trainer that this port does not have yet: they
     # raise instead of being ignored
     parser.add_argument("--nDevices", default=None, type=int)
-    parser.add_argument("--bf16", action="store_true")
     parser.add_argument("--deviceData", default="auto", choices=["auto", "on", "off"])
     parser.add_argument("--linkInt16", default="auto", choices=["auto", "force", "off"])
     args = parser.parse_args(argv)
 
     not_ported = [
         (args.nDevices is not None and args.nDevices > 1, "--nDevices > 1 (multi-process training)"),
-        (args.bf16, "--bf16"),
         (args.deviceData == "on", "--deviceData on (device-resident corpus)"),
         (args.linkInt16 == "force", "--linkInt16 force"),
     ]
@@ -105,8 +106,9 @@ def main(argv=None):
     if args.gradientCheckpoint != "auto":
         conf.useGradientCheckpoint = args.gradientCheckpoint == "on"
     run_seed = int(time.time()) if args.seed is None else args.seed
-    model = module_mod.TransKun(conf, device=device, seed=run_seed % 2**31)
-    print(f"device: {device}, batch: {args.batchSize}")
+    model = module_mod.TransKun(conf, device=device, seed=run_seed % 2**31,
+                                compute_dtype=torch.bfloat16 if args.bf16 else None)
+    print(f"device: {device}, batch: {args.batchSize}, bf16: {args.bf16}")
     print(f"#Param(M): {compute_param_size(model.module):.2f}")
 
     optimizer = AdaBelief(

@@ -1,7 +1,7 @@
 """Inference CLI of the port: audio file in, MIDI file out.
 
     python -m transkun_tpu_torch.cli.transcribe input.wav output.mid \
-        [--weight ref.pt] [--conf model.conf] [--device cuda|cpu]
+        [--weight ref.pt] [--conf model.conf] [--device cuda|cpu] [--bf16]
 
 The default device is ``cuda``, and the command fails when CUDA is absent;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.  A
@@ -29,6 +29,7 @@ def main(argv=None):
     parser.add_argument("--segmentHopSize", type=float, default=None, help="segment hop (s)")
     parser.add_argument("--segmentSize", type=float, default=None, help="segment size (s)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     args = parser.parse_args(argv)
 
     import torch
@@ -41,14 +42,18 @@ def main(argv=None):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
+    if args.device == "cuda":  # as the trainer: bf16 is the only approximation on offer
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     _, conf = parse_conf_file(args.conf) if args.conf else load_default_conf()
 
+    compute_dtype = torch.bfloat16 if args.bf16 else None
     if args.weight is not None:
-        model = TransKun(conf, device=args.device)
+        model = TransKun(conf, device=args.device, compute_dtype=compute_dtype)
         model.load_state_dict(load_reference_checkpoint(args.weight))
     else:
         print("warning: no --weight given, using random weights (seed 0)")
-        model = TransKun(conf, device=args.device, seed=0)
+        model = TransKun(conf, device=args.device, seed=0, compute_dtype=compute_dtype)
 
     def transcribe_one(audio_path: str, out_path: str) -> float:
         fs, audio = read_audio(audio_path)

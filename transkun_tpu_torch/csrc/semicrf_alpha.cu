@@ -19,10 +19,18 @@ const char* semicrf_alpha_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// fp32 scores
 int semicrf_alpha(const void* s, const void* noise_shift, const void* spdiag,
                   void* v, int tp, int nbp, int device, void* stream) {
-  return launch_lse_table<true>(s, noise_shift, spdiag, v, tp, nbp, device,
-                                stream);
+  return launch_lse_table<true, float>(s, noise_shift, spdiag, v, tp, nbp, device,
+                                       stream);
+}
+
+// bf16 scores; the other tensors as above
+int semicrf_alpha_bf16(const void* s, const void* noise_shift, const void* spdiag,
+                       void* v, int tp, int nbp, int device, void* stream) {
+  return launch_lse_table<true, __nv_bfloat16>(s, noise_shift, spdiag, v, tp, nbp,
+                                               device, stream);
 }
 
 }  // extern "C"

@@ -21,9 +21,18 @@ const char* semicrf_beta_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int semicrf_beta(const void* s, const void* noise, const void* spdiag, void* q,
-                 int tp, int nbp, int device, void* stream) {
-  return launch_lse_table<false>(s, noise, spdiag, q, tp, nbp, device, stream);
+// fp32 scores
+int semicrf_beta(const void* s, const void* noise, const void* spdiag,
+                  void* q, int tp, int nbp, int device, void* stream) {
+  return launch_lse_table<false, float>(s, noise, spdiag, q, tp, nbp, device,
+                                       stream);
+}
+
+// bf16 scores; the other tensors as above
+int semicrf_beta_bf16(const void* s, const void* noise, const void* spdiag,
+                       void* q, int tp, int nbp, int device, void* stream) {
+  return launch_lse_table<false, __nv_bfloat16>(s, noise, spdiag, q, tp, nbp,
+                                               device, stream);
 }
 
 }  // extern "C"

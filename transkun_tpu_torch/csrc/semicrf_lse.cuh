@@ -16,7 +16,7 @@
 //
 // What bounds it: the chain of Tp dependent positions, not bytes.  At the
 // flagship training shape (Tp = 696, NBp = 384) a table reads one triangle
-// of the 744 MB tensor, about 0.1 ms at the card's bandwidth, but every
+// of the 744 MB tensor (372 MB in bf16), about 0.1 ms at the card's bandwidth, but every
 // position waits for the one before it, and only NBp / 32 = 12 blocks run.
 //
 // Design: one block per 32 consecutive lanes, so a warp reads 128
@@ -33,6 +33,11 @@
 // the recurrence is computed directly.  Making it fast (more blocks per
 // lane group, prefetching the next row) is later work.
 //
+// s is fp32 or bf16 (the template's score type; one exported function
+// each).  A bf16 score is converted to fp32 as it is loaded, which is exact,
+// as the TPU kernels upcast their stripe; the table, noise, spdiag and every
+// sum stay fp32.
+//
 // Numerics: sums in another order than the plain version, so the tables
 // agree to rounding, not bit for bit.  An empty partial (no term, or a
 // merge with no mass) contributes an explicit 0, never exp(-inf - -inf).
@@ -45,6 +50,8 @@
 
 #include <cstddef>
 
+#include "as_float.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;      // lanes per block
@@ -56,9 +63,9 @@ __host__ __device__ constexpr size_t lse_smem_bytes(int tp) {
          2 * (size_t)kWarps * kPad * sizeof(float);
 }
 
-template <bool kForward>
+template <bool kForward, typename S>
 __global__ void __launch_bounds__(kLanes * kWarps)
-    lse_table_kernel(const float* __restrict__ s,
+    lse_table_kernel(const S* __restrict__ s,
                      const float* __restrict__ noise,
                      const float* __restrict__ spdiag,
                      float* __restrict__ out, int tp, int nbp) {
@@ -71,7 +78,7 @@ __global__ void __launch_bounds__(kLanes * kWarps)
   const int warp = threadIdx.x >> 5;
   const int col0 = blockIdx.x * kLanes;
   const float neg_inf = __int_as_float(0xff800000);
-  // distance in floats between consecutive terms of one position
+  // distance in elements between consecutive terms of one position
   const size_t term_stride = kForward ? (size_t)nbp : (size_t)tp * nbp;
 
   const int first = kForward ? 0 : tp - 1;
@@ -89,12 +96,13 @@ __global__ void __launch_bounds__(kLanes * kWarps)
     const int hi = kForward ? i : tp;
     // term j of position i: forward s[i, j] = s[(i*tp + j)*nbp],
     // backward s[j, i] = s[(j*tp + i)*nbp]
-    const float* base = s + (kForward ? (size_t)i * tp * nbp : (size_t)i * nbp) +
+    const S* base = s + (kForward ? (size_t)i * tp * nbp : (size_t)i * nbp) +
                         col0 + lane;
     float m = neg_inf;
     float acc = 0.f;
     for (int j = lo + warp; j < hi; j += kWarps) {
-      const float x = tab[j * kLanes + lane] + base[(size_t)j * term_stride];
+      const float x =
+          tab[j * kLanes + lane] + as_float(base[(size_t)j * term_stride]);
       if (x > m) {
         acc = acc * expf(m - x) + 1.f;  // acc = 0 while m = -inf
         m = x;
@@ -136,19 +144,19 @@ __global__ void __launch_bounds__(kLanes * kWarps)
 
 // Launches on `stream`, allocates nothing and does not synchronise.
 // Returns the cudaError_t of the launch (0 on success).
-template <bool kForward>
+template <bool kForward, typename S>
 int launch_lse_table(const void* s, const void* noise, const void* spdiag,
                      void* out, int tp, int nbp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = lse_smem_bytes(tp);
-  err = cudaFuncSetAttribute(lse_table_kernel<kForward>,
+  err = cudaFuncSetAttribute(lse_table_kernel<kForward, S>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  lse_table_kernel<kForward><<<nbp / kLanes, kLanes * kWarps, smem,
-                               (cudaStream_t)stream>>>(
-      (const float*)s, (const float*)noise, (const float*)spdiag,
+  lse_table_kernel<kForward, S><<<nbp / kLanes, kLanes * kWarps, smem,
+                                  (cudaStream_t)stream>>>(
+      (const S*)s, (const float*)noise, (const float*)spdiag,
       (float*)out, tp, nbp);
   return (int)cudaGetLastError();
 }

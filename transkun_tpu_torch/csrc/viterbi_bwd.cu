@@ -15,13 +15,20 @@
 // on the order in which the maximum is reduced: the tables equal the plain
 // PyTorch version exactly.  The build must not use --use_fast_math.
 //
+// s_t is fp32 or bf16 (one exported function each).  A bf16 score is
+// converted to fp32 as it is loaded, which is exact, as the TPU kernel
+// upcasts its stripe; q, noise, diag_gate and every add, compare and max
+// stay fp32, so the same bf16 bits give the same table as the plain
+// version, and tie rules and padding do not change.
+//
 // What bounds it: the chain of Tp dependent positions, not bytes.  At the
 // flagship shape (Tp = 696, 128 lanes) the kernel reads the upper triangle
-// of the 248 MB score tensor once, which is tens of microseconds at the
-// card's bandwidth, but every position waits for the one before it.
+// of the 248 MB score tensor once (124 MB in bf16), which is tens of
+// microseconds at the card's bandwidth, but every position waits for the
+// one before it.
 //
 // Design: one block per group of 32 consecutive lanes, so a warp reads 128
-// contiguous bytes of a [Tp, NBp] row.  32 warps stride over the end
+// contiguous bytes of a [Tp, NBp] row (64 in bf16).  32 warps stride over the end
 // position e; per position the (max, smallest e) pairs meet through shared
 // memory and warp 0 finishes the step.  q for the block's lanes lives in
 // shared memory (Tp * 32 * 4 bytes, 89 KB at Tp = 696).  The TPU kernel's
@@ -37,6 +44,8 @@
 #include <climits>
 #include <cstddef>
 
+#include "as_float.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;  // lanes per block
@@ -47,8 +56,9 @@ __host__ __device__ constexpr size_t smem_bytes(int tp) {
          (size_t)kWarps * kLanes * (sizeof(float) + sizeof(int));
 }
 
+template <typename S>
 __global__ void __launch_bounds__(kLanes * kWarps)
-    viterbi_bwd_kernel(const float* __restrict__ s_t,
+    viterbi_bwd_kernel(const S* __restrict__ s_t,
                        const float* __restrict__ noise,
                        const float* __restrict__ diag_gate,
                        int* __restrict__ ptr, int tp, int nbp) {
@@ -70,12 +80,12 @@ __global__ void __launch_bounds__(kLanes * kWarps)
   __syncthreads();
 
   for (int p = tp - 2; p >= 0; --p) {
-    const float* row = s_t + (size_t)p * tp * nbp + col;
+    const S* row = s_t + (size_t)p * tp * nbp + col;
     float best = neg_inf;
     int best_e = INT_MAX;
 #pragma unroll 4
     for (int e = p + 1 + warp; e < tp; e += kWarps) {
-      const float v = q[e * kLanes + lane] + row[(size_t)e * nbp];
+      const float v = q[e * kLanes + lane] + as_float(row[(size_t)e * nbp]);
       if (v > best) {  // strict: the smallest e of this warp wins ties
         best = v;
         best_e = e;
@@ -102,6 +112,26 @@ __global__ void __launch_bounds__(kLanes * kWarps)
   }
 }
 
+// Launches on `stream`, allocates nothing and does not synchronise.
+// Returns the cudaError_t of the launch (0 on success).
+template <typename S>
+int launch_viterbi_bwd(const void* s_t, const void* noise,
+                       const void* diag_gate, void* ptr, int tp, int nbp,
+                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(tp);
+  err = cudaFuncSetAttribute(viterbi_bwd_kernel<S>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  viterbi_bwd_kernel<S><<<nbp / kLanes, kLanes * kWarps, smem,
+                          (cudaStream_t)stream>>>(
+      (const S*)s_t, (const float*)noise, (const float*)diag_gate, (int*)ptr,
+      tp, nbp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -114,22 +144,18 @@ const char* viterbi_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`, allocates nothing and does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// fp32 scores
 int viterbi_bwd(const void* s_t, const void* noise, const void* diag_gate,
                 void* ptr, int tp, int nbp, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(tp);
-  err = cudaFuncSetAttribute(viterbi_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  viterbi_bwd_kernel<<<nbp / kLanes, kLanes * kWarps, smem,
-                       (cudaStream_t)stream>>>(
-      (const float*)s_t, (const float*)noise, (const float*)diag_gate,
-      (int*)ptr, tp, nbp);
-  return (int)cudaGetLastError();
+  return launch_viterbi_bwd<float>(s_t, noise, diag_gate, ptr, tp, nbp, device,
+                                   stream);
+}
+
+// bf16 scores; noise, diag_gate and ptr as above
+int viterbi_bwd_bf16(const void* s_t, const void* noise, const void* diag_gate,
+                     void* ptr, int tp, int nbp, int device, void* stream) {
+  return launch_viterbi_bwd<__nv_bfloat16>(s_t, noise, diag_gate, ptr, tp, nbp,
+                                           device, stream);
 }
 
 }  // extern "C"

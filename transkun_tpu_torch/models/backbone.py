@@ -17,23 +17,52 @@ from torch import nn
 from .layers import BasicBlock, Dropout, SpatialPositionEmbedding, grid_coords
 
 
-def down_conv(base_size: int, dropout: float) -> nn.Sequential:
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``conv(x)`` computed in ``dtype`` as flax's ``Conv(dtype=...)``: input,
+    weight and bias cast, the convolution rounded, then the bias added.
+    ``None`` is ``conv(x)`` as it stands."""
+    if dtype is None:
+        return conv(x)
+    y = torch.nn.functional.conv2d(
+        x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding
+    )
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+class DownConv(nn.Sequential):
     """Strided conv patchifier, 8x in time and 4x in frequency, with the
     explicit asymmetric zero padding (4, 3) in time and (2, 1) in frequency.
-    Weights sit at indices 1, 2, 5, 6, 9, 10, 13, 14 as in the reference."""
-    b = base_size
-    layers = [nn.ZeroPad2d((2, 1, 4, 3))]
-    c_in = b
-    for c, s in zip((2 * b, 4 * b, 4 * b), ((2, 1), (2, 2), (2, 2))):
-        layers += [
-            nn.Conv2d(c_in, c, 3, stride=s, padding=1),
-            nn.GroupNorm(4, c, eps=1e-5),
-            nn.GELU(),
-            Dropout(dropout, tied_dims=(2, 3)),
-        ]
-        c_in = c
-    layers += [nn.Conv2d(4 * b, 4 * b, 3, padding=1), nn.GroupNorm(4, 4 * b, eps=1e-5)]
-    return nn.Sequential(*layers)
+    Weights sit at indices 1, 2, 5, 6, 9, 10, 13, 14 as in the reference.
+
+    With a ``dtype`` the convolutions run in it and each GroupNorm, which
+    has none in the JAX package, takes its input back to fp32 and returns
+    fp32: the stack alternates the two."""
+
+    def __init__(self, base_size: int, dropout: float, dtype: Optional[torch.dtype] = None):
+        b = base_size
+        layers = [nn.ZeroPad2d((2, 1, 4, 3))]
+        c_in = b
+        for c, s in zip((2 * b, 4 * b, 4 * b), ((2, 1), (2, 2), (2, 2))):
+            layers += [
+                nn.Conv2d(c_in, c, 3, stride=s, padding=1),
+                nn.GroupNorm(4, c, eps=1e-5),
+                nn.GELU(),
+                Dropout(dropout, tied_dims=(2, 3)),
+            ]
+            c_in = c
+        layers += [nn.Conv2d(4 * b, 4 * b, 3, padding=1), nn.GroupNorm(4, 4 * b, eps=1e-5)]
+        super().__init__(*layers)
+        self.dtype = dtype
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            if isinstance(layer, nn.Conv2d):
+                h = conv2d(layer, h, self.dtype)
+            elif isinstance(layer, nn.GroupNorm):
+                h = layer(h.float())
+            else:
+                h = layer(h)
+        return h
 
 
 class UpConvSkip(nn.Module):
@@ -45,9 +74,9 @@ class UpConvSkip(nn.Module):
     channel o), one free bias per step as in the JAX package's Dense.  A
     reference state_dict holds the tied [out] form; loading tiles it 8x."""
 
-    def __init__(self, d: int, out: int, steps: int = 8):
+    def __init__(self, d: int, out: int, steps: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.out, self.steps = out, steps
+        self.out, self.steps, self.dtype = out, steps, dtype
         self.weight = nn.Parameter(torch.empty(d, out, steps))
         self.bias = nn.Parameter(torch.zeros(steps * out))
         self._register_load_state_dict_pre_hook(self._tile_tied_bias)
@@ -61,7 +90,10 @@ class UpConvSkip(nn.Module):
         """h [B, T, d] -> [B, T * steps, out]."""
         d = self.weight.shape[0]
         w = self.weight.permute(0, 2, 1).reshape(d, self.steps * self.out)
-        up = h @ w + self.bias
+        bias = self.bias
+        if self.dtype is not None:
+            h, w, bias = h.to(self.dtype), w.to(self.dtype), bias.to(self.dtype)
+        up = h @ w + bias
         return up.reshape(h.shape[0], h.shape[1] * self.steps, self.out)
 
 
@@ -95,8 +127,13 @@ class Backbone(nn.Module):
         downsample_f: bool = True,
         upsample_proj_only: bool = True,
         use_gradient_checkpoint: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
+        """``dtype``: the compute dtype of the convolutions, the encoder
+        stack and the upsample; the norms, the position embeddings and the
+        returned ctx are fp32 (the JAX package's placement)."""
         super().__init__()
+        self.dtype = dtype
         if not downsample_f or not upsample_proj_only:
             raise NotImplementedError(
                 "only downsampleF=True, upsampleProjOnly=True are ported"
@@ -106,14 +143,14 @@ class Backbone(nn.Module):
         self.out_d = b * expansion_factor
         self.posEmbedBuilder = SpatialPositionEmbedding(b, 1, dropout)
         self.inputConv = nn.Conv2d(input_size, b, 3, padding=1)
-        self.downConv = down_conv(b, dropout)
+        self.downConv = DownConv(b, dropout, dtype)
         self.posEmbedBuilderAttnTF = SpatialPositionEmbedding(d, 2, dropout)
         self.posEmbedBuilderAttnTE = SpatialPositionEmbedding(d, 2, dropout)
         self.encoderLayers = nn.ModuleList(
-            BasicBlock(d, n_head, hidden_factor, hidden_factor_attn, enabled_attn, dropout)
+            BasicBlock(d, n_head, hidden_factor, hidden_factor_attn, enabled_attn, dropout, dtype)
             for _ in range(n_layers)
         )
-        self.upConv1dSkip = UpConvSkip(d, self.out_d)
+        self.upConv1dSkip = UpConvSkip(d, self.out_d, dtype=dtype)
         # recompute each encoder layer in the backward pass (training only)
         self.use_gradient_checkpoint = use_gradient_checkpoint
         self.generator: Optional[torch.Generator] = None  # see set_dropout_generator
@@ -124,9 +161,9 @@ class Backbone(nn.Module):
         n, n_t, n_f, _ = x.shape
         dev = x.device
         pos_f = self.posEmbedBuilder(torch.arange(n_f, dtype=torch.float32, device=dev)[:, None])
-        h = self.inputConv(x.permute(0, 3, 1, 2))  # [N, b, T, F]
-        h = h + pos_f.t()[:, None, :]
-        h = self.downConv(h).permute(0, 2, 3, 1)  # [N, T', F', 4b]
+        h = conv2d(self.inputConv, x.permute(0, 3, 1, 2), self.dtype)  # [N, b, T, F]
+        h = h + pos_f.t()[:, None, :]  # fp32: the embedding has no dtype
+        h = self.downConv(h.to(self.dtype or h.dtype)).permute(0, 2, 3, 1)  # [N, T', F', 4b]
 
         # prepend one aggregation step (time) and one aggregation track (freq)
         h = torch.nn.functional.pad(h, (0, 0, 1, 0, 1, 0))
@@ -136,6 +173,8 @@ class Backbone(nn.Module):
         h = h + self.posEmbedBuilderAttnTF(grid_coords(coord_t, coord_f))
         pos_te = self.posEmbedBuilderAttnTE(grid_coords(coord_t, output_indices.float()))
         h = torch.cat([h, pos_te.expand(n, *pos_te.shape)], dim=-2)  # [N, T', F'+P, 4b]
+        # the residual stream runs in the compute dtype through the encoder
+        h = h.to(self.dtype or h.dtype)
 
         remat = self.use_gradient_checkpoint and self.training and torch.is_grad_enabled()
         for layer in self.encoderLayers:

@@ -8,6 +8,11 @@ flagship are ported; the other branches raise ``NotImplementedError``.
 Dropout draws its masks from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), so a training step's masks follow from its seed
 and a recomputed (checkpointed) layer can replay them.
+
+``dtype`` on a module is flax's ``dtype=``: parameters stay fp32 and are cast
+where they are used, and the module computes in that dtype (``None``: the
+input's).  The casts are written out at the places where the JAX package
+rounds, not left to ``torch.autocast``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,15 @@ def rms_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``lin(x)`` computed in ``dtype`` as flax's ``Dense(dtype=...)``: input,
+    weight and bias cast, the product rounded, then the bias added (two
+    roundings).  ``None`` is ``lin(x)`` as it stands."""
+    if dtype is None:
+        return lin(x)
+    return x.to(dtype) @ lin.weight.t().to(dtype) + lin.bias.to(dtype)
+
+
 def grid_coords(*axes: torch.Tensor) -> torch.Tensor:
     """meshgrid(indexing='ij') + stack(-1): [len(a0), ..., n_axes]."""
     return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
@@ -92,9 +106,14 @@ class SpatialPositionEmbedding(nn.Module):
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
-    """Per-head softmax(q k^T * scale) v over axis -2, written out: fp32
-    logits, row max, exp, weighted sum, divide (``attention_xla`` of the JAX
-    package).  q [..., Sq, H*dh], k/v [..., Sk, H*dh]."""
+    """Per-head softmax(q k^T * scale) v over axis -2, written out in the
+    order of the JAX package's ``attention_xla``: fp32 logits (q and k go
+    to fp32, exact for bf16 values), the row max held constant under
+    autograd, exp, p rounded to the value dtype, the weighted sum and the
+    row sum both of the rounded p, one division in the value dtype.  The
+    JAX package takes the row sum from a ones column of the same product:
+    the fp32 sum of the rounded p, rounded once, as here.
+    q [..., Sq, H*dh], k/v [..., Sk, H*dh]."""
     d = q.shape[-1]
     head_dim = d // num_heads
 
@@ -103,8 +122,9 @@ def attention(
 
     qh, kh, vh = split(q), split(k), split(v)
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    o = torch.matmul(p.to(vh.dtype), vh) / p.sum(dim=-1, keepdim=True).to(vh.dtype)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach()).to(vh.dtype)
+    row_sum = p.sum(dim=-1, keepdim=True, dtype=torch.float32).to(vh.dtype)
+    o = torch.matmul(p, vh) / row_sum
     o = o.transpose(-2, -3)  # [..., Sq, heads, head_dim]
     return o.reshape(*o.shape[:-2], d).to(q.dtype)
 
@@ -114,8 +134,10 @@ class MultiHeadAttention(nn.Module):
     projection; attends over axis -2.  head_dim =
     ceil(ceil(hidden_factor * embed) / num_heads)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, hidden_factor: float = 1.0):
+    def __init__(self, embed_dim: int, num_heads: int, hidden_factor: float = 1.0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.num_heads = num_heads
         self.head_dim = int(math.ceil(math.ceil(hidden_factor * embed_dim) / num_heads))
         hidden = self.head_dim * num_heads
@@ -125,9 +147,12 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(hidden, embed_dim)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-        q = query @ self.q_proj_weight
-        k = key @ self.k_proj_weight
-        v = key @ self.v_proj_weight
+        wq, wk, wv = self.q_proj_weight, self.k_proj_weight, self.v_proj_weight
+        if self.dtype is not None:
+            query, key, wq, wk, wv = (a.to(self.dtype) for a in (query, key, wq, wk, wv))
+        q = query @ wq
+        k = key @ wk
+        v = key @ wv
         scale = 1.0 / math.sqrt(self.head_dim)
         if attention_ops.use_fused_attention():
             # the fused route wants flat [B, S, hidden]: broadcast the
@@ -142,43 +167,51 @@ class MultiHeadAttention(nn.Module):
             out = out.reshape(*lead, q.shape[-2], hidden)
         else:
             out = attention(q, k, v, self.num_heads, scale)
-        return self.out_proj(out)
+        return dense(self.out_proj, out, self.dtype)
 
 
 class AttnResBlock(nn.Module):
     """x + dropout(MHA(rms_norm(x), mem)) * scale (LayerScale, init 1e-2)."""
 
-    def __init__(self, size: int, num_heads: int, hidden_factor_attn: float, dropout: float):
+    def __init__(self, size: int, num_heads: int, hidden_factor_attn: float, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.full((size,), 1e-2))
-        self.module = MultiHeadAttention(size, num_heads, hidden_factor_attn)
+        self.module = MultiHeadAttention(size, num_heads, hidden_factor_attn, dtype)
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, mem: torch.Tensor) -> torch.Tensor:
-        return x + self.drop(self.module(rms_norm(x), mem)) * self.scale
+        q_in = rms_norm(x).to(self.dtype or x.dtype)
+        h = self.drop(self.module(q_in, mem))
+        return x + (h * self.scale).to(x.dtype)
 
 
 class FFNResBlock(nn.Module):
     """x + dropout(MLP(rms_norm(x))) * scale."""
 
-    def __init__(self, size: int, hidden_factor: float, dropout: float):
+    def __init__(self, size: int, hidden_factor: float, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.full((size,), 1e-2))
         hidden = int(math.ceil(size * hidden_factor))
         self.module = mlp(size, hidden, size, dropout)
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xin = rms_norm(x)
-        if mlp_ops.use_fused_mlp() and (not self.training or self.module[2].p == 0.0):
+        dt = self.dtype or x.dtype
+        xin = rms_norm(x).to(dt)
+        lin1, act, mid_drop, lin2 = self.module
+        if mlp_ops.use_fused_mlp() and (not self.training or mid_drop.p == 0.0):
             # the hidden activation stays on chip; the mid-FFN dropout is a
             # no-op under this condition.  nn.Linear stores [out, in], the
-            # fused route takes [in, out]
-            lin1, lin2 = self.module[0], self.module[3]
-            h = mlp_ops.mlp(xin, lin1.weight.t(), lin1.bias, lin2.weight.t(), lin2.bias)
+            # fused route takes [in, out]; weights and biases go in cast
+            h = mlp_ops.mlp(xin, lin1.weight.t().to(dt), lin1.bias.to(dt),
+                            lin2.weight.t().to(dt), lin2.bias.to(dt))
         else:
-            h = self.module(xin)
-        return x + self.drop(h) * self.scale
+            h = dense(lin2, mid_drop(act(dense(lin1, xin, self.dtype))), self.dtype)
+        return x + (self.drop(h) * self.scale).to(x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -194,6 +227,7 @@ class BasicBlock(nn.Module):
         hidden_factor_attn: float = 1.0,
         enabled: Sequence[str] = ("F", "T"),
         dropout: float = 0.0,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         other = set(enabled) - {"F", "T"}
@@ -203,9 +237,9 @@ class BasicBlock(nn.Module):
         for tag in self.enabled:
             self.add_module(
                 f"mhaBlock{tag}",
-                AttnResBlock(size, num_heads, hidden_factor_attn, dropout),
+                AttnResBlock(size, num_heads, hidden_factor_attn, dropout, dtype),
             )
-            self.add_module(f"fnnBlock{tag}", FFNResBlock(size, hidden_factor, dropout))
+            self.add_module(f"fnnBlock{tag}", FFNResBlock(size, hidden_factor, dropout, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mem = x
@@ -224,24 +258,35 @@ class ScaledInnerProductIntervalScorer(nn.Module):
 
     No dropout: the JAX scorer has a ``dropout`` field that it never
     applies, and the reference's ``scoreDropoutProb`` therefore changes
-    nothing.  ``map`` stays a ``Sequential`` so its key is ``scorer.map.0``."""
+    nothing.  ``map`` stays a ``Sequential`` so its key is ``scorer.map.0``.
 
-    def __init__(self, in_size: int, size: int, expansion_factor: int = 1):
+    ``score_dtype`` (the JAX package's field of that name): the fp32 map's q,
+    k and diag are rounded to it, the product is emitted in it, and so is
+    the length factor |e - b|.  In bf16 a length above 256 is itself
+    rounded (8 significant bits); that rounding is part of the result.
+    ``noise`` and the diag that ``decode_scores`` returns stay fp32."""
+
+    def __init__(self, in_size: int, size: int, expansion_factor: int = 1,
+                 score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.e = size * expansion_factor
+        self.score_dtype = score_dtype
         self.map = nn.Sequential(nn.Linear(in_size, 2 * self.e + 1))
 
     def _qkd(self, ctx: torch.Tensor):
         mapped = self.map(ctx)
         q, k, diag = torch.split(mapped, [self.e, self.e, 1], dim=-1)
-        return q / math.sqrt(self.e), k, diag
+        q = q / math.sqrt(self.e)
+        if self.score_dtype is not None:
+            q, k, diag = (a.to(self.score_dtype) for a in (q, k, diag))
+        return q, k, diag
 
     def forward(self, ctx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """ctx [N, P, T, D] -> (S [T, T, N, P] in [end, begin] layout,
         noise [T-1, N, P] zeros): the alpha layout without padding."""
         n, p, t, _ = ctx.shape
         s, noise, _ = self._padded_scores(ctx, t, p, False)
-        return s.reshape(t, t, n, p), noise[:-1].reshape(t - 1, n, p)
+        return s.reshape(t, t, n, p), noise[:-1].reshape(t - 1, n, p).to(s.dtype)
 
     def _padded_scores(
         self, ctx: torch.Tensor, t_pad: int, p_pad: int, transposed: bool
@@ -279,9 +324,9 @@ class ScaledInnerProductIntervalScorer(nn.Module):
         self, ctx: torch.Tensor, t_pad: int, p_pad: int
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Decode-layout scores for the Viterbi kernel: (s_t [t_pad, t_pad,
-        N*p_pad] f32 [begin, end, lane], NEG outside t x t and P; noise
-        [t_pad, N*p_pad] zeros; diag [t_pad, N*p_pad] f32 un-gated, zero in
-        the padding), all contiguous."""
+        N*p_pad] f32 or ``score_dtype``, [begin, end, lane], NEG outside
+        t x t and P; noise [t_pad, N*p_pad] f32 zeros; diag [t_pad, N*p_pad]
+        f32 un-gated, zero in the padding), all contiguous."""
         s_t, noise, diag_pad = self._padded_scores(ctx, t_pad, p_pad, True)
         diag_t = diag_pad.permute(2, 0, 1).reshape(t_pad, -1).float().contiguous()
         return s_t, noise, diag_t

@@ -76,10 +76,12 @@ class SpectrogramExtractor(nn.Module):
 class MelFrontend(nn.Module):
     """Gain-normalized multi-window log-mel: frames [N, C, T, W] ->
     [N, T, n_mels, nWins].  The Hann window, DFT band and filterbank are
-    buffers that are not saved in the state_dict."""
+    buffers that are not saved in the state_dict.  ``compute_dtype`` goes to
+    ``frontend.mel_spectrum_gemm``."""
 
-    def __init__(self, conf: ModelConfig):
+    def __init__(self, conf: ModelConfig, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.window_size = conf.windowSize
         self.spectrogramExtractor = SpectrogramExtractor(conf.nExtraWins)
         fbank = frontend.melscale_fbanks(
@@ -105,21 +107,29 @@ class MelFrontend(nn.Module):
             ]
         )
         mel = frontend.mel_spectrum_gemm(
-            frames, wins, self.cos_m, self.sin_m, self.fb_band, log=True, to_mono=True
+            frames, wins, self.cos_m, self.sin_m, self.fb_band, log=True, to_mono=True,
+            compute_dtype=self.compute_dtype,
         )  # [N, 1, T, M, nWins]
         return mel[:, 0]
 
 
 class TransKunModule(nn.Module):
-    """The on-device part of the model."""
+    """The on-device part of the model.
 
-    def __init__(self, conf: ModelConfig):
+    ``compute_dtype`` (``torch.bfloat16`` or None) is the JAX module's field
+    of that name: the DFT products, the backbone and the scorer's score
+    tensor run in it; parameters, the attribute heads (which read the fp32
+    ctx) and ``boundary_offset_presence`` stay fp32."""
+
+    def __init__(self, conf: ModelConfig, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
         if not conf.useInnerProductScorer:
             raise NotImplementedError("only the inner-product scorer (V2) is ported")
         self.conf = conf
         d = conf.baseSize * conf.scoringExpansionFactor
-        self.framewiseFeatureExtractor = MelFrontend(conf)
+        self.framewiseFeatureExtractor = MelFrontend(conf, compute_dtype)
         self.backbone = Backbone(
             input_size=conf.nExtraWins + 1,
             base_size=conf.baseSize,
@@ -133,8 +143,9 @@ class TransKunModule(nn.Module):
             downsample_f=conf.downsampleF,
             upsample_proj_only=conf.upsampleProjOnly,
             use_gradient_checkpoint=conf.useGradientCheckpoint,
+            dtype=compute_dtype,
         )
-        self.scorer = ScaledInnerProductIntervalScorer(d, d, 1)
+        self.scorer = ScaledInnerProductIntervalScorer(d, d, 1, score_dtype=compute_dtype)
         self.velocityPredictor = mlp(
             3 * d, conf.velocityPredictorHiddenSize, 128, conf.velocityDropoutProb
         )
@@ -291,9 +302,12 @@ class TransKun:
 
     Config = ModelConfig
 
-    def __init__(self, conf: ModelConfig, device="cpu", seed: Optional[int] = None):
+    def __init__(self, conf: ModelConfig, device="cpu", seed: Optional[int] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         """``seed`` draws random weights from a ``torch.Generator``; without
-        it, load weights with ``load_state_dict``."""
+        it, load weights with ``load_state_dict``.  ``compute_dtype=
+        torch.bfloat16`` runs the activations in bf16 (the CLIs' ``--bf16``);
+        the parameters, and so the checkpoints, stay fp32."""
         self.conf = conf
         self.device = torch.device(device)
         self.fs = conf.fs
@@ -302,7 +316,7 @@ class TransKun:
         self.segmentSizeInSecond = conf.segmentSizeInSecond
         self.segmentHopSizeInSecond = conf.segmentHopSizeInSecond
         self.targetMIDIPitch = target_midi_pitches()
-        module = TransKunModule(conf)
+        module = TransKunModule(conf, compute_dtype)
         if seed is not None:
             module.reset_parameters(torch.Generator().manual_seed(seed))
         self.module = module.to(self.device).eval()

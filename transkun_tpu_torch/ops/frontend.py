@@ -110,12 +110,21 @@ def mel_spectrum_gemm(
     log: bool = True,
     eps: float = 1e-5,
     to_mono: bool = False,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Log-mel via the band-limited GEMM DFT.
 
     frames [..., nFrame, W], wins [nWin, W] -> [..., nFrame, n_mels, nWin].
-    ``to_mono`` averages the power over the channel axis (dim -4)."""
+    ``to_mono`` averages the power over the channel axis (dim -4).
+    ``compute_dtype=torch.bfloat16`` rounds the windowed frames and the DFT
+    matrices to bf16 and takes the two DFT products of those values with
+    fp32 results, as the JAX package does (``preferred_element_type``): the
+    rounded operands go back to fp32, which is exact, and the product runs
+    in fp32 on the CPU and on the card alike.  Power, filterbank and log
+    stay fp32."""
     w = frames[..., None, :] * wins  # [..., nFrame, nWin, W]
+    if compute_dtype is not None:
+        w, cos_m, sin_m = (a.to(compute_dtype).float() for a in (w, cos_m, sin_m))
     re = torch.matmul(w, cos_m)
     im = torch.matmul(w, sin_m)
     power = re * re + im * im  # [..., nFrame, nWin, B]

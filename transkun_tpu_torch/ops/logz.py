@@ -5,8 +5,9 @@ the exact-marginal pass ``semicrf._marginals``.
 
 Port of ``transkun_tpu/ops/semicrf_pallas.py:219-502``, whose TPU kernels
 are ``_alpha_kernel`` (``:224``) and ``_beta_kernel`` (``:321``).  Inputs:
-``s_pad [Tp, Tp, NBp]`` f32 in [end, begin, lane] (alpha) layout, NEG-padded;
-``spdiag [Tp, NBp]`` = softplus of its diagonal.  The alpha table takes the
+``s_pad [Tp, Tp, NBp]`` f32 or bf16 in [end, begin, lane] (alpha) layout,
+NEG-padded, upcast to f32 as it is read; ``spdiag [Tp, NBp]`` f32 = softplus
+of its diagonal; the noise f32.  The alpha table takes the
 shifted noise (row i = noise[i-1], row 0 and rows >= T zero), the beta table
 the plain noise (row t = noise[t], rows >= T-1 zero).  Padded rows and lanes
 reduce to zero-weight skip chains, so logZ = v[Tp-1] and padded lanes give
@@ -30,6 +31,9 @@ from . import _build, semicrf
 # else changes them except a caller resetting them to 0.
 alpha_launches = 0
 beta_launches = 0
+
+# suffix of the exported C function for each score dtype the kernels take
+_SUFFIX_OF = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _lse_step(terms: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
@@ -68,12 +72,13 @@ def beta_table_padded_plain(
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn = getattr(lib, name)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    for suffix in _SUFFIX_OF.values():
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     getattr(lib, name + "_smem_bytes").argtypes = [ctypes.c_int]
     getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
     getattr(lib, name + "_lanes_per_block").argtypes = []
@@ -89,10 +94,12 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
     lib = _library(name)
     tp, tp2, nbp = s_pad.shape
     lanes = getattr(lib, name + "_lanes_per_block")()
+    if s_pad.dtype not in _SUFFIX_OF:
+        raise TypeError(f"s_pad must be float32 or bfloat16, got {s_pad.dtype}")
     for arg, a in (("s_pad", s_pad), ("noise", noise), ("spdiag", spdiag)):
         if a.device != s_pad.device or a.device.type != "cuda":
             raise ValueError(f"{arg} is on {a.device}, s_pad on {s_pad.device}")
-        if a.dtype != torch.float32:
+        if a is not s_pad and a.dtype != torch.float32:
             raise TypeError(f"{arg} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
@@ -110,7 +117,7 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
             "chunk too long for the kernel"
         )
     out = torch.empty(tp, nbp, dtype=torch.float32, device=s_pad.device)
-    err = getattr(lib, name)(
+    err = getattr(lib, name + _SUFFIX_OF[s_pad.dtype])(
         s_pad.data_ptr(), noise.data_ptr(), spdiag.data_ptr(), out.data_ptr(),
         tp, nbp, s_pad.device.index,
         torch.cuda.current_stream(s_pad.device).cuda_stream,

@@ -103,7 +103,9 @@ def _marginals(
     g = score.float() + v[None, :, :]
     g += q[:, None, :]
     g -= logz
-    spdiag = torch.nn.functional.softplus(_diag(score.float()))
+    # softplus in the score's dtype, as the JAX package takes it here (a
+    # bf16 score gives a bf16-rounded term; fp32 is unchanged)
+    spdiag = torch.nn.functional.softplus(_diag(score)).float()
     torch.diagonal(g).sub_(2.0 * spdiag.t())
     upper = torch.ones(t, t, dtype=torch.bool, device=g.device).triu_(1)
     g.masked_fill_(upper[:, :, None], NEG).exp_()
@@ -249,13 +251,16 @@ def viterbi_backward_tables(
     scores, zero noise, positions to a multiple of PALLAS_KP, lanes to a
     multiple of PALLAS_LN) and transposes to [begin, end, lane], so a CUDA
     tensor runs the kernel.  The padded DP is an exact extension: no
-    interval touches the padding and padded skips weigh zero.
+    interval touches the padding and padded skips weigh zero.  A bf16 score
+    is padded and handed on as bf16 (the kernel upcasts as it reads); any
+    other dtype goes through fp32.
     """
     t, _, n = score.shape
     tp, nbp = _pad_to(t, PALLAS_KP), _pad_to(n, PALLAS_LN)
-    score = score.float()
-    diag = _diag(score)
-    s_t = torch.full((tp, tp, nbp), NEG, dtype=torch.float32, device=score.device)
+    if score.dtype != torch.bfloat16:
+        score = score.float()
+    diag = _diag(score).float()
+    s_t = torch.full((tp, tp, nbp), NEG, dtype=score.dtype, device=score.device)
     s_t[:t, :t, :n] = score.transpose(0, 1)
     noise_pad = torch.zeros(tp, nbp, dtype=torch.float32, device=score.device)
     noise_pad[: t - 1, :n] = noise

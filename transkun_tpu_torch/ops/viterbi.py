@@ -3,9 +3,9 @@
 
 Port of ``viterbi_backward_tables_padded`` (``transkun_tpu/ops/
 semicrf_pallas.py:143``), whose TPU kernel is ``_viterbi_bwd_kernel``
-(``:67``).  Inputs: ``s_t [Tp, Tp, NBp]`` f32 in [begin, end, lane] layout,
-NEG-padded; ``noise [Tp, NBp]`` f32; ``diag_gate [Tp, NBp]`` f32, already
-gated (``diag * (diag > 0)``).  Output: int32 ``ptr [Tp, NBp]``, -1 = skip
+(``:67``).  Inputs: ``s_t [Tp, Tp, NBp]`` f32 or bf16 in [begin, end, lane]
+layout, NEG-padded, upcast to f32 as it is read; ``noise [Tp, NBp]`` f32;
+``diag_gate [Tp, NBp]`` f32, already gated (``diag * (diag > 0)``).  Output: int32 ``ptr [Tp, NBp]``, -1 = skip
 to p+1, s >= 0 = interval (p, p+1+s).
 
 On a CPU tensor the wrapper runs the plain version.  On a CUDA tensor it
@@ -25,6 +25,9 @@ from . import _build
 # Kernel launches made by viterbi_backward_tables_padded; nothing else
 # changes it except a caller resetting it to 0.
 launches = 0
+
+# exported C function for each score dtype the kernel takes
+_KERNEL_OF = {torch.float32: "viterbi_bwd", torch.bfloat16: "viterbi_bwd_bf16"}
 
 
 def viterbi_backward_tables_plain(
@@ -55,11 +58,13 @@ def viterbi_backward_tables_plain(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("viterbi_bwd")
-    lib.viterbi_bwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.viterbi_bwd.restype = ctypes.c_int
+    for name in _KERNEL_OF.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     lib.viterbi_bwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.viterbi_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.viterbi_bwd_lanes_per_block.argtypes = []
@@ -78,10 +83,12 @@ def viterbi_backward_tables_cuda(
     lib = _library()
     tp, tp2, nbp = s_t.shape
     lanes = lib.viterbi_bwd_lanes_per_block()
+    if s_t.dtype not in _KERNEL_OF:
+        raise TypeError(f"s_t must be float32 or bfloat16, got {s_t.dtype}")
     for name, a in (("s_t", s_t), ("noise", noise), ("diag_gate", diag_gate)):
         if a.device != s_t.device or a.device.type != "cuda":
             raise ValueError(f"{name} is on {a.device}, s_t on {s_t.device}")
-        if a.dtype != torch.float32:
+        if a is not s_t and a.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -100,7 +107,7 @@ def viterbi_backward_tables_cuda(
             "segment too long for the kernel"
         )
     ptr = torch.empty(tp, nbp, dtype=torch.int32, device=s_t.device)
-    err = lib.viterbi_bwd(
+    err = getattr(lib, _KERNEL_OF[s_t.dtype])(
         s_t.data_ptr(), noise.data_ptr(), diag_gate.data_ptr(), ptr.data_ptr(),
         tp, nbp, s_t.device.index,
         torch.cuda.current_stream(s_t.device).cuda_stream,
