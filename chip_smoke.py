@@ -16,18 +16,25 @@
    logZ gradient through the kernels against autograd of the plain
    ``log_z_slow`` at a small ragged shape.  Every kernel and plain version
    is timed with CUDA events (median of several runs).
-   The attention forward and backward kernels against their plain versions
-   at the flagship shapes of one segment ([89, 149, 256] and [149, 89, 256],
-   8 heads), of a training batch of 4 ([356, 149, 256] and [596, 89, 256])
-   and at a ragged shape (cross-attention, odd lengths, 3 heads of 8):
-   forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal inputs.  The
-   fused MLP at [13261, 256] -> 1024 -> 256, at the training batch's
-   [53044, 256] and at [1000, 128] -> 192 -> 128 within 2e-5.  The forward
-   kernels are timed at the segment's shape and at the batch's, the backward
-   kernel at the batch's, the only one the paths launch it at; the kernels
-   line carries the forward's time at the segment's shape.
-   ``F.scaled_dot_product_attention`` and its backward are timed on the
-   same inputs as the library's yardstick; the port never calls them.
+   The attention forward and backward kernels against their plain versions,
+   with fp32 and with bf16 inputs, at the flagship shapes of one segment
+   ([89, 149, 256] and [149, 89, 256], 8 heads), of a training batch of 4
+   ([356, 149, 256] and [596, 89, 256]), at a ragged shape (cross-attention,
+   odd lengths, 3 heads of 8) and at a long one (300 queries x 200 keys),
+   which only the general kernels take where the others run on the tensor
+   cores.  fp32: forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal
+   inputs.  bf16: within one bf16 spacing of each output's largest value.
+   The backward runs twice and must give the same bits.  The fused MLP at
+   [13261, 256] -> 1024 -> 256, at the training batch's [53044, 256] and at
+   [1000, 128] -> 192 -> 128 within 2e-5.  The attention kernels are timed
+   at both types at the segment's shape and at the batch's, beside the
+   general kernels (the port's first version of them, which must be the
+   slower at fp32), the plain versions and
+   ``F.scaled_dot_product_attention`` with its backward, the library's
+   yardstick, which the port never calls; the kernels line carries the
+   forward at the segment's shape and the backward at the batch's, the only
+   one the paths launch it at.  A kernel time under its bound is a wrong
+   count and fails the run.
    The Viterbi, alpha and beta kernels again with the same scores rounded to
    bf16, at the same shapes: Viterbi bit for bit, alpha and beta within the
    same 1e-5 * max(1, |plain|) (the plain versions upcast the same bits).
@@ -77,7 +84,12 @@
    within 1e-3 relative of the fp32 route's at the same step, and one
    segment's ctx within 5e-2 * max |ctx| of the fp32 route's (bf16 carries
    8 significant bits through six layers).  Notes that differ from the fp32
-   route's are counted, not refused.
+   route's are counted, not refused.  Then the same configuration with
+   ``TRANSKUN_TPU_FUSED_ATTN=1`` alone: the piece transcribed and two steps
+   of ``cli.train.main --bf16``; the attention launch counts must equal the
+   calls made, q at the wrappers must be bf16 and of the shapes the kernels
+   were held against their plain versions at, ctx and losses within the
+   same bounds of the fp32 route's.
 8. The softmax study path (``TRANSKUN_TPU_FUSED_SOFTMAX=1``): the
    explicit-softmax attention core, ``q k^T * scale`` by ``torch.matmul``,
    ``ops.softmax.softmax_last``, ``p v``, forward and backward at
@@ -91,8 +103,9 @@ Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, then one JSON
 line with the kernels (launches on the five paths, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
-fp32 operations over 67 TFLOP/s, whichever is larger; the times with bf16
-input under ``bf16``) and, as the last
+fp32 operations over 67 TFLOP/s, whichever is larger; under ``bf16`` the
+times with bf16 input, the attention kernels' bound there being 2 bytes a
+value against the operations at 989 TFLOP/s) and, as the last
 line, ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.  Any failed check raises, so the script exits non-zero without
 that line; it exits 1 at once when no CUDA device is present.
@@ -102,6 +115,7 @@ import json
 import math
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +136,7 @@ BWD_ATOL = 1e-4  # attention dq, dk, dv
 CTX_RTOL = 1e-4  # fused vs default backbone ctx: * max(1, max |ctx|)
 LOSS_RTOL = 1e-5  # fused vs default training loss, step by step
 FUSED_TRAIN_STEPS = 4
+BF16_FUSED_TRAIN_STEPS = 2  # --bf16 with TRANSKUN_TPU_FUSED_ATTN
 BF16_TRAIN_STEPS = 4
 BF16_LOSS_RTOL = 1e-3  # bf16 vs fp32 training loss, step by step
 BF16_CTX_RTOL = 5e-2  # bf16 vs fp32 backbone ctx: * max |ctx|
@@ -134,6 +149,10 @@ TRAIN_BATCH = 4
 # ATTN_HEADS heads, and the FFN's [tokens, D] -> MLP_HIDDEN -> D
 ATTN_SHAPES, ATTN_HEADS = ((89, 149, 256), (149, 89, 256)), 8
 MLP_SHAPE, MLP_HIDDEN = (13261, 256), 1024
+# cross-attention, odd lengths, 3 heads of 8: (q shape, Skv, heads); and a shape
+# with more keys than a thread's registers hold, which the general kernels take
+RAGGED_ATTN = ((5, 37, 24), 61, 3)
+LONG_ATTN = ((2, 300, 64), 200, 2)
 # the same at --batchSize TRAIN_BATCH: the batch is folded into B and the tokens
 TRAIN_ATTN_SHAPES = tuple((TRAIN_BATCH * b, s, d) for b, s, d in ATTN_SHAPES)
 TRAIN_MLP_SHAPE = (TRAIN_BATCH * MLP_SHAPE[0], MLP_SHAPE[1])
@@ -145,6 +164,7 @@ TRAIN_SOFTMAX_SHAPES = tuple((TRAIN_BATCH * r, c) for r, c in SOFTMAX_SHAPES)
 RAGGED_SOFTMAX_SHAPES = tuple((1003, c) for c in (1, 9, 33, 149, 300))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 
 
@@ -276,11 +296,12 @@ def check_logz_grad(logz, semicrf, dev):
     return err
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=FP32_FLOPS):
     """The least milliseconds the card could take: every input read and every
-    output written once at the memory rate, or the fp32 operations at the
-    CUDA cores' peak, whichever is larger; and which of the two."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    output written once at the memory rate, or the operations at ``peak``
+    (the CUDA cores' fp32 rate unless given), whichever is larger; and which
+    of the two."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -292,34 +313,55 @@ def table_bound(tp, nbp, ops_per_term, score_bytes=4):
     return bound(n_bytes, ops_per_term * tp * (tp - 1) // 2 * nbp)
 
 
-def attention_inputs(rng, b, sq, skv, d, dev):
-    """Unit-normal q, k, v and cotangent do, flat [B, S, D]."""
+def attention_inputs(rng, b, sq, skv, d, dev, dtype=None):
+    """Unit-normal q, k, v and cotangent do, flat [B, S, D], fp32 unless
+    ``dtype`` is given."""
     import torch
 
-    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev).to(dtype or torch.float32)
             for s in ((b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d))]
 
 
-def check_attention(attention, q, k, v, do, heads):
+def bf16_spacing_at_max(x) -> float:
+    """The bf16 spacing at the largest |value| of ``x``: |max| = m * 2**e
+    with m in [0.5, 1), and bf16 keeps 8 bits of m."""
+    return 2.0 ** (math.frexp(float(x.float().abs().max()))[1] - 8)
+
+
+def check_attention(attention, q, k, v, do, heads, variant):
     """Both attention kernels against their plain versions on the same card
-    inputs; returns (forward error, backward error, o)."""
+    inputs, which must run as ``variant``; returns (forward error, backward
+    error, o).  fp32: FWD_ATOL and BWD_ATOL.  bf16: one bf16 spacing of each
+    output's largest value.  The backward runs twice and must give the same
+    bits."""
     import torch
 
-    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    dh = q.shape[-1] // heads
+    scale = 1.0 / math.sqrt(dh)
+    picked = {attention.kernel_variant(name, q.shape[1], k.shape[1], dh)
+              for name in ("attention_fwd", "attention_bwd")}
+    if picked != {variant}:
+        raise AssertionError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, {heads} heads runs as "
+                             f"{picked}, not as {variant}")
     o = attention.attention_fwd_cuda(q, k, v, heads, scale)
     want = attention.attention_plain(q, k, v, heads, scale)
     got_grads = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)
+    again = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)
     want_grads = attention.attention_bwd_plain(q, k, v, want, do, heads, scale)
     torch.cuda.synchronize()
-    fwd_err = float((o - want).abs().max())
-    bwd_err = max(float((g - w).abs().max()) for g, w in zip(got_grads, want_grads))
-    finite = all(bool(torch.isfinite(t).all()) for t in (o, *got_grads))
-    if not finite or fwd_err > FWD_ATOL or bwd_err > BWD_ATOL:
-        raise AssertionError(
-            f"attention kernels != plain at q {tuple(q.shape)}, k {tuple(k.shape)}, {heads} heads: "
-            f"forward max |diff| {fwd_err}, backward {bwd_err}"
-        )
-    return fwd_err, bwd_err, o
+    where = f"q {tuple(q.shape)}, k {tuple(k.shape)}, {heads} heads, {q.dtype}, {variant}"
+    if not all(torch.equal(a, b) for a, b in zip(got_grads, again)):
+        raise AssertionError(f"attention backward: two runs differ at {where}")
+    errs = []
+    for name, got, ref, atol in [("o", o, want, FWD_ATOL)] + [
+            (n, g, w, BWD_ATOL) for n, g, w in zip(("dq", "dk", "dv"), got_grads, want_grads)]:
+        e = float((got.float() - ref.float()).abs().max())
+        allowed = atol if q.dtype == torch.float32 else bf16_spacing_at_max(ref)
+        if got.dtype != q.dtype or not bool(torch.isfinite(got).all()) or not e <= allowed:
+            raise AssertionError(f"attention kernels != plain at {where}: {name} max |diff| {e}, "
+                                 f"allowed {allowed}")
+        errs.append(e)
+    return errs[0], max(errs[1:]), o
 
 
 def mlp_inputs(rng, m, d, hidden, dev):
@@ -516,6 +558,11 @@ def main() -> int:
         print(f"build {name}: {build_s:.2f} s")
         if log:
             print(log.strip())
+            # what -Xptxas -v says, in one line: a spill is memory traffic the source does not show
+            regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+            print(f"build {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+                  f"{sum(x > 0 for x in spills)} of them spill ({sum(spills)} bytes of spill stores in all)")
     print(f"build wall: {time.perf_counter() - t0:.2f} s")
 
     # -- each kernel against its plain version ---------------------------------
@@ -594,12 +641,17 @@ def main() -> int:
     print(f"logZ + score cotangent via kernels vs autograd of log_z_slow [45,45,5]: "
           f"max |diff| {grad_err:.3g}")
 
-    # attention: the segment's and the training batch's shapes and a ragged one
+    # attention: the segment's and the training batch's shapes, a ragged one
+    # and one only the general kernels take, at fp32 and at bf16
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def time_attention(q, k, v, do, o, heads):
-        """Kernel, plain and library milliseconds and the bound of the
-        forward ("fwd") and the backward ("bwd") on these inputs."""
+        """For the forward ("fwd") and the backward ("bwd") on these inputs:
+        (kernel ms, plain ms, library ms, bound, general-kernel ms, byte
+        bound ms), and the library's distance from the kernel's output.  The
+        bound of fp32 inputs is ``bound``'s (fp32 operations at the CUDA
+        cores' rate); of bf16 inputs, 2 bytes a value against the operations
+        at the tensor cores' bf16 rate."""
         b, sq, d = q.shape
         dh = d // heads
         scale = 1.0 / math.sqrt(dh)
@@ -607,45 +659,72 @@ def main() -> int:
         qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
         o_lib = sdpa(qh, kh, vh, scale=scale)
         do_h = do.view(b, sq, heads, dh).transpose(1, 2)
-        lib_err = float((o_lib.detach().transpose(1, 2).reshape(b, sq, d) - o).abs().max())
+        lib_err = float((o_lib.detach().transpose(1, 2).reshape(b, sq, d).float() - o.float()).abs().max())
         # 2 products forward, 5 backward, 2 operations a multiply-add;
         # 4 tensors moved forward, 5 read and 3 written backward
         products = 2 * b * heads * sq * k.shape[1] * dh
-        return {
+        peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+        fwd_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bwd_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        timed = {
             "fwd": (cuda_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
                     cuda_ms(lambda: attention.attention_plain(q, k, v, heads, scale)),
                     cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale)),
-                    bound(4 * (2 * q.numel() + 2 * k.numel()), 2 * products)),
+                    bound(fwd_bytes, 2 * products, peak),
+                    cuda_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale, variant="general")),
+                    bound(fwd_bytes, 0)[0]),
             "bwd": (cuda_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)),
                     cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale)),
                     cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h, retain_graph=True)),
-                    bound(4 * (4 * q.numel() + 4 * k.numel()), 5 * products)),
-        }, lib_err
+                    bound(bwd_bytes, 5 * products, peak),
+                    cuda_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale,
+                                                                 variant="general")),
+                    bound(bwd_bytes, 0)[0]),
+        }
+        for side, (k_ms, _, _, bnd, general_ms, _) in timed.items():
+            if bnd[0] > k_ms:
+                raise AssertionError(f"attention {side} at {tuple(q.shape)} {q.dtype}: {k_ms} ms is "
+                                     f"under its bound of {bnd[0]} ms: a wrong count")
+            if q.dtype == torch.float32 and not k_ms < general_ms:
+                raise AssertionError(f"attention {side} at {tuple(q.shape)}: the tensor-core kernel "
+                                     f"({k_ms} ms) is no faster than the general one ({general_ms} ms)")
+        return timed, lib_err
 
     err["attention_fwd"] = err["attention_bwd"] = 0.0
-    for shape, skv, heads in (
-        [(s, s[1], ATTN_HEADS) for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES] + [((5, 37, 24), 61, 3)]
-    ):
-        b, sq, d = shape
-        q, k, v, do = attention_inputs(rng, b, sq, skv, d, dev)
-        fwd_err, bwd_err, o = check_attention(attention, q, k, v, do, heads)
-        err["attention_fwd"] = max(err["attention_fwd"], fwd_err)
-        err["attention_bwd"] = max(err["attention_bwd"], bwd_err)
-        if shape not in (ATTN_SHAPES[0], TRAIN_ATTN_SHAPES[0]):
-            continue
-        timed, lib_err = time_attention(q, k, v, do, o, heads)
-        # the kernels line: the forward at the segment's shape; the backward
-        # at the batch's, the only one the paths launch it at
-        name, side = ("attention_fwd", "fwd") if shape == ATTN_SHAPES[0] else ("attention_bwd", "bwd")
-        ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side]
-        print(f"attention {list(shape)}, {heads} heads ({card}): forward kernel "
-              f"{timed['fwd'][0]:.3f} ms, plain {timed['fwd'][1]:.3f} ms, SDPA {timed['fwd'][2]:.3f} ms "
-              f"(|SDPA - kernel| {lib_err:.3g}), bound {timed['fwd'][3][0]:.4f} ms; backward kernel "
-              f"{timed['bwd'][0]:.3f} ms, plain {timed['bwd'][1]:.3f} ms, SDPA backward "
-              f"{timed['bwd'][2]:.3f} ms, bound {timed['bwd'][3][0]:.4f} ms")
-    print(f"attention within {FWD_ATOL} (forward) and {BWD_ATOL} (dq, dk, dv) of plain at "
-          f"{[list(s) for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES]} and q [5,37,24] x k [5,61,24], "
-          f"3 heads: max |diff| forward {err['attention_fwd']:.3g}, backward {err['attention_bwd']:.3g}")
+    bf16["attention_fwd"], bf16["attention_bwd"] = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    attn_checked = [(s, s[1], ATTN_HEADS, "mma") for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES] + [
+        (*RAGGED_ATTN, "mma"), (*LONG_ATTN, "general")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, skv, heads, variant in attn_checked:
+            b, sq, d = shape
+            q, k, v, do = attention_inputs(rng, b, sq, skv, d, dev, dtype)
+            fwd_err, bwd_err, o = check_attention(attention, q, k, v, do, heads, variant)
+            for name, e in (("attention_fwd", fwd_err), ("attention_bwd", bwd_err)):
+                into, at = (err, name) if dtype == torch.float32 else (bf16[name], "max_abs_err")
+                into[at] = max(into[at], e)
+            if shape not in (ATTN_SHAPES[0], TRAIN_ATTN_SHAPES[0]):
+                continue
+            timed, lib_err = time_attention(q, k, v, do, o, heads)
+            # the kernels line: the forward at the segment's shape; the backward
+            # at the batch's, the only one the paths launch it at
+            name, side = ("attention_fwd", "fwd") if shape == ATTN_SHAPES[0] else ("attention_bwd", "bwd")
+            if dtype == torch.float32:
+                ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side][:4]
+            else:
+                bf16[name].update(zip(("ms", "plain_ms", "library_ms", "bound"), timed[side][:4]))
+            for side, what, lib in (("fwd", "forward", "SDPA"), ("bwd", "backward", "SDPA backward")):
+                k_ms, p_ms, lib_ms, bnd, general_ms, byte_ms = timed[side]
+                print(f"attention {what} {list(shape)}, {heads} heads, {str(dtype)[6:]} ({card}): kernel "
+                      f"{k_ms:.4f} ms, general kernel {general_ms:.4f} ms, plain {p_ms:.4f} ms, {lib} "
+                      f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; by bytes {byte_ms:.4f} ms), "
+                      f"share {bnd[0] / k_ms:.1%}" + (f", |SDPA - kernel| {lib_err:.3g}" if side == "fwd" else ""))
+    print(f"attention vs plain at {[list(s) for s in ATTN_SHAPES + TRAIN_ATTN_SHAPES]}, q "
+          f"{list(RAGGED_ATTN[0])} x {RAGGED_ATTN[1]} keys with {RAGGED_ATTN[2]} heads, and q "
+          f"{list(LONG_ATTN[0])} x {LONG_ATTN[1]} keys with {LONG_ATTN[2]} heads (the general kernels): "
+          f"fp32 within {FWD_ATOL} (forward) and {BWD_ATOL} (dq, dk, dv), max |diff| "
+          f"{err['attention_fwd']:.3g} and {err['attention_bwd']:.3g}; bf16 within one bf16 spacing of "
+          f"each output's largest value, max |diff| {bf16['attention_fwd']['max_abs_err']:.3g} and "
+          f"{bf16['attention_bwd']['max_abs_err']:.3g}; the backward's two runs equal bit for bit")
     del q, k, v, do, o
 
     # fused MLP: the segment's and the training batch's shapes and a ragged
@@ -956,7 +1035,40 @@ def main() -> int:
                   f"{differing} notes differ from the fp32 route's; launches {by_path['bf16']}")
             print(f"segment 3 ctx {tuple(ctx.shape)}: bf16 vs fp32 max |diff| {ctx_err:.3g} "
                   f"(max |ctx| {ctx_max:.3g}, allowed {BF16_CTX_RTOL} * max |ctx|)")
-            del model_b, ctx, ctx_b, frames
+
+            # the same with TRANSKUN_TPU_FUSED_ATTN alone: bf16 q, k, v at the kernel
+            os.environ[FUSED_FLAGS[0]] = "1"
+            with CallCounter(attention, "fused_attention") as attn_calls:
+                fa_notes, fa_wall, fa_peak_gb, fa_launches = timed_transcription(model_b)
+                with torch.no_grad():
+                    ctx_fa = model_b.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
+            del os.environ[FUSED_FLAGS[0]]
+            # the warm-up run, the timed run, and one segment more for ctx
+            want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg, "attention_fwd": n_seg * n_attn}
+            if fa_launches != want or attn_calls.calls != (2 * n_seg + 1) * n_attn:
+                raise AssertionError(f"bf16 fused-attention transcription launches {fa_launches}, "
+                                     f"calls made {attn_calls.calls} over two runs of {n_seg} "
+                                     f"segments and one segment, {n_attn} attention blocks")
+            if attn_calls.shapes != set(ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
+                raise AssertionError(f"the attention kernel was held against its plain version at "
+                                     f"{ATTN_SHAPES} bf16; the path gave {attn_calls.shapes} "
+                                     f"{attn_calls.dtypes}")
+            check_notes(fa_notes)
+            ctx_err = float((ctx_fa - ctx).abs().max())
+            if ctx_fa.dtype != torch.float32 or not bool(torch.isfinite(ctx_fa).all()) \
+                    or ctx_err > BF16_CTX_RTOL * ctx_max:
+                raise AssertionError(f"bf16 fused-attention ctx differs from the fp32 route's by "
+                                     f"{ctx_err} (max |ctx| {ctx_max})")
+            for name in KERNELS:
+                by_path["bf16"][name] += fa_launches[name]
+            differing = len({key(n) for n in notes} ^ {key(n) for n in fa_notes})
+            print(f"bf16 + {FUSED_FLAGS[0]} transcribe {PIECE_SECONDS:.0f} s ({card}): wall "
+                  f"{fa_wall:.3f} s (bf16 default route {bf16_wall:.3f} s, fp32 {wall:.3f} s), peak memory "
+                  f"{fa_peak_gb:.2f} GB ({bf16_peak_gb:.2f} GB, {peak_gb:.2f} GB), {len(fa_notes)} notes, "
+                  f"{differing} differ from the fp32 route's; launches {fa_launches}; q at the kernel "
+                  f"{sorted(attn_calls.shapes)} bf16; segment 3 ctx vs fp32 max |diff| {ctx_err:.3g} "
+                  f"(allowed {BF16_CTX_RTOL} * max |ctx| {ctx_max:.3g})")
+            del model_b, ctx, ctx_b, ctx_fa, frames
 
             reset_counts()
             bf16_run = train_cli.main([os.path.join(tmp, "ckpt_bf16.pt"), *args, "--statsEvery", "0",
@@ -992,6 +1104,42 @@ def main() -> int:
         print(f"bf16 train losses: {[round(x, 3) for x in bf16_run['losses']]}; against the fp32 "
               f"route's, step by step: largest relative difference {loss_err:.3g} "
               f"(allowed {BF16_LOSS_RTOL}); launches {bf16_launches}")
+
+        # --bf16 with TRANSKUN_TPU_FUSED_ATTN alone: both attention kernels at bf16
+        os.environ[FUSED_FLAGS[0]] = "1"
+        reset_counts()
+        with CallCounter(attention, "fused_attention") as attn_calls:
+            fa_run = train_cli.main([os.path.join(tmp, "ckpt_bf16_attn.pt"), *args, "--statsEvery", "0",
+                                     "--maxEpoch", "1", "--stopAtStep", str(BF16_FUSED_TRAIN_STEPS),
+                                     "--bf16"])
+            torch.cuda.synchronize()
+        del os.environ[FUSED_FLAGS[0]]
+        fa_launches = counts()
+        n = fa_run["steps"]
+        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n,
+                "attention_fwd": attn_calls.calls, "attention_bwd": n * n_attn}
+        if fa_launches != want or n != BF16_FUSED_TRAIN_STEPS or attn_calls.calls != n * n_attn * recompute:
+            raise AssertionError(f"bf16 fused-attention training launches {fa_launches}, calls made "
+                                 f"{want} ({n} steps, {n_attn} attention blocks, x{recompute} forwards)")
+        if attn_calls.shapes != set(TRAIN_ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
+            raise AssertionError(f"the attention kernels were held against their plain versions at "
+                                 f"{TRAIN_ATTN_SHAPES} bf16; training gave {attn_calls.shapes} "
+                                 f"{attn_calls.dtypes}")
+        fp32_losses = first["losses"][:n]
+        if len(fa_run["losses"]) != n or not np.isfinite(fa_run["losses"]).all():
+            raise AssertionError(f"bf16 fused-attention losses {fa_run['losses']}")
+        loss_err = max(abs(b - d) / abs(d) for b, d in zip(fa_run["losses"], fp32_losses))
+        if loss_err > BF16_LOSS_RTOL:
+            raise AssertionError(f"losses: bf16 fused-attention {fa_run['losses']}, fp32 {fp32_losses}, "
+                                 f"largest relative difference {loss_err}")
+        for name in KERNELS:
+            by_path["bf16"][name] += fa_launches[name]
+        print(f"bf16 + {FUSED_FLAGS[0]} train --batchSize {TRAIN_BATCH} --bf16 ({card}): {n} steps, "
+              f"step seconds {[round(x, 4) for x in fa_run['step_seconds']]} (bf16 default route "
+              f"{float(np.median(bf16_run['step_seconds'][1:])):.4f} s), peak memory "
+              f"{fa_run['step_peak_bytes'] / 1e9:.2f} GB; losses {[round(x, 3) for x in fa_run['losses']]}, "
+              f"against the fp32 route's: largest relative difference {loss_err:.3g} (allowed "
+              f"{BF16_LOSS_RTOL}); launches {fa_launches}; q at the kernels {sorted(attn_calls.shapes)} bf16")
 
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
@@ -1053,7 +1201,7 @@ def main() -> int:
                "softmax_bwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:62")}
 
     def bf16_entry(name):
-        """The same numbers with bf16 input (kernels 1-3, 7 and 8)."""
+        """The same numbers with bf16 input (kernels 1-5, 7 and 8)."""
         if name not in bf16:
             return None
         e = bf16[name]

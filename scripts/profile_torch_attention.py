@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Check and time the port's two attention kernels on one CUDA card.
+
+    python3 scripts/profile_torch_attention.py [--runs 5] [--launches 1] [--no-times]
+
+Builds ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` (printing what
+``-Xptxas -v`` says about the flagship instances: registers, spills), then for
+fp32 and bf16 inputs:
+
+* holds both kernels against ``attention_plain`` / ``attention_bwd_plain`` at
+  the flagship shapes, a ragged cross-attention shape, a shape with head_dim
+  40 and a long one that only the general kernel takes; fp32 within 2e-5
+  (forward) and 1e-4 (dq, dk, dv), bf16 within one bf16 spacing of each
+  output's largest value; the backward run twice must give the same bits;
+* times, at ``[89, 149, 256]`` and ``[356, 149, 256]`` with 8 heads, the
+  tensor-core kernel, the general kernel (the first version of the port's
+  kernel, forced with ``variant="general"``), the plain version and
+  ``F.scaled_dot_product_attention`` with its backward: CUDA events, median
+  of ``--runs``.  With ``--launches 1`` a run is one launch on an idle card,
+  as ``chip_smoke.py`` times it, so it includes the wrapper's host work; with
+  ``--launches 20`` a run is 20 launches between the two events, and the
+  time per launch is the device's.
+
+Prints the card's name and power limit first; exits 1 without a CUDA device.
+"""
+
+import argparse
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+SHAPES = [  # b, sq, skv, heads, head_dim
+    (89, 149, 149, 8, 32), (149, 89, 89, 8, 32), (356, 149, 149, 8, 32),
+    (596, 89, 89, 8, 32), (5, 37, 61, 3, 8), (3, 7, 13, 2, 40), (4, 160, 160, 2, 64),
+    (2, 300, 200, 2, 32), (2, 33, 21, 2, 80),
+]
+TIMED = [(89, 149, 149, 8, 32), (356, 149, 149, 8, 32)]
+FWD_ATOL, BWD_ATOL = 2e-5, 1e-4
+
+
+def cuda_ms(fn, runs, launches=1):
+    """Median milliseconds a launch over ``runs`` runs of ``launches``
+    launches each, after one warm-up launch."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def bf16_spacing(x):
+    """The bf16 spacing at the largest |value| of ``x``."""
+    return 2.0 ** (math.frexp(float(x.float().abs().max()))[1] - 8)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--launches", type=int, default=1)
+    ap.add_argument("--no-times", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from transkun_tpu_torch.ops import _build, attention
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    for name, (_, seconds, log) in _build.build_all(("attention_fwd", "attention_bwd")).items():
+        print(f"build {name}: {seconds:.1f} s")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):  # the flagship instances: 12 or 20 key tiles, head_dim 32
+            if "Compiling entry function" in line and "_mma" in line and (
+                    "Li20ELi4E" in line or "Li12ELi4E" in line):
+                print("  " + line.split("'")[1], "|", " ".join(lines[i + 2 : i + 4]).strip())
+
+    rng = np.random.default_rng(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, heads, dh in SHAPES:
+            d = heads * dh
+            q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev).to(dtype)
+                           for s in ((b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d)))
+            scale = 1.0 / math.sqrt(dh)
+            want = attention.attention_plain(q, k, v, heads, scale)
+            want_grads = attention.attention_bwd_plain(q, k, v, want, do, heads, scale)
+            picked = attention.kernel_variant("attention_fwd", sq, skv, dh)
+            assert picked == attention.kernel_variant("attention_bwd", sq, skv, dh)
+            for variant in dict.fromkeys((picked, "general")):
+                o = attention.attention_fwd_cuda(q, k, v, heads, scale, variant=variant)
+                grads = attention.attention_bwd_cuda(q, k, v, want, do, heads, scale, variant=variant)
+                again = attention.attention_bwd_cuda(q, k, v, want, do, heads, scale, variant=variant)
+                torch.cuda.synchronize()
+                pairs = [("o", o, want, FWD_ATOL)] + [
+                    (n, g, w, BWD_ATOL) for n, g, w in zip(("dq", "dk", "dv"), grads, want_grads)]
+                report = []
+                for name, got, ref, atol in pairs:
+                    err = float((got.float() - ref.float()).abs().max())
+                    allowed = atol if dtype == torch.float32 else bf16_spacing(ref)
+                    report.append(f"{name} {err:.3g}")
+                    if got.dtype != dtype or not bool(torch.isfinite(got).all()) or err > allowed:
+                        raise AssertionError(
+                            f"{variant} {dtype} q {[b, sq, d]} k {[b, skv, d]} {heads} heads: "
+                            f"{name} max |diff| {err} > {allowed}")
+                if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                    raise AssertionError(f"{variant} backward: two runs differ at {[b, sq, skv, d]}")
+                print(f"{str(dtype)[6:]} q [{b},{sq},{d}] k [{b},{skv},{d}] {heads} heads, "
+                      f"{variant}: max |diff| " + ", ".join(report))
+    if args.no_times:
+        return 0
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, heads, dh in TIMED:
+            d = heads * dh
+            q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev).to(dtype)
+                           for s in ((b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d)))
+            scale = 1.0 / math.sqrt(dh)
+            o = attention.attention_fwd_cuda(q, k, v, heads, scale)
+            qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
+            o_lib = sdpa(qh, kh, vh, scale=scale)
+            do_h = do.view(b, sq, heads, dh).transpose(1, 2)
+
+            def timed(fn):
+                return cuda_ms(fn, args.runs, args.launches)
+
+            ms = {
+                "fwd mma": timed(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
+                "fwd general": timed(lambda: attention.attention_fwd_cuda(
+                    q, k, v, heads, scale, variant="general")),
+                "fwd plain": timed(lambda: attention.attention_plain(q, k, v, heads, scale)),
+                "fwd SDPA": timed(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale)),
+                "bwd mma": timed(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)),
+                "bwd general": timed(lambda: attention.attention_bwd_cuda(
+                    q, k, v, o, do, heads, scale, variant="general")),
+                "bwd plain": timed(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale)),
+                "bwd SDPA": timed(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h,
+                                                              retain_graph=True)),
+            }
+            print(f"{str(dtype)[6:]} [{b},{sq},{d}] {heads} heads ({card}), {args.launches} launches a run, ms: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -146,8 +146,8 @@ def main(argv=None):
         "alpha_ms": alpha_ms,
         "beta_ms": beta_ms,
         "alpha_beta_share_of_device_time": (alpha_ms + beta_ms) / max(device_ms, 1e-9),
-        "attention_fwd_ms": ms_of(lambda n: "attention_fwd_kernel" in n),
-        "attention_bwd_ms": ms_of(lambda n: "attention_bwd_kernel" in n),
+        "attention_fwd_ms": ms_of(lambda n: "attention_fwd_" in n),
+        "attention_bwd_ms": ms_of(lambda n: "attention_bwd_" in n),
         "fused_mlp_ms": ms_of(lambda n: "fused_mlp_kernel" in n),
         "gemm_ms": gemm_ms,
         "kernel_launches_profiled_step": sum(n for _, _, n in kernels),

@@ -117,8 +117,9 @@ def main(argv=None):
         "profiled_wall_s": profiled_wall,
         "device_kernel_ms_profiled_run": device_ms,
         "device_busy_share_profiled_run": device_ms / 1e3 / profiled_wall,
-        "own_kernels_ms": {name: ms_of(name + "_kernel") for name in
-                           ("viterbi_bwd", "attention_fwd", "fused_mlp")},
+        # attention_fwd_mma or attention_fwd_general, whichever the shape took
+        "own_kernels_ms": {name: ms_of(name + ("_" if name == "attention_fwd" else "_kernel"))
+                           for name in ("viterbi_bwd", "attention_fwd", "fused_mlp")},
         "gemm_ms": ms_of("gemm", "sm90_xmma", "cutlass"),
         "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:12]],
     }, indent=1))

@@ -162,26 +162,44 @@ def test_logz_kernels_reject_what_they_do_not_take(cuda):
 ATTN_SHAPES = [  # b, sq, skv, heads, head_dim
     (89, 149, 149, 8, 32),  # flagship F-attention, one segment
     (149, 89, 89, 8, 32),  # flagship T-attention
+    (356, 149, 149, 8, 32),  # the same at --batchSize 4
+    (596, 89, 89, 8, 32),
     (5, 37, 61, 3, 8),  # ragged: cross-attention, odd lengths, 3 heads
-    (3, 7, 13, 2, 40),  # head_dim above a warp
+    (4, 61, 37, 2, 16),  # more queries than keys
+    (3, 7, 13, 2, 40),  # head_dim above a warp, padded to 64
+    (2, 300, 200, 2, 32),  # long: more keys than a thread's registers hold
+    (2, 33, 21, 2, 80),  # head_dim above the tensor-core kernel's instances
 ]
+ATTN_GENERAL = {(2, 300, 200, 2, 32), (2, 33, 21, 2, 80)}  # what the general kernels run
 
 
-def _attn_inputs(rng, b, sq, skv, d, dev):
+def _attn_inputs(rng, b, sq, skv, d, dev, dtype=torch.float32):
     shapes = [(b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d)]
-    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev) for s in shapes]
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev).to(dtype) for s in shapes]
+
+
+def _bf16_spacing_at_max(x) -> float:
+    """The bf16 spacing at the largest |value| of ``x``."""
+    return 2.0 ** (int(np.frexp(float(x.float().abs().max()))[1]) - 8)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,h,dh", ATTN_SHAPES)
-def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh):
-    """Forward within 2e-5 and dq, dk, dv within 1e-4 of the plain versions
-    on unit-normal inputs (fp32 sums in another order), through the
-    autograd function as the model calls it."""
+def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
+    """Through the autograd function as the model calls it.  fp32: forward
+    within 2e-5 and dq, dk, dv within 1e-4 of the plain versions on
+    unit-normal inputs (sums in another order, products on the tensor cores
+    from split operands).  bf16: the kernels and the plain versions take
+    the same bf16 bits to fp32 and round once, so an output may land on the
+    neighbouring bf16 value: one bf16 spacing of its largest value."""
     from transkun_tpu_torch.ops import attention
 
-    q, k, v, do = _attn_inputs(np.random.default_rng(sq), b, sq, skv, h * dh, cuda)
+    q, k, v, do = _attn_inputs(np.random.default_rng(sq), b, sq, skv, h * dh, cuda, dtype)
     scale = 1.0 / np.sqrt(dh)
+    want_variant = "general" if (b, sq, skv, h, dh) in ATTN_GENERAL else "mma"
+    assert attention.kernel_variant("attention_fwd", sq, skv, dh) == want_variant
+    assert attention.kernel_variant("attention_bwd", sq, skv, dh) == want_variant
     f0, b0 = attention.fwd_launches, attention.bwd_launches
     for a in (q, k, v):
         a.requires_grad_()
@@ -191,10 +209,49 @@ def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh):
     assert (attention.fwd_launches, attention.bwd_launches) == (f0 + 1, b0 + 1)
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     want = attention.attention_plain(qd, kd, vd, h, scale)
-    assert float((o.detach() - want).abs().max()) <= 2e-5
-    grads = attention.attention_bwd_plain(qd, kd, vd, want, do, h, scale)
-    for got, g in zip((q.grad, k.grad, v.grad), grads):
-        assert float((got - g).abs().max()) <= 1e-4
+    # the backward kernel was given the forward kernel's o; so is the plain version
+    grads = attention.attention_bwd_plain(qd, kd, vd, o.detach(), do, h, scale)
+    for got, ref, atol in [(o.detach(), want, 2e-5)] + [
+            (leaf.grad, g, 1e-4) for leaf, g in zip((q, k, v), grads)]:
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
+        assert float((got.float() - ref.float()).abs().max()) <= allowed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["mma", "general"])
+def test_attention_backward_twice_gives_the_same_bits(cuda, dtype, variant):
+    """No output is accumulated by more than one warp and nothing goes
+    through atomics: two runs are equal bit for bit, in both kernels."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(7), 40, 149, 149, 256, cuda, dtype)
+    scale = 1.0 / np.sqrt(32)
+    o = attention.attention_fwd_cuda(q, k, v, 8, scale, variant=variant)
+    first = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant=variant)
+    second = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(o, attention.attention_fwd_cuda(q, k, v, 8, scale, variant=variant))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_general_kernels_equal_plain_at_the_path_shape(cuda, dtype):
+    """The general kernels, forced at a shape the tensor-core kernels take."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(3), 20, 149, 89, 256, cuda, dtype)
+    scale = 1.0 / np.sqrt(32)
+    o = attention.attention_fwd_cuda(q, k, v, 8, scale, variant="general")
+    grads = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant="general")
+    want = attention.attention_plain(q, k, v, 8, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, o, do, 8, scale)
+    for got, ref, atol in [(o, want, 2e-5)] + [(g, w, 1e-4) for g, w in zip(grads, want_grads)]:
+        allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
+        assert got.dtype == dtype and float((got.float() - ref.float()).abs().max()) <= allowed
 
 
 @pytest.mark.gpu
@@ -205,9 +262,16 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     o = torch.zeros_like(q)
     for fn, extra in ((attention.attention_fwd_cuda, ()), (attention.attention_bwd_cuda, (o, do))):
         with pytest.raises(TypeError):
-            fn(q.double(), k, v, *extra, 2, 0.5)
-        with pytest.raises(TypeError):  # fp32 only for now
-            fn(q.bfloat16(), k.bfloat16(), v.bfloat16(), *[e.bfloat16() for e in extra], 2, 0.5)
+            fn(q.double(), k.double(), v.double(), *[e.double() for e in extra], 2, 0.5)
+        with pytest.raises(TypeError):  # fp32 or bf16 only
+            fn(q.half(), k.half(), v.half(), *[e.half() for e in extra], 2, 0.5)
+        with pytest.raises(TypeError):  # one type for all: bf16 q against fp32 k and v
+            fn(q.bfloat16(), k, v, *extra, 2, 0.5)
+        with pytest.raises(TypeError):  # fp32 q against a bf16 v
+            fn(q, k, v.bfloat16(), *extra, 2, 0.5)
+        # bf16 throughout is taken, and comes back as bf16
+        out = fn(q.bfloat16(), k.bfloat16(), v.bfloat16(), *[e.bfloat16() for e in extra], 2, 0.5)
+        assert all(t.dtype == torch.bfloat16 for t in (out if isinstance(out, tuple) else (out,)))
         with pytest.raises(ValueError):  # non-contiguous
             fn(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, *extra, 2, 0.5)
         with pytest.raises(ValueError):  # k and v disagree
@@ -219,6 +283,11 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
         with pytest.raises(ValueError):  # more shared memory than a block has
             long = torch.zeros(1, 30000, 16, device=cuda)
             fn(long, long, long, *[long for _ in extra], 2, 0.5)
+        with pytest.raises(ValueError):  # the tensor-core kernel, forced past its registers
+            long = torch.zeros(1, 200, 16, device=cuda)
+            fn(long, long, long, *[long for _ in extra], 2, 0.5, variant="mma")
+    with pytest.raises(TypeError):  # a bf16 cotangent against fp32 tensors
+        attention.attention_bwd_cuda(q, k, v, o, do.bfloat16(), 2, 0.5)
     with pytest.raises(ValueError):  # do shaped like k, not like q
         attention.attention_bwd_cuda(q, k, v, o, torch.zeros_like(k), 2, 0.5)
 

@@ -3,53 +3,292 @@
 // Replaces the TPU kernel _bwd_kernel in transkun_tpu/ops/attention_pallas.py
 // (called through _bwd_call, the VJP of fused_attention).  Inputs q, k, v,
 // the saved output o and the cotangent do, flat [B, S, H*dh]; per batch
-// element and head, with qs = q * scale:
+// element and head:
 //
-//   p     = softmax(qs k^T)              recomputed, [Sq, Skv]
+//   p     = softmax((q k^T) * scale)     recomputed, [Sq, Skv]
 //   delta = rowsum(do * o)               [Sq]
 //   dp    = do v^T
 //   dl    = p * (dp - delta)
-//   dq    = (dl k) * scale,   dk = dl^T qs,   dv = p^T do
+//   dq    = (dl k) * scale,   dk = (dl^T q) * scale,   dv = p^T do
 //
-// Every product is computed here, in fp32 FMAs; nothing of size [Sq, Skv]
-// reaches device memory.  Accurate expf, no --use_fast_math.
+// The inputs are float or bfloat16 and go to fp32 as they are loaded; p,
+// delta, dp, dl and every sum are fp32; dq, dk, dv are written in the input
+// type.  Nothing of size [Sq, Skv] reaches device memory or shared memory.
+// Accurate expf, no --use_fast_math.
 //
-// What bounds it: operations (the five products above are 2.5 times the
-// forward's two), far from the card's rate for the same reason as the
-// forward: short sequences, FMAs fed from shared memory.
+// What bounds it: by the count, operations (five products, 2.5 times the
+// forward's two: at [356, 149, 256], 8 heads, fp32, 20 GFLOP against 434 MB,
+// 0.302 ms at the CUDA cores' fp32 rate); at bf16, bytes.  In practice, as in
+// the forward, shared-memory bandwidth, the schedulers' rate and occupancy.  The
+// first version fed every FMA from two shared-memory loads, evaluated expf
+// three times an element and divided per element; it measured 7.6% of the
+// bound.
 //
-// Design: one block per (b, h), with that head's qs, k, v and do in shared
-// memory (rows on an odd stride, so lanes reading different rows hit
-// different banks).  dq is a sum over keys and dk, dv are sums over queries,
-// so the block makes two passes, and no output is accumulated by more than
-// one warp: no atomics, no accumulators in shared memory, and a result that
-// does not depend on scheduling.
-//   Pass A, a warp per query row: logits over the keys (a lane per key),
-//   row max and sum by shuffles, delta from do and o, then dl for the row in
-//   a per-warp buffer and dq with a lane per column.  The row's max, sum and
-//   delta are kept in shared memory.
-//   Pass B, a warp per key: the logits of that key against every query row
-//   (a lane per row, the same FMA chain as in pass A, so the same bits), p
-//   and dl from the kept row statistics, then dk and dv with a lane per
-//   column.
-// The price is seven products instead of five (logits and dp are formed
-// twice).  The alternative, tiling over queries and adding dk and dv up
-// across blocks, needs atomics or a second reduction kernel.
+// Design (attention_bwd_mma; the building blocks are in attention_mma.cuh):
+//   * One block per (b, h); q, do, k and v of that head in fp32
+//     shared-memory tiles (16-byte loads, zero padding).  All products are
+//     m16n8k8 TF32 `mma.sync` with the high/low split (fp32-grade).
+//   * dq sums over keys, dk and dv over queries.  The block makes two
+//     passes, and no output is accumulated by more than one warp: no
+//     atomics, no reduction through shared memory, and the same bits on
+//     every run.
+//     Pass A, a warp per 16 query rows: the row of logits in registers (up
+//     to 20 tiles of 8 keys), max, expf once an element, sum, one
+//     reciprocal; delta from do and o; the row's max, reciprocal and delta
+//     go to shared memory.  Then, a key tile at a time, dp = do v^T, dl, and
+//     dq += dl k with the accumulator tile of dl as the A operand.
+//     Pass B, a warp per 16 keys, streams over the queries 32 at a time:
+//     logits^T = k q^T and dp^T = v do^T (keys as the rows of the tile), p
+//     and dl from the stored row statistics (expf a second time; no
+//     division), then dv += p^T do and dk += dl^T q, again straight from
+//     the accumulators.  Nothing but eight 16 x 8 tiles is live per step.
+//   * The price is seven products for five (logits and dp are formed in
+//     both passes).  One pass would have to transpose p and dl between
+//     lanes or through shared memory and add dk and dv up across warps; on
+//     the tensor cores the two extra products cost less than that.
+//   * Blocks: 5 warps at S = 149 (10 tiles, 2 a warp and pass), 6 at S = 89;
+//     94,080 B of shared memory at S = 149, dh = 32, so 2 blocks an SM, and
+//     168 registers a thread (__launch_bounds__(192, 2); 36 bytes of spill in
+//     the 20-tile fp32 instance) so that registers allow 2 as well: 10-12
+//     warps an SM; the 2848 blocks of a training batch run in 10.8 waves of
+//     264.  Left to itself the compiler took 255 registers, one block an
+//     SM, and twice the time.
+//   * cudaFuncSetAttribute once per kernel and device.
+//
+// Shapes the mma kernel does not take (Skv > 160, head_dim > 64, tiles
+// beyond a block's shared memory) go to attention_bwd_general, the first
+// version of this kernel: fp32 FMAs, a warp per query row and then per key.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;
+// ---------------------------------------------------------------------------
+// tensor-core kernel: Skv <= 8 * NT, head_dim <= 8 * KD
+// ---------------------------------------------------------------------------
+
+// Blocks of at most 6 warps, 2 to an SM (what shared memory allows at S =
+// 149): 168 registers a thread.  Device time at [356, 149, 256] fp32 on an
+// H100 SXM at 700 W: 1.00 ms so, 1.29 ms with 5 warps and 128 registers
+// (spills), 2.1 ms with 8 warps and 255 registers (1 block an SM).
+constexpr int kMaxWarps = 6, kMinBlocks = 2;
+
+__host__ __device__ constexpr size_t mma_smem_bytes(int sq, int skv, int dhp) {
+  const int q_rows = ceil_to(sq, 8 * kGroup), k_rows = ceil_to(skv, 8 * kGroup);
+  return ((size_t)2 * (q_rows + k_rows) * (dhp + kPitchPad) + (size_t)3 * q_rows) *
+         sizeof(float);
+}
+
+template <typename T, int NT, int KD>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+    attention_bwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ o,
+                      const T* __restrict__ d_o, T* __restrict__ dq,
+                      T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
+                      int heads, int dh, float scale, int vec) {
+  constexpr bool kExact = kExactInTf32<T>;
+  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
+  extern __shared__ __align__(16) float smem[];
+  const int q_rows = ceil_to(sq, 8 * kGroup), k_rows = ceil_to(skv, 8 * kGroup);
+  float* qs = smem;                    // [q_rows][kPitch]
+  float* dos = qs + q_rows * kPitch;   // [q_rows][kPitch]
+  float* ks = dos + q_rows * kPitch;   // [k_rows][kPitch]
+  float* vs = ks + k_rows * kPitch;    // [k_rows][kPitch]
+  float* row_max = vs + k_rows * kPitch;  // [q_rows] max of the scaled logits
+  float* row_inv = row_max + q_rows;      // [q_rows] 1 / sum exp
+  float* row_delta = row_inv + q_rows;    // [q_rows]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t ld = (size_t)heads * dh;
+  const size_t q_at = (size_t)b * sq * ld + h * dh;
+  const size_t k_at = (size_t)b * skv * ld + h * dh;
+
+  load_tile(qs, q + q_at, sq, q_rows, dh, kDhp, kPitch, ld, vec);
+  load_tile(dos, d_o + q_at, sq, q_rows, dh, kDhp, kPitch, ld, vec);
+  load_tile(ks, k + k_at, skv, k_rows, dh, kDhp, kPitch, ld, vec);
+  load_tile(vs, v + k_at, skv, k_rows, dh, kDhp, kPitch, ld, vec);
+  __syncthreads();
+
+  const float neg_inf = __int_as_float(0xff800000);
+
+  // Pass A: a warp per 16 query rows -> row statistics and dq.
+  for (int r0 = warp * 16; r0 < sq; r0 += warps * 16) {
+    // p of rows r0+g (s[j][0..1]) and r0+g+8 (s[j][2..3]), keys 8j+2t, 8j+2t+1
+    float s[NT][4];
+    float m0 = neg_inf, m1 = neg_inf;
+    {
+      AFrag qa[KD];
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        qa[kk] = a_from_tile<kExact>(qs + r0 * kPitch, kPitch, kk * 8, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; j += kGroup) {
+        if (j * 8 < skv) {
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk)
+            mma_rows_as_columns<kExact, kExact, kGroup>(&s[j], qa[kk], ks + j * 8 * kPitch,
+                                                        kPitch, kk * 8, g, t);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)  // only the last tile has keys past Skv
+          s[j][c] = ((j + 1) * 8 <= skv || j * 8 + 2 * t + (c & 1) < skv)
+                        ? s[j][c] * scale
+                        : neg_inf;
+        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+      }
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = expf(s[j][0] - m0);
+      s[j][1] = expf(s[j][1] - m0);
+      s[j][2] = expf(s[j][2] - m1);
+      s[j][3] = expf(s[j][3] - m1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    sum0 = quad_sum(sum0);
+    sum1 = quad_sum(sum1);
+    // every row has a key, so its sum is at least exp(0)
+    const float inv0 = sum0 > 0.f ? 1.f / sum0 : 0.f;
+    const float inv1 = sum1 > 0.f ? 1.f / sum1 : 0.f;
+
+    float delta0 = 0.f, delta1 = 0.f;
+    for (int d = t; d < dh; d += 4) {
+      if (r0 + g < sq)
+        delta0 = fmaf(dos[(r0 + g) * kPitch + d],
+                      as_float(o[q_at + (size_t)(r0 + g) * ld + d]), delta0);
+      if (r0 + g + 8 < sq)
+        delta1 = fmaf(dos[(r0 + g + 8) * kPitch + d],
+                      as_float(o[q_at + (size_t)(r0 + g + 8) * ld + d]), delta1);
+    }
+    delta0 = quad_sum(delta0);
+    delta1 = quad_sum(delta1);
+    if (t == 0) {
+      row_max[r0 + g] = m0;
+      row_inv[r0 + g] = inv0;
+      row_delta[r0 + g] = delta0;
+      row_max[r0 + g + 8] = m1;
+      row_inv[r0 + g + 8] = inv1;
+      row_delta[r0 + g + 8] = delta1;
+    }
+
+    AFrag doa[KD];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      doa[kk] = a_from_tile<kExact>(dos + r0 * kPitch, kPitch, kk * 8, g, t);
+    float acc[KD][4];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; j += kGroup) {
+      if (j * 8 < skv) {
+        float dl[kGroup][4];  // dp first
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dl[i][c] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          mma_rows_as_columns<kExact, kExact, kGroup>(dl, doa[kk], vs + j * 8 * kPitch,
+                                                      kPitch, kk * 8, g, t);
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          // keys past Skv have p = 0 and v = 0, so dl = 0 there
+          dl[i][0] = s[j + i][0] * inv0 * (dl[i][0] - delta0);
+          dl[i][1] = s[j + i][1] * inv0 * (dl[i][1] - delta0);
+          dl[i][2] = s[j + i][2] * inv1 * (dl[i][2] - delta1);
+          dl[i][3] = s[j + i][3] * inv1 * (dl[i][3] - delta1);
+          const AFrag dla = a_from_acc(dl[i]);
+          mma_rows_summed<kExact, KD>(acc, dla, ks + (j + i) * 8 * kPitch, kPitch, g, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      store_acc(dq + q_at, acc[n], scale, scale, r0, sq, n * 8, dh, ld, g, t);
+  }
+  __syncthreads();
+
+  // Pass B: a warp per 16 keys, the queries 32 at a time -> dk and dv.
+  for (int c0 = warp * 16; c0 < skv; c0 += warps * 16) {
+    AFrag ka[KD], va[KD];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ka[kk] = a_from_tile<kExact>(ks + c0 * kPitch, kPitch, kk * 8, g, t);
+      va[kk] = a_from_tile<kExact>(vs + c0 * kPitch, kPitch, kk * 8, g, t);
+    }
+    float acc_k[KD][4], acc_v[KD][4];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
+    const bool key0 = c0 + g < skv, key1 = c0 + g + 8 < skv;
+
+    for (int i0 = 0; i0 < sq; i0 += 8 * kGroup) {
+      // keys c0+g (x[0..1]) and c0+g+8 (x[2..3]); tile i: queries
+      // i0+8i+2t and i0+8i+2t+1
+      float pt[kGroup][4], dlt[kGroup][4];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) pt[i][c] = dlt[i][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mma_rows_as_columns<kExact, kExact, kGroup>(pt, ka[kk], qs + i0 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+        mma_rows_as_columns<kExact, kExact, kGroup>(dlt, va[kk], dos + i0 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = i0 + 8 * i + 2 * t + (c & 1);
+          const bool there = r < sq && ((c >> 1) ? key1 : key0);
+          pt[i][c] = there ? expf(pt[i][c] * scale - row_max[r]) * row_inv[r] : 0.f;
+          dlt[i][c] = there ? pt[i][c] * (dlt[i][c] - row_delta[r]) : 0.f;
+        }
+        const AFrag pa = a_from_acc(pt[i]), dla = a_from_acc(dlt[i]);
+        mma_rows_summed<kExact, KD>(acc_v, pa, dos + (i0 + 8 * i) * kPitch, kPitch, g, t);
+        mma_rows_summed<kExact, KD>(acc_k, dla, qs + (i0 + 8 * i) * kPitch, kPitch, g, t);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      store_acc(dk + k_at, acc_k[n], scale, scale, c0, skv, n * 8, dh, ld, g, t);
+      store_acc(dv + k_at, acc_v[n], 1.f, 1.f, c0, skv, n * 8, dh, ld, g, t);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// general kernel: any Sq, Skv and head_dim whose tiles fit shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kGeneralWarps = 16;
 
 __host__ __device__ constexpr int row_stride(int dh) { return dh | 1; }
 
-__host__ __device__ constexpr size_t smem_bytes(int sq, int skv, int dh) {
+__host__ __device__ constexpr size_t general_smem_bytes(int sq, int skv, int dh) {
   const int longest = sq > skv ? sq : skv;
   return ((size_t)2 * (sq + skv) * row_stride(dh) + (size_t)3 * sq +
-          (size_t)2 * kWarps * longest) * sizeof(float);
+          (size_t)2 * kGeneralWarps * longest) * sizeof(float);
 }
 
 __device__ __forceinline__ float dot(const float* a, const float* b, int n) {
@@ -58,15 +297,20 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int n) {
   return acc;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ o,
-                         const float* __restrict__ d_o, float* __restrict__ dq,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int sq, int skv, int heads, int dh, float scale) {
-  extern __shared__ float smem[];
+// One block per (b, h) with that head's q * scale, k, v and do in shared
+// memory on an odd row stride.  Pass A, a warp per query row: logits (a lane
+// per key), max and sum by shuffles, delta, dl in a per-warp buffer, dq with
+// a lane per column.  Pass B, a warp per key: the same logits against every
+// query row, p and dl from the kept statistics, dk and dv with a lane per
+// column.  No output is accumulated by more than one warp.
+template <typename T>
+__global__ void __launch_bounds__(kGeneralWarps * 32)
+    attention_bwd_general(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ o,
+                          const T* __restrict__ d_o, T* __restrict__ dq,
+                          T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
+                          int heads, int dh, float scale) {
+  extern __shared__ __align__(16) float smem[];
   const int ld = row_stride(dh);
   const int longest = sq > skv ? sq : skv;
   float* qs = smem;                             // [sq][ld], scaled
@@ -76,8 +320,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* row_max = vs + (size_t)skv * ld;       // [sq]
   float* row_sum = row_max + sq;                // [sq]
   float* row_delta = row_sum + sq;              // [sq]
-  float* buf_a = row_delta + sq;                // [kWarps][longest]
-  float* buf_b = buf_a + (size_t)kWarps * longest;
+  float* buf_a = row_delta + sq;                // [kGeneralWarps][longest]
+  float* buf_b = buf_a + (size_t)kGeneralWarps * longest;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -89,13 +333,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   for (int idx = threadIdx.x; idx < sq * dh; idx += blockDim.x) {
     const int r = idx / dh, d = idx - r * dh;
-    qs[r * ld + d] = q[q_at + (size_t)r * d_model + d] * scale;
-    dos[r * ld + d] = d_o[q_at + (size_t)r * d_model + d];
+    qs[r * ld + d] = as_float(q[q_at + (size_t)r * d_model + d]) * scale;
+    dos[r * ld + d] = as_float(d_o[q_at + (size_t)r * d_model + d]);
   }
   for (int idx = threadIdx.x; idx < skv * dh; idx += blockDim.x) {
     const int j = idx / dh, d = idx - j * dh;
-    ks[j * ld + d] = k[k_at + (size_t)j * d_model + d];
-    vs[j * ld + d] = v[k_at + (size_t)j * d_model + d];
+    ks[j * ld + d] = as_float(k[k_at + (size_t)j * d_model + d]);
+    vs[j * ld + d] = as_float(v[k_at + (size_t)j * d_model + d]);
   }
   __syncthreads();
 
@@ -103,7 +347,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* mine_b = buf_b + (size_t)warp * longest;
 
   // Pass A: a warp per query row -> row statistics and dq.
-  for (int r = warp; r < sq; r += kWarps) {
+  for (int r = warp; r < sq; r += kGeneralWarps) {
     const float* qr = qs + r * ld;
     const float* dor = dos + r * ld;
 
@@ -116,7 +360,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     float s = 0.f;
     float delta = 0.f;
     for (int d = lane; d < dh; d += 32)
-      delta = fmaf(dor[d], o[q_at + (size_t)r * d_model + d], delta);
+      delta = fmaf(dor[d], as_float(o[q_at + (size_t)r * d_model + d]), delta);
     for (int off = 16; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     for (int j = lane; j < skv; j += 32) s += expf(mine_a[j] - m);
@@ -137,14 +381,14 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < skv; ++j) acc = fmaf(mine_a[j], ks[j * ld + d], acc);
-      dq[q_at + (size_t)r * d_model + d] = acc * scale;
+      store_float(dq + q_at + (size_t)r * d_model + d, acc * scale);
     }
     __syncwarp();  // the next row overwrites mine_a
   }
   __syncthreads();
 
   // Pass B: a warp per key -> dk and dv.
-  for (int j = warp; j < skv; j += kWarps) {
+  for (int j = warp; j < skv; j += kGeneralWarps) {
     const float* kj = ks + j * ld;
     const float* vj = vs + j * ld;
     for (int r = lane; r < sq; r += 32) {
@@ -160,10 +404,83 @@ __global__ void __launch_bounds__(kWarps * 32)
         acc_k = fmaf(mine_a[r], qs[r * ld + d], acc_k);
         acc_v = fmaf(mine_b[r], dos[r * ld + d], acc_v);
       }
-      dk[k_at + (size_t)j * d_model + d] = acc_k;
-      dv[k_at + (size_t)j * d_model + d] = acc_v;
+      store_float(dk + k_at + (size_t)j * d_model + d, acc_k);
+      store_float(dv + k_at + (size_t)j * d_model + d, acc_v);
     }
     __syncwarp();  // the next key overwrites mine_a and mine_b
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+enum Variant { kAuto = -1, kMma = 0, kGeneral = 1 };
+
+constexpr int padded_head_dim(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : 64; }
+
+bool mma_takes(int sq, int skv, int dh) {
+  return skv <= 8 * kMaxKeyTiles && dh <= kMaxHeadDim &&
+         mma_smem_bytes(sq, skv, padded_head_dim(dh)) <= kSmemLimit;
+}
+
+// The variant that runs the shape: the one asked for, or the mma kernel
+// where it takes the shape and else the general one.
+int pick(int variant, int sq, int skv, int dh) {
+  if (variant == kAuto) return mma_takes(sq, skv, dh) ? kMma : kGeneral;
+  return variant;
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *d_o;
+  void *dq, *dk, *dv;
+  int b, sq, skv, heads, dh;
+  float scale;
+};
+
+template <typename T, int NT, int KD>
+cudaError_t launch_mma(const Args& a, int device, cudaStream_t stream) {
+  auto kernel = attention_bwd_mma<T, NT, KD>;
+  cudaError_t err = allow_dynamic_smem(kernel, device);
+  if (err != cudaSuccess) return err;
+  bool vec = (a.dh * sizeof(T)) % 16 == 0;
+  for (const void* p : {a.q, a.k, a.v, a.d_o}) vec = vec && ((uintptr_t)p % 16 == 0);
+  const int tiles = ((a.sq > a.skv ? a.sq : a.skv) + 15) / 16;
+  kernel<<<a.b * a.heads, warps_for(tiles, kMaxWarps) * 32, mma_smem_bytes(a.sq, a.skv, KD * 8),
+           stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
+                     (const T*)a.d_o, (T*)a.dq, (T*)a.dk, (T*)a.dv, a.sq, a.skv,
+                     a.heads, a.dh, a.scale, (int)vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const Args& a, int variant, int device, void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  variant = pick(variant, a.sq, a.skv, a.dh);
+  if (variant == kGeneral) {
+    auto kernel = attention_bwd_general<T>;
+    err = allow_dynamic_smem(kernel, device);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<a.b * a.heads, kGeneralWarps * 32, general_smem_bytes(a.sq, a.skv, a.dh),
+             stream>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
+                       (const T*)a.d_o, (T*)a.dq, (T*)a.dk, (T*)a.dv, a.sq, a.skv,
+                       a.heads, a.dh, a.scale);
+    return (int)cudaGetLastError();
+  }
+  if (variant != kMma || !mma_takes(a.sq, a.skv, a.dh)) return (int)cudaErrorInvalidValue;
+  const bool few_keys = a.skv <= 96;
+  switch (padded_head_dim(a.dh)) {
+    case 16:
+      return (int)(few_keys ? launch_mma<T, 12, 2>(a, device, stream)
+                            : launch_mma<T, kMaxKeyTiles, 2>(a, device, stream));
+    case 32:
+      return (int)(few_keys ? launch_mma<T, 12, 4>(a, device, stream)
+                            : launch_mma<T, kMaxKeyTiles, 4>(a, device, stream));
+    default:
+      return (int)(few_keys ? launch_mma<T, 12, 8>(a, device, stream)
+                            : launch_mma<T, kMaxKeyTiles, 8>(a, device, stream));
   }
 }
 
@@ -171,32 +488,41 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 extern "C" {
 
-long long attention_bwd_smem_bytes(int sq, int skv, int dh) {
-  return (long long)smem_bytes(sq, skv, dh);
+// Shared memory a block needs at this shape with `variant` (-1: the one the
+// launch would pick, 0: the tensor-core kernel, 1: the general kernel), or
+// -1 where that variant does not take the shape.  Above the block's limit
+// means that nothing takes it.
+long long attention_bwd_smem_bytes(int sq, int skv, int dh, int variant) {
+  variant = pick(variant, sq, skv, dh);
+  if (variant == kGeneral) return (long long)general_smem_bytes(sq, skv, dh);
+  if (variant != kMma || !mma_takes(sq, skv, dh)) return -1;
+  return (long long)mma_smem_bytes(sq, skv, padded_head_dim(dh));
 }
+
+// 0: the tensor-core kernel runs this shape, 1: the general kernel.
+int attention_bwd_variant(int sq, int skv, int dh) { return pick(kAuto, sq, skv, dh); }
 
 const char* attention_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`, allocates nothing and does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// Launch on `stream`; allocate nothing, do not synchronise.  Return the
+// cudaError_t of the launch (0 on success).  float and bfloat16 tensors.
 int attention_bwd(const void* q, const void* k, const void* v, const void* o,
                   const void* d_o, void* dq, void* dk, void* dv, int b, int sq,
-                  int skv, int heads, int dh, float scale, int device,
+                  int skv, int heads, int dh, float scale, int variant, int device,
                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(sq, skv, dh);
-  err = cudaFuncSetAttribute(attention_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<<<b * heads, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
-      (const float*)d_o, (float*)dq, (float*)dk, (float*)dv, sq, skv, heads,
-      dh, scale);
-  return (int)cudaGetLastError();
+  return launch<float>({q, k, v, o, d_o, dq, dk, dv, b, sq, skv, heads, dh, scale},
+                       variant, device, stream);
+}
+
+int attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                       const void* d_o, void* dq, void* dk, void* dv, int b, int sq,
+                       int skv, int heads, int dh, float scale, int variant,
+                       int device, void* stream) {
+  return launch<__nv_bfloat16>(
+      {q, k, v, o, d_o, dq, dk, dv, b, sq, skv, heads, dh, scale}, variant, device,
+      stream);
 }
 
 }  // extern "C"

@@ -4,80 +4,228 @@
 // (called through _fwd / fused_attention).  Per batch element b and head h,
 // with heads as column slices of the flat [B, S, H*dh] layout:
 //
-//   logits = (q * scale) k^T     [Sq, Skv], fp32
+//   logits = (q k^T) * scale     [Sq, Skv], fp32
 //   p      = exp(logits - rowmax(logits))
 //   o      = (p v) / rowsum(p)   [Sq, dh]
 //
-// Both products are computed here, in fp32 FMAs; the [Sq, Skv] logits never
-// reach device memory and no [B, H, S, dh] transpose pass exists.  Accurate
-// expf; the build must not use --use_fast_math.
+// q, k, v are float or bfloat16 and go to fp32 as they are loaded; logits,
+// softmax and both sums are fp32; o is written in the input type.  The
+// [Sq, Skv] logits never reach device memory (nor shared memory) and no
+// [B, H, S, dh] transpose pass exists.  Accurate expf; the build must not
+// use --use_fast_math.
 //
-// What bounds it: operations, but far from the card's rate.  At the flagship
-// shape [89, 149, 256], 8 heads, the kernel moves 54 MB and does 2.0 GFLOP;
-// the sequences are short (S = 89..149, dh = 32), so the work is many small
-// products, and this first version feeds every FMA from shared memory.
+// What bounds it: by the count, operations (at the flagship shape
+// [89, 149, 256], 8 heads, fp32: 54 MB moved, 2.0 GFLOP, 0.030 ms at the
+// CUDA cores' fp32 rate against 0.016 ms for the bytes); at bf16, bytes.  In
+// practice the sequences are short (S = 89..149, dh = 32), the work is many
+// small products, and what a design can lose is shared-memory bandwidth,
+// the schedulers' rate and occupancy.  The first version of this kernel fed
+// every FMA from two shared-memory loads, which caps it at 1/8 of the fp32
+// rate (it measured 7.2%).
 //
-// Design: one block per (b, h).  That head's k and v live in shared memory,
-// rows padded to an odd stride so that 32 lanes reading 32 different rows
-// hit 32 different banks.  A warp owns one query row at a time: each lane
-// takes the keys j = lane, lane+32, ... and forms their logits (the scaled
-// query row is broadcast from shared memory), the row max and the row sum
-// meet through warp shuffles, the unnormalised p goes to a per-warp row in
-// shared memory, and then lane d accumulates sum_j p[j] v[j][d] and divides
-// once.  The TPU kernel's group of G batch elements per grid step and its
-// static lane slices were VMEM and Mosaic choices and are not carried over.
-// Faster later: several query rows per warp (register tiling), so that a k
-// or v value read from shared memory feeds more than one FMA.
+// Design (attention_fwd_mma; the building blocks are in attention_mma.cuh):
+//   * One block per (b, h).  q, k and v of that head are loaded once into
+//     fp32 shared-memory tiles with 16-byte loads (scalar loads where a
+//     head's row is not 16-byte aligned), zero in the padding.
+//   * Both products run on the tensor cores as m16n8k8 TF32 `mma.sync` with
+//     the high/low operand split that makes them fp32-grade (three `mma` a
+//     product at fp32, one or two at bf16).  The split rounds with two
+//     integer operations; `cvt.rna.tf32.f32` compiles to four and made the
+//     fp32 kernel a third slower.
+//   * A warp owns 16 query rows at a time.  Its q fragments and the whole
+//     row of logits, up to 20 tiles of 8 keys, stay in registers; row max
+//     and row sum go through two shuffles among the four lanes that share a
+//     row; expf once an element; the accumulator tiles of p are the A
+//     operand of p v directly; one reciprocal a row.  The `mma`s of four
+//     key tiles (or of the four column tiles of o) are written term by term,
+//     so consecutive ones do not depend on each other.
+//   * Keys past Skv get -inf logits, so p = 0 there; query rows past Sq are
+//     computed on zeros and not stored.
+//   * Blocks: 5 warps at Sq = 149 (10 row tiles, 2 a warp), 3 at Sq = 89 (6
+//     tiles).  128 registers a thread (__launch_bounds__(160, 3); 8 bytes of
+//     spill in the 20-tile fp32 instance) and 69,120 B of shared memory at
+//     S = 149, dh = 32: 3 blocks, 15 warps an SM, so the 712 blocks of one
+//     segment run in 1.8 waves of 396.  What is left is latency: about 4200
+//     machine operations a row tile at fp32 (3000 at bf16), most of them the
+//     softmax's elementwise work, running at half the schedulers' rate.
+//   * cudaFuncSetAttribute once per kernel and device.
+// The TPU kernel's group of G batch elements per grid step and its static
+// lane slices were VMEM and Mosaic choices and are not carried over.
+//
+// Shapes the mma kernel does not hold in registers (Skv > 160, head_dim >
+// 64, or tiles beyond the shared memory of a block) go to
+// attention_fwd_general, the first version of this kernel: k and v in shared
+// memory, a warp per query row, fp32 FMAs, any Skv that fits (about 880 keys
+// at head_dim 32).
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+// ---------------------------------------------------------------------------
+// tensor-core kernel: Skv <= 8 * NT, head_dim <= 8 * KD
+// ---------------------------------------------------------------------------
+
+// Blocks of at most 5 warps, 3 to an SM: 128 registers a thread.  Device time
+// at [356, 149, 256] fp32 on an H100 SXM at 700 W: 0.31 ms so, 0.39 ms with 6
+// warps and 2 blocks (168 registers), 0.82 ms with 8 warps and 1 block (227
+// registers).
+constexpr int kMaxWarps = 5, kMinBlocks = 3;
+
+__host__ __device__ constexpr size_t mma_smem_bytes(int sq, int skv, int dhp) {
+  return (size_t)(ceil_to(sq, 16) + 2 * ceil_to(skv, 8 * kGroup)) * (dhp + kPitchPad) *
+         sizeof(float);
+}
+
+template <typename T, int NT, int KD>
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
+    attention_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
+                      int heads, int dh, float scale, int vec) {
+  constexpr bool kExact = kExactInTf32<T>;
+  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
+  extern __shared__ __align__(16) float smem[];
+  const int q_rows = ceil_to(sq, 16), kv_rows = ceil_to(skv, 8 * kGroup);
+  float* qs = smem;                  // [q_rows][kPitch]
+  float* ks = qs + q_rows * kPitch;  // [kv_rows][kPitch]
+  float* vs = ks + kv_rows * kPitch;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
+  const size_t ld = (size_t)heads * dh;
+  const size_t q_at = (size_t)b * sq * ld + h * dh;
+  const size_t k_at = (size_t)b * skv * ld + h * dh;
+
+  load_tile(qs, q + q_at, sq, q_rows, dh, kDhp, kPitch, ld, vec);
+  load_tile(ks, k + k_at, skv, kv_rows, dh, kDhp, kPitch, ld, vec);
+  load_tile(vs, v + k_at, skv, kv_rows, dh, kDhp, kPitch, ld, vec);
+  __syncthreads();
+
+  const float neg_inf = __int_as_float(0xff800000);
+  for (int r0 = warp * 16; r0 < sq; r0 += warps * 16) {
+    AFrag qa[KD];
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      qa[kk] = a_from_tile<kExact>(qs + r0 * kPitch, kPitch, kk * 8, g, t);
+
+    // logits of rows r0+g (s[j][0..1]) and r0+g+8 (s[j][2..3]), keys
+    // 8j+2t and 8j+2t+1
+    float s[NT][4];
+    float m0 = neg_inf, m1 = neg_inf;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; j += kGroup) {
+      if (j * 8 < skv) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          mma_rows_as_columns<kExact, kExact, kGroup>(&s[j], qa[kk], ks + j * 8 * kPitch,
+                                                      kPitch, kk * 8, g, t);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)  // only the last tile has keys past Skv
+        s[j][c] = ((j + 1) * 8 <= skv || j * 8 + 2 * t + (c & 1) < skv) ? s[j][c] * scale
+                                                                         : neg_inf;
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = expf(s[j][0] - m0);
+      s[j][1] = expf(s[j][1] - m0);
+      s[j][2] = expf(s[j][2] - m1);
+      s[j][3] = expf(s[j][3] - m1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    sum0 = quad_sum(sum0);
+    sum1 = quad_sum(sum1);
+
+    float acc[KD][4];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j * 8 < skv) {
+        const AFrag pa = a_from_acc(s[j]);
+        mma_rows_summed<kExact, KD>(acc, pa, vs + j * 8 * kPitch, kPitch, g, t);
+      }
+    }
+
+    // every row has a key, so its sum is at least exp(0); the guard keeps a
+    // zero sum from dividing all the same
+    const float inv0 = sum0 > 0.f ? 1.f / sum0 : 0.f;
+    const float inv1 = sum1 > 0.f ? 1.f / sum1 : 0.f;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      store_acc(o + q_at, acc[n], inv0, inv1, r0, sq, n * 8, dh, ld, g, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// general kernel: any Skv and head_dim whose k and v fit shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kGeneralWarps = 8;
 
 __host__ __device__ constexpr int row_stride(int dh) { return dh | 1; }
 
-__host__ __device__ constexpr size_t smem_bytes(int skv, int dh) {
-  return ((size_t)2 * skv * row_stride(dh) + (size_t)kWarps * dh +
-          (size_t)kWarps * skv) * sizeof(float);
+__host__ __device__ constexpr size_t general_smem_bytes(int skv, int dh) {
+  return ((size_t)2 * skv * row_stride(dh) + (size_t)kGeneralWarps * dh +
+          (size_t)kGeneralWarps * skv) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_fwd_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         int sq, int skv, int heads, int dh, float scale) {
-  extern __shared__ float smem[];
+// One block per (b, h); k and v in shared memory on an odd row stride, so 32
+// lanes reading 32 rows hit 32 banks.  A warp owns one query row at a time:
+// a lane per key for the logits, shuffles for max and sum, the unnormalised
+// p in a per-warp row, then a lane per column for p v and one division.
+template <typename T>
+__global__ void __launch_bounds__(kGeneralWarps * 32)
+    attention_fwd_general(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
+                          int heads, int dh, float scale) {
+  extern __shared__ __align__(16) float smem[];
   const int ld = row_stride(dh);
   float* ks = smem;                             // [skv][ld]
   float* vs = ks + (size_t)skv * ld;            // [skv][ld]
-  float* qrows = vs + (size_t)skv * ld;         // [kWarps][dh]
-  float* probs = qrows + kWarps * dh;           // [kWarps][skv]
+  float* qrows = vs + (size_t)skv * ld;         // [kGeneralWarps][dh]
+  float* probs = qrows + kGeneralWarps * dh;    // [kGeneralWarps][skv]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
   const int d_model = heads * dh;
-  const float* qb = q + (size_t)b * sq * d_model + h * dh;
-  const float* kb = k + (size_t)b * skv * d_model + h * dh;
-  const float* vb = v + (size_t)b * skv * d_model + h * dh;
-  float* ob = o + (size_t)b * sq * d_model + h * dh;
+  const T* qb = q + (size_t)b * sq * d_model + h * dh;
+  const T* kb = k + (size_t)b * skv * d_model + h * dh;
+  const T* vb = v + (size_t)b * skv * d_model + h * dh;
+  T* ob = o + (size_t)b * sq * d_model + h * dh;
 
   for (int idx = threadIdx.x; idx < skv * dh; idx += blockDim.x) {
     const int j = idx / dh, d = idx - j * dh;
-    ks[j * ld + d] = kb[(size_t)j * d_model + d];
-    vs[j * ld + d] = vb[(size_t)j * d_model + d];
+    ks[j * ld + d] = as_float(kb[(size_t)j * d_model + d]);
+    vs[j * ld + d] = as_float(vb[(size_t)j * d_model + d]);
   }
   __syncthreads();
 
   float* qrow = qrows + warp * dh;
   float* p = probs + (size_t)warp * skv;
-  for (int r = warp; r < sq; r += kWarps) {
+  for (int r = warp; r < sq; r += kGeneralWarps) {
     for (int d = lane; d < dh; d += 32)
-      qrow[d] = qb[(size_t)r * d_model + d] * scale;
+      qrow[d] = as_float(qb[(size_t)r * d_model + d]) * scale;
     __syncwarp();
 
     float m = __int_as_float(0xff800000);  // -inf
@@ -104,41 +252,116 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < skv; ++j) acc = fmaf(p[j], vs[j * ld + d], acc);
-      ob[(size_t)r * d_model + d] = acc / s;
+      store_float(ob + (size_t)r * d_model + d, acc / s);
     }
     __syncwarp();  // the next row overwrites qrow and p
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+enum Variant { kAuto = -1, kMma = 0, kGeneral = 1 };
+
+constexpr int padded_head_dim(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : 64; }
+
+bool mma_takes(int sq, int skv, int dh) {
+  return skv <= 8 * kMaxKeyTiles && dh <= kMaxHeadDim &&
+         mma_smem_bytes(sq, skv, padded_head_dim(dh)) <= kSmemLimit;
+}
+
+// The variant that runs the shape: the one asked for, or the mma kernel
+// where it takes the shape and else the general one.
+int pick(int variant, int sq, int skv, int dh) {
+  if (variant == kAuto) return mma_takes(sq, skv, dh) ? kMma : kGeneral;
+  return variant;
+}
+
+template <typename T, int NT, int KD>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int b,
+                       int sq, int skv, int heads, int dh, float scale, int device,
+                       cudaStream_t stream) {
+  auto kernel = attention_fwd_mma<T, NT, KD>;
+  cudaError_t err = allow_dynamic_smem(kernel, device);
+  if (err != cudaSuccess) return err;
+  bool vec = (dh * sizeof(T)) % 16 == 0;
+  for (const void* p : {q, k, v}) vec = vec && ((uintptr_t)p % 16 == 0);
+  const int warps = warps_for((sq + 15) / 16, kMaxWarps);
+  kernel<<<b * heads, warps * 32, mma_smem_bytes(sq, skv, KD * 8), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, heads, dh, scale, (int)vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
+           int skv, int heads, int dh, float scale, int variant, int device,
+           void* stream_ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  variant = pick(variant, sq, skv, dh);
+  if (variant == kGeneral) {
+    auto kernel = attention_fwd_general<T>;
+    err = allow_dynamic_smem(kernel, device);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<b * heads, kGeneralWarps * 32, general_smem_bytes(skv, dh), stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, heads, dh, scale);
+    return (int)cudaGetLastError();
+  }
+  if (variant != kMma || !mma_takes(sq, skv, dh)) return (int)cudaErrorInvalidValue;
+#define ATTENTION_FWD_CASE(NT, KD) \
+  launch_mma<T, NT, KD>(q, k, v, o, b, sq, skv, heads, dh, scale, device, stream)
+  const bool few_keys = skv <= 96;
+  switch (padded_head_dim(dh)) {
+    case 16:
+      return (int)(few_keys ? ATTENTION_FWD_CASE(12, 2)
+                            : ATTENTION_FWD_CASE(kMaxKeyTiles, 2));
+    case 32:
+      return (int)(few_keys ? ATTENTION_FWD_CASE(12, 4)
+                            : ATTENTION_FWD_CASE(kMaxKeyTiles, 4));
+    default:
+      return (int)(few_keys ? ATTENTION_FWD_CASE(12, 8)
+                            : ATTENTION_FWD_CASE(kMaxKeyTiles, 8));
+  }
+#undef ATTENTION_FWD_CASE
 }
 
 }  // namespace
 
 extern "C" {
 
-long long attention_fwd_smem_bytes(int sq, int skv, int dh) {
-  (void)sq;
-  return (long long)smem_bytes(skv, dh);
+// Shared memory a block needs at this shape with `variant` (-1: the one the
+// launch would pick, 0: the tensor-core kernel, 1: the general kernel), or
+// -1 where that variant does not take the shape.  Above the block's limit
+// means that nothing takes it.
+long long attention_fwd_smem_bytes(int sq, int skv, int dh, int variant) {
+  variant = pick(variant, sq, skv, dh);
+  if (variant == kGeneral) return (long long)general_smem_bytes(skv, dh);
+  if (variant != kMma || !mma_takes(sq, skv, dh)) return -1;
+  return (long long)mma_smem_bytes(sq, skv, padded_head_dim(dh));
 }
+
+// 0: the tensor-core kernel runs this shape, 1: the general kernel.
+int attention_fwd_variant(int sq, int skv, int dh) { return pick(kAuto, sq, skv, dh); }
 
 const char* attention_fwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`, allocates nothing and does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// Launch on `stream`; allocate nothing, do not synchronise.  Return the
+// cudaError_t of the launch (0 on success).  float and bfloat16 tensors.
 int attention_fwd(const void* q, const void* k, const void* v, void* o, int b,
-                  int sq, int skv, int heads, int dh, float scale, int device,
-                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = smem_bytes(skv, dh);
-  err = cudaFuncSetAttribute(attention_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_fwd_kernel<<<b * heads, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, skv,
-      heads, dh, scale);
-  return (int)cudaGetLastError();
+                  int sq, int skv, int heads, int dh, float scale, int variant,
+                  int device, void* stream) {
+  return launch<float>(q, k, v, o, b, sq, skv, heads, dh, scale, variant, device, stream);
+}
+
+int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b,
+                       int sq, int skv, int heads, int dh, float scale, int variant,
+                       int device, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, b, sq, skv, heads, dh, scale, variant, device,
+                               stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@ The route is opt-in, as in the JAX package: ``use_fused_attention`` reads
 ``TRANSKUN_TPU_FUSED_ATTN`` (and ``TRANSKUN_TPU_NO_PALLAS``, which turns it
 off) at call time.  The flag alone selects the route.  On a CPU tensor each
 wrapper runs its plain version; on a CUDA tensor it launches its kernel or
-raises, and never falls back.  fp32 only.
+raises, and never falls back.  fp32 or bf16 tensors, all of one type; the
+outputs come in that type (the kernels, like the plain versions, take the
+inputs to fp32 first).
 """
 
 from __future__ import annotations
@@ -94,31 +96,50 @@ def attention_bwd_plain(
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}  # exported name suffix
+# Each source holds two kernels: the tensor-core one for the shapes whose row
+# of logits fits a thread's registers (Skv <= 160, head_dim <= 64) and the
+# general one for the rest.  The library picks by shape; a caller may force one.
+VARIANTS = {None: -1, "mma": 0, "general": 1}
 
 
 @functools.cache
 def _library(name: str, n_tensors: int) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn = getattr(lib, name)
-    # tensors, then b, sq, skv, heads, head_dim, scale, device, stream
-    fn.argtypes = [_PTR] * n_tensors + [_INT] * 5 + [ctypes.c_float, _INT, _PTR]
-    fn.restype = _INT
-    getattr(lib, name + "_smem_bytes").argtypes = [_INT, _INT, _INT]
+    for suffix in _DTYPES.values():
+        fn = getattr(lib, name + suffix)
+        # tensors, then b, sq, skv, heads, head_dim, scale, variant, device, stream
+        fn.argtypes = [_PTR] * n_tensors + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR]
+        fn.restype = _INT
+    getattr(lib, name + "_smem_bytes").argtypes = [_INT] * 4
     getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
+    getattr(lib, name + "_variant").argtypes = [_INT] * 3
+    getattr(lib, name + "_variant").restype = _INT
     getattr(lib, name + "_error_string").argtypes = [_INT]
     getattr(lib, name + "_error_string").restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float):
+def kernel_variant(name: str, sq: int, skv: int, head_dim: int) -> str:
+    """Which kernel of ``name`` ("attention_fwd" or "attention_bwd") the
+    library picks at this shape: "mma" or "general"."""
+    lib = _library(name, 4 if name == "attention_fwd" else 8)
+    picked = getattr(lib, name + "_variant")(sq, skv, head_dim)
+    return next(k for k, v in VARIANTS.items() if v == picked)
+
+
+def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float, variant=None):
     """Check ``inputs`` (q, k, v and, for the backward, o and do), allocate
-    the outputs and launch ``name`` on the current stream."""
+    the outputs in their type and launch ``name`` on the current stream."""
     q, k, v = inputs[:3]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for arg, a in zip(("q", "k", "v", "o", "do"), inputs):
+        if a.dtype != q.dtype:
+            raise TypeError(f"{arg} is {a.dtype}, q {q.dtype}: one type for all")
     for arg, a in zip(("q", "k", "v", "o", "do"), inputs):
         if a.device != q.device or a.device.type != "cuda":
             raise ValueError(f"{arg} is on {a.device}, q on {q.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{arg} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
     if q.dim() != 3 or k.dim() != 3:
@@ -133,17 +154,20 @@ def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float):
     if num_heads < 1 or d % num_heads or 0 in (b, sq, skv, d):
         raise ValueError(f"D={d} must be a positive multiple of num_heads={num_heads}, B and S positive")
     lib = _library(name, len(inputs) + n_out)
-    smem = getattr(lib, name + "_smem_bytes")(sq, skv, d // num_heads)
+    smem = getattr(lib, name + "_smem_bytes")(sq, skv, d // num_heads, VARIANTS[variant])
+    if smem < 0:
+        raise ValueError(f"the {variant} kernel does not take Sq={sq}, Skv={skv}, "
+                         f"head_dim={d // num_heads}")
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"Sq={sq}, Skv={skv}, head_dim={d // num_heads} need {smem} B of shared "
             f"memory, above {_build.SMEM_LIMIT} B: sequence too long for the kernel"
         )
     outs = [torch.empty_like(a) for a in ((q,) if n_out == 1 else (q, k, v))]
-    err = getattr(lib, name)(
+    err = getattr(lib, name + _DTYPES[q.dtype])(
         *[a.data_ptr() for a in (*inputs, *outs)],
-        b, sq, skv, num_heads, d // num_heads, float(scale), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, skv, num_heads, d // num_heads, float(scale), VARIANTS[variant],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -153,22 +177,26 @@ def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float):
 
 
 def attention_fwd_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    variant=None,
 ) -> torch.Tensor:
-    """Launch the forward kernel; raises on anything it does not take."""
+    """Launch the forward kernel (fp32 or bf16 tensors, all of one type);
+    raises on anything it does not take.  ``variant`` forces "mma" or
+    "general"; by default the library picks by shape."""
     global fwd_launches
-    (o,) = _launch("attention_fwd", (q, k, v), 1, num_heads, scale)
+    (o,) = _launch("attention_fwd", (q, k, v), 1, num_heads, scale, variant)
     fwd_launches += 1
     return o
 
 
 def attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    do: torch.Tensor, num_heads: int, scale: float,
+    do: torch.Tensor, num_heads: int, scale: float, variant=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel; raises on anything it does not take."""
+    """Launch the backward kernel (fp32 or bf16 tensors, all of one type);
+    raises on anything it does not take.  ``variant`` as in the forward."""
     global bwd_launches
-    dq, dk, dv = _launch("attention_bwd", (q, k, v, o, do), 3, num_heads, scale)
+    dq, dk, dv = _launch("attention_bwd", (q, k, v, o, do), 3, num_heads, scale, variant)
     bwd_launches += 1
     return dq, dk, dv
 
@@ -193,7 +221,7 @@ class _FusedAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         bwd = _by_device(q, attention_bwd_plain, attention_bwd_cuda)
-        dq, dk, dv = bwd(q, k, v, o, do.contiguous(), ctx.num_heads, ctx.scale)
+        dq, dk, dv = bwd(q, k, v, o, do.to(q.dtype).contiguous(), ctx.num_heads, ctx.scale)
         return dq, dk, dv, None, None
 
 
