@@ -24,9 +24,19 @@
    which only the general kernels take where the others run on the tensor
    cores.  fp32: forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal
    inputs.  bf16: within one bf16 spacing of each output's largest value.
-   The backward runs twice and must give the same bits.  The fused MLP at
-   [13261, 256] -> 1024 -> 256, at the training batch's [53044, 256] and at
-   [1000, 128] -> 192 -> 128 within 2e-5.  The attention kernels are timed
+   The backward runs twice and must give the same bits.  The fused MLP, with
+   fp32 and with bf16 tensors, at [13261, 256] -> 1024 -> 256, at the training
+   batch's [53044, 256] and at [1000, 128] -> 192 -> 128, each with row-major
+   [in, out] weights and with ``.t()`` views of row-major [out, in] weights
+   (``nn.Linear``'s layout), which must give the same bits: fp32 within 2e-5;
+   bf16 within two bf16 spacings of the output's largest value, and within
+   one of the same function in fp64 (the plain version rounds h and its sum
+   with b1 to bf16 where the kernel keeps fp32, and is itself 1.3 spacings
+   from the fp64 result).  It is timed at both types and both path shapes
+   beside ``mlp_plain`` (two cuBLAS products and a GELU, which is what the
+   default route runs, so the plain time is the library's here), on a lone
+   launch and over 20 launches; its bound is the tensor cores' (TF32 rate
+   with three ``mma`` a product at fp32, bf16 rate at bf16).  The attention kernels are timed
    at both types at the segment's shape and at the batch's, beside the
    general kernels (the port's first version of them, which must be the
    slower at fp32), the plain versions and
@@ -41,17 +51,21 @@
    The row softmax kernels, forward and backward, against their plain
    versions at the attention logits of one segment ([106088, 149] and
    [106088, 89]), of a training batch of 4 (four times the rows) and at
-   ragged shapes (1003 rows of 1, 9, 33, 149 and 300 columns), fp32 and
-   bf16.  fp32: the forward within 1e-6 absolute, the backward within 1e-6
+   ragged shapes (1003 rows of 1, 9, 33, 149 and 300 columns: a last block
+   that is part full), fp32 and bf16.  fp32: the forward within 1e-6 absolute, the backward within 1e-6
    times the largest cotangent (dl is linear in do).  bf16: within one bf16
    unit in the last place of the plain result; in the backward, where
    ``do - delta`` cancels, plus that fp32 bound.  Timed with the L2 cache flushed
-   before each run, beside ``torch.softmax`` and its autograd backward.
+   before each run, beside ``torch.softmax`` and its autograd backward, and
+   over 20 launches a run for the device's time without the wrapper's host
+   work.
 4. Transcription: a 64 s synthetic piece with the flagship V2
    configuration (``transkun_tpu_torch/pretrained/2.0.conf``) and random weights
    from a seeded ``torch.Generator``.  Checks that the Viterbi kernel ran
    once per segment, that the notes are valid, and that on one segment's
-   real scores the kernel's table equals the plain version's.
+   real scores the kernel's table equals the plain version's.  Then the same
+   piece nine times over (9.6 minutes) with the default ``segment_batch``:
+   its peak device memory must be within 10% of the 64 s piece's.
 5. Training through the entry point ``transkun_tpu_torch.cli.train.main``
    at flagship width and depth, ``--batchSize 4``: a synthetic
    MAESTRO-layout corpus of 40 s pieces (MIDI from the port's
@@ -72,7 +86,9 @@
    the shapes the path gave the kernels must be the ones they were held
    against their plain versions at; notes valid.
    The notes that differ between the two routes (pitch, velocity, times to
-   the millisecond) are counted, not refused.
+   the millisecond) are counted, not refused.  Then the same steps with
+   ``TRANSKUN_TPU_FUSED_ATTN=1`` alone, held to the same bounds, and the two
+   step times printed side by side.
 
 7. The bf16 configuration (``compute_dtype=torch.bfloat16``, the CLIs'
    ``--bf16``) at full width and depth on the default route: the piece,
@@ -85,11 +101,12 @@
    segment's ctx within 5e-2 * max |ctx| of the fp32 route's (bf16 carries
    8 significant bits through six layers).  Notes that differ from the fp32
    route's are counted, not refused.  Then the same configuration with
-   ``TRANSKUN_TPU_FUSED_ATTN=1`` alone: the piece transcribed and two steps
-   of ``cli.train.main --bf16``; the attention launch counts must equal the
-   calls made, q at the wrappers must be bf16 and of the shapes the kernels
-   were held against their plain versions at, ctx and losses within the
-   same bounds of the fp32 route's.
+   ``TRANSKUN_TPU_FUSED_ATTN=1`` alone and with both fused flags: the piece
+   transcribed and two steps of ``cli.train.main --bf16`` each; the attention
+   and MLP launch counts must equal the calls made, q at the attention
+   wrappers and x at the MLP wrapper must be bf16 and of the shapes the
+   kernels were held against their plain versions at, ctx and losses within
+   the same bounds of the fp32 route's.
 8. The softmax study path (``TRANSKUN_TPU_FUSED_SOFTMAX=1``): the
    explicit-softmax attention core, ``q k^T * scale`` by ``torch.matmul``,
    ``ops.softmax.softmax_last``, ``p v``, forward and backward at
@@ -103,14 +120,16 @@ Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, then one JSON
 line with the kernels (launches on the five paths, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
-fp32 operations over 67 TFLOP/s, whichever is larger; under ``bf16`` the
-times with bf16 input, the attention kernels' bound there being 2 bytes a
-value against the operations at 989 TFLOP/s) and, as the last
+fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
+operations of its three TF32 ``mma`` a product over 495 TFLOP/s; under
+``bf16`` the times with bf16 input, the attention and MLP kernels' bound
+there being 2 bytes a value against the operations at 989 TFLOP/s) and, as the last
 line, ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and
 convolutions.  Any failed check raises, so the script exits non-zero without
 that line; it exits 1 at once when no CUDA device is present.
 """
 
+import gc
 import json
 import math
 import os
@@ -126,6 +145,8 @@ import numpy as np
 NEG = -1e30
 SEED = 0
 PIECE_SECONDS = 64.0
+LONG_PIECE_TILES = 9  # the long piece is the 64 s piece this many times over: 9.6 minutes
+PEAK_RTOL = 0.10  # the long piece's peak memory against the short one's
 KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
            "attention_fwd", "attention_bwd", "fused_mlp", "softmax_fwd", "softmax_bwd")
 # the sources to build: softmax_rows.cu holds both softmax kernels
@@ -133,10 +154,11 @@ SOURCES = KERNELS[:6] + ("softmax_rows",)
 TABLE_RTOL = 1e-5  # |kernel - plain| <= TABLE_RTOL * max(1, |plain|)
 FWD_ATOL = 2e-5  # attention forward and MLP: |kernel - plain|, unit-normal inputs
 BWD_ATOL = 1e-4  # attention dq, dk, dv
+MLP_BF16_SPACINGS = 2  # fused MLP at bf16 against mlp_plain, in bf16 spacings of max |out|
 CTX_RTOL = 1e-4  # fused vs default backbone ctx: * max(1, max |ctx|)
 LOSS_RTOL = 1e-5  # fused vs default training loss, step by step
 FUSED_TRAIN_STEPS = 4
-BF16_FUSED_TRAIN_STEPS = 2  # --bf16 with TRANSKUN_TPU_FUSED_ATTN
+BF16_FUSED_TRAIN_STEPS = 2  # --bf16 with TRANSKUN_TPU_FUSED_ATTN, and with both fused flags
 BF16_TRAIN_STEPS = 4
 BF16_LOSS_RTOL = 1e-3  # bf16 vs fp32 training loss, step by step
 BF16_CTX_RTOL = 5e-2  # bf16 vs fp32 backbone ctx: * max |ctx|
@@ -165,6 +187,8 @@ RAGGED_SOFTMAX_SHAPES = tuple((1003, c) for c in (1, 9, 33, 149, 300))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
+DEVICE_LAUNCHES = 20  # launches between two events where the device's time is wanted
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 
 
@@ -175,10 +199,12 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, runs=5, before=None):
+def cuda_ms(fn, runs=5, before=None, launches=1):
     """Median milliseconds of ``fn()`` over ``runs`` timed runs (CUDA
     events), after one warm-up run.  ``before()`` runs ahead of each timed
-    run, outside the events (an L2 flush)."""
+    run, outside the events (an L2 flush).  With ``launches`` above 1 a run
+    is that many calls between the two events and the time is the device's
+    per call, without the wrapper's host work before a lone launch."""
     import torch
 
     fn()
@@ -189,10 +215,11 @@ def cuda_ms(fn, runs=5, before=None):
         if before is not None:
             before()
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return float(np.median(times))
 
 
@@ -364,28 +391,54 @@ def check_attention(attention, q, k, v, do, heads, variant):
     return errs[0], max(errs[1:]), o
 
 
-def mlp_inputs(rng, m, d, hidden, dev):
-    """Unit-normal x; weights [in, out] scaled by 1/sqrt(fan in), small biases."""
+def mlp_inputs(rng, m, d, hidden, dev, dtype):
+    """Unit-normal x; row-major weights [in, out] scaled by 1/sqrt(fan in),
+    small biases; rounded to ``dtype``."""
     import torch
 
     arrays = (rng.normal(size=(m, d)), rng.normal(size=(d, hidden)) / math.sqrt(d),
               rng.normal(size=hidden) * 0.1, rng.normal(size=(hidden, d)) / math.sqrt(hidden),
               rng.normal(size=d) * 0.1)
-    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype) for a in arrays]
+
+
+def as_linear_stores(args):
+    """The same MLP operands with each [in, out] weight as the ``.t()`` view
+    of a row-major [out, in] tensor, which is how ``nn.Linear`` holds it."""
+    x, w1, b1, w2, b2 = args
+    return [x, w1.t().contiguous().t(), b1, w2.t().contiguous().t(), b2]
 
 
 def check_mlp(mlp, args):
-    """The fused MLP kernel against its plain version; returns the largest
-    absolute difference."""
+    """The fused MLP kernel against its plain version, with row-major
+    weights and with ``nn.Linear``'s layout, which must give the same bits;
+    returns the largest absolute difference from the plain version.  fp32:
+    FWD_ATOL.  bf16: MLP_BF16_SPACINGS bf16 spacings of the output's largest
+    value, and one spacing from the same function in fp64: the kernel adds b1
+    in fp32 and rounds g once, the plain version rounds h, and its sum with
+    b1, to bf16 before the GELU and so lies more than a spacing from the fp64
+    result itself (1.3 at the flagship shape)."""
     import torch
 
+    x, w1, b1, w2, b2 = args
     got = mlp.mlp_fwd_cuda(*args)
+    views = mlp.mlp_fwd_cuda(*as_linear_stores(args))
     want = mlp.mlp_plain(*args)
+    exact = (torch.nn.functional.gelu(x.double() @ w1.double() + b1.double())
+             @ w2.double() + b2.double())
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not bool(torch.isfinite(got).all()) or err > FWD_ATOL:
-        raise AssertionError(f"fused_mlp != plain at x {tuple(args[0].shape)}, "
-                             f"w1 {tuple(args[1].shape)}: max |diff| {err}")
+    where = f"x {tuple(x.shape)}, w1 {tuple(w1.shape)}, {x.dtype}"
+    if not torch.equal(got, views):
+        raise AssertionError(f"fused_mlp: the two weight layouts give different bits at {where}")
+    err = float((got.float() - want.float()).abs().max())
+    err_exact = float((got.double() - exact).abs().max())
+    spacing = bf16_spacing_at_max(want)
+    allowed, allowed_exact = (FWD_ATOL, FWD_ATOL) if got.dtype == torch.float32 else (
+        MLP_BF16_SPACINGS * spacing, spacing)
+    if got.dtype != x.dtype or not bool(torch.isfinite(got).all()) or not err <= allowed \
+            or not err_exact <= allowed_exact:
+        raise AssertionError(f"fused_mlp != plain at {where}: max |diff| {err}, allowed {allowed}; "
+                             f"from the fp64 result {err_exact}, allowed {allowed_exact}")
     return err
 
 
@@ -727,23 +780,54 @@ def main() -> int:
           f"{bf16['attention_bwd']['max_abs_err']:.3g}; the backward's two runs equal bit for bit")
     del q, k, v, do, o
 
-    # fused MLP: the segment's and the training batch's shapes and a ragged
-    # one (last row tile part full); the kernels line carries the segment's
-    err["fused_mlp"] = check_mlp(mlp, mlp_inputs(rng, 1000, 128, 192, dev))
-    for shape in (TRAIN_MLP_SHAPE, MLP_SHAPE):  # the last one's times stay
-        args = mlp_inputs(rng, *shape, MLP_HIDDEN, dev)
-        err["fused_mlp"] = max(err["fused_mlp"], check_mlp(mlp, args))
-        ms["fused_mlp"] = cuda_ms(lambda: mlp.mlp_fwd_cuda(*args))
-        plain_ms["fused_mlp"] = cuda_ms(lambda: mlp.mlp_plain(*args))
-        m_rows, d = shape
-        bounds["fused_mlp"] = bound(4 * (2 * m_rows * d + 2 * d * MLP_HIDDEN + MLP_HIDDEN + d),
-                                    4 * m_rows * d * MLP_HIDDEN)
-        print(f"fused_mlp {list(shape)} -> {MLP_HIDDEN} -> {d} ({card}): kernel "
-              f"{ms['fused_mlp']:.3f} ms, plain {plain_ms['fused_mlp']:.3f} ms, "
-              f"bound {bounds['fused_mlp'][0]:.4f} ms")
-    print(f"fused_mlp within {FWD_ATOL} of plain at {list(MLP_SHAPE)}, {list(TRAIN_MLP_SHAPE)} "
-          f"and [1000,128] -> 192: max |diff| {err['fused_mlp']:.3g}")
-    del args
+    # fused MLP, fp32 and bf16: the segment's and the training batch's shapes
+    # and a ragged one (D = 128, last row tile part full), each with row-major
+    # weights and with nn.Linear's layout; timed with the latter, the one the
+    # path hands it.  The kernels line carries the segment's shape.  Bound:
+    # the tensor cores' rate, TF32 at fp32 with the three `mma` a product that
+    # the high/low split takes, bf16 at bf16.  The plain version is two cuBLAS
+    # products and a GELU: what the default route runs in the kernel's place.
+    err["fused_mlp"], bf16["fused_mlp"] = 0.0, {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        for shape, hidden in (((1000, 128), 192), (TRAIN_MLP_SHAPE, MLP_HIDDEN), (MLP_SHAPE, MLP_HIDDEN)):
+            args = mlp_inputs(rng, *shape, hidden, dev, dtype)
+            e = check_mlp(mlp, args)
+            if fp32:
+                err["fused_mlp"] = max(err["fused_mlp"], e)
+            else:
+                bf16["fused_mlp"]["max_abs_err"] = max(bf16["fused_mlp"]["max_abs_err"], e)
+            if shape not in (MLP_SHAPE, TRAIN_MLP_SHAPE):
+                continue
+            views = as_linear_stores(args)
+            k_ms = cuda_ms(lambda: mlp.mlp_fwd_cuda(*views))
+            p_ms = cuda_ms(lambda: mlp.mlp_plain(*views))
+            k_dev = cuda_ms(lambda: mlp.mlp_fwd_cuda(*views), launches=DEVICE_LAUNCHES)
+            p_dev = cuda_ms(lambda: mlp.mlp_plain(*views), launches=DEVICE_LAUNCHES)
+            rowmajor_dev = cuda_ms(lambda: mlp.mlp_fwd_cuda(*args), launches=DEVICE_LAUNCHES)
+            m_rows, d = shape
+            n_bytes = args[0].element_size() * (2 * m_rows * d + 2 * d * hidden + hidden + d)
+            flops = 4 * m_rows * d * hidden  # two products, 2 operations a multiply-add
+            bnd = bound(n_bytes, 3 * flops, TF32_FLOPS) if fp32 else bound(n_bytes, flops, BF16_FLOPS)
+            if bnd[0] > min(k_ms, k_dev):
+                raise AssertionError(f"fused_mlp at {shape} {dtype}: {min(k_ms, k_dev)} ms is under "
+                                     f"its bound of {bnd[0]} ms: a wrong count")
+            blocks, warps = mlp.launch_plan(m_rows, dev)
+            print(f"fused_mlp {list(shape)} -> {hidden} -> {d} {str(dtype)[6:]} ({card}): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]} on the tensor "
+                  f"cores), share {bnd[0] / k_ms:.1%}; device time over {DEVICE_LAUNCHES} launches: "
+                  f"kernel {k_dev:.4f} ms, with row-major weights {rowmajor_dev:.4f} ms, plain "
+                  f"{p_dev:.4f} ms; {blocks} blocks of {warps} warps")
+            if shape == MLP_SHAPE and fp32:
+                ms["fused_mlp"], plain_ms["fused_mlp"], bounds["fused_mlp"] = k_ms, p_ms, bnd
+            elif shape == MLP_SHAPE:
+                bf16["fused_mlp"].update(ms=k_ms, plain_ms=p_ms, bound=bnd)
+    print(f"fused_mlp vs plain at {list(MLP_SHAPE)}, {list(TRAIN_MLP_SHAPE)} and [1000,128] -> 192, "
+          f"row-major weights and nn.Linear's layout (equal bit for bit): fp32 within {FWD_ATOL}, "
+          f"max |diff| {err['fused_mlp']:.3g}; bf16 within {MLP_BF16_SPACINGS} bf16 spacings of the "
+          f"output's largest value (and one of the fp64 result), max |diff| "
+          f"{bf16['fused_mlp']['max_abs_err']:.3g}")
+    del args, views
 
     # row softmax: the segment's and the training batch's logits and ragged
     # shapes, fp32 and bf16; timed at the segment's F-attention logits with
@@ -774,14 +858,28 @@ def main() -> int:
                                     before=flush_buf.zero_),
                             bound(3 * n_bytes, 8 * l.numel())),
         }
+        # the device's time a launch, without the wrapper's host work (about
+        # the size of the kernel here): DEVICE_LAUNCHES launches a run, no flush
+        device = {
+            "softmax_fwd": (cuda_ms(lambda: softmax.softmax_fwd_cuda(l), launches=DEVICE_LAUNCHES),
+                            cuda_ms(lambda: torch.softmax(l, -1), launches=DEVICE_LAUNCHES)),
+            "softmax_bwd": (cuda_ms(lambda: softmax.softmax_bwd_cuda(l, do), launches=DEVICE_LAUNCHES),
+                            cuda_ms(lambda: torch.autograd.grad(p_lib, l_lib, do, retain_graph=True),
+                                    launches=DEVICE_LAUNCHES)),
+        }
         for name, (k_ms, p_ms, lib_ms, bnd) in timed.items():
             if dtype == torch.float32:
                 ms[name], plain_ms[name], library_ms[name], bounds[name] = k_ms, p_ms, lib_ms, bnd
             else:
                 bf16[name].update(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound=bnd)
+            if bnd[0] > k_ms:  # the flushed run: the unflushed ones may find l in the L2 cache
+                raise AssertionError(f"{name} {dtype}: {k_ms} ms is under its bound of {bnd[0]} ms: "
+                                     f"a wrong count")
+            lib = f"torch.softmax{' backward' if name.endswith('bwd') else ''}"
             print(f"{name} {list(SOFTMAX_SHAPES[0])} {str(dtype)[6:]} ({card}): kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, torch.softmax{' backward' if name.endswith('bwd') else ''} "
-                  f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+                  f"plain {p_ms:.4f} ms, {lib} {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+                  f"device time over {DEVICE_LAUNCHES} launches: kernel {device[name][0]:.4f} ms, "
+                  f"{lib} {device[name][1]:.4f} ms")
         del l, do, l_lib, p_lib
     del flush_buf
     print(f"softmax kernels vs plain at {[list(s) for s in SOFTMAX_SHAPES + TRAIN_SOFTMAX_SHAPES]} and "
@@ -811,6 +909,7 @@ def main() -> int:
         the piece, after a warm-up one (cuBLAS handles, allocator pools)."""
         model.transcribe(audio)
         torch.cuda.synchronize()
+        gc.collect()  # a full collection inside a timed run read as 0.2-0.3 s of it
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts()
         t0 = time.perf_counter()
@@ -822,7 +921,7 @@ def main() -> int:
     def key(n):  # times to the millisecond: the refined ends move in their last bits
         return (round(n.start * 1e3), round(n.end * 1e3), n.pitch, n.velocity)
 
-    def check_notes(notes):
+    def check_notes(notes, n_seg):
         if not notes:
             raise AssertionError("no notes decoded")
         validate_notes(notes)
@@ -837,10 +936,34 @@ def main() -> int:
     notes, wall, peak_gb, by_path["transcribe"] = timed_transcription(model)
     if by_path["transcribe"] != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}:
         raise AssertionError(f"transcription launches {by_path['transcribe']} for {n_seg} segments")
-    check_notes(notes)
+    check_notes(notes, n_seg)
     print(f"transcribe {PIECE_SECONDS:.0f} s, {n_seg} segments ({card}): wall {wall:.3f} s, "
           f"RTF {PIECE_SECONDS / wall:.1f}x, peak memory {peak_gb:.2f} GB, "
           f"{len(notes)} notes, launches {by_path['transcribe']}")
+
+    # the same piece several times over, with the default segment_batch: device
+    # memory must not grow with the piece (both pieces are longer than two groups)
+    long_audio = np.tile(audio, (LONG_PIECE_TILES, 1))
+    long_seconds, n_long = LONG_PIECE_TILES * PIECE_SECONDS, n_segments(long_audio.shape[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    long_notes = model.transcribe(long_audio)
+    torch.cuda.synchronize()
+    long_wall, long_peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 1e9
+    if counts() != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_long}:
+        raise AssertionError(f"long transcription launches {counts()} for {n_long} segments")
+    by_path["transcribe"]["viterbi_bwd"] += n_long
+    check_notes(long_notes, n_long)
+    group = transkun_module.DEFAULT_SEGMENT_BATCH
+    print(f"transcribe {long_seconds:.0f} s, {n_long} segments in groups of {group} ({card}): wall "
+          f"{long_wall:.3f} s, RTF {long_seconds / long_wall:.1f}x, peak memory {long_peak_gb:.3f} GB "
+          f"against {peak_gb:.3f} GB for {PIECE_SECONDS:.0f} s ({n_seg} segments), {len(long_notes)} notes")
+    if min(n_seg, n_long) <= 2 * group or abs(long_peak_gb - peak_gb) > PEAK_RTOL * peak_gb:
+        raise AssertionError(f"peak memory {long_peak_gb} GB for {n_long} segments against {peak_gb} GB "
+                             f"for {n_seg}: it grows with the piece (groups of {group})")
+    del long_audio, long_notes
 
     # one segment's real scores: kernel table == plain table
     padded = np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))
@@ -941,7 +1064,7 @@ def main() -> int:
                 raise AssertionError(f"the kernels were held against their plain versions at "
                                      f"{ATTN_SHAPES} and {MLP_SHAPE}; the path gave "
                                      f"{attn_calls.shapes} and {mlp_calls.shapes}")
-            check_notes(fused_notes)
+            check_notes(fused_notes, n_seg)
             with torch.no_grad():
                 ctx_fused = model.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
             ctx_err, ctx_max = float((ctx_fused - ctx).abs().max()), float(ctx.abs().max())
@@ -1004,6 +1127,37 @@ def main() -> int:
         print(f"fused training launches {fused_launches}; attention shapes "
               f"{sorted(attn_calls.shapes)}, MLP shapes {sorted(mlp_calls.shapes)}")
 
+        # the attention flag alone, same steps in the same run: the step that
+        # the both-flags step is read beside
+        os.environ[FUSED_FLAGS[0]] = "1"
+        reset_counts()
+        with CallCounter(attention, "fused_attention") as attn_calls:
+            attn_only = train_cli.main([os.path.join(tmp, "ckpt_attn.pt"), *args, "--statsEvery", "0",
+                                        "--maxEpoch", "1", "--stopAtStep", str(FUSED_TRAIN_STEPS)])
+            torch.cuda.synchronize()
+        del os.environ[FUSED_FLAGS[0]]
+        attn_only_launches = counts()
+        n = attn_only["steps"]
+        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n,
+                "attention_fwd": attn_calls.calls, "attention_bwd": n * n_attn}
+        if attn_only_launches != want or n != FUSED_TRAIN_STEPS \
+                or attn_calls.calls != n * n_attn * recompute or attn_calls.shapes != set(TRAIN_ATTN_SHAPES):
+            raise AssertionError(f"attention-flag training launches {attn_only_launches}, calls made "
+                                 f"{want} ({n} steps), shapes {attn_calls.shapes}")
+        loss_err = max(abs(f - d) / abs(d) for f, d in zip(attn_only["losses"], default_losses))
+        if len(attn_only["losses"]) != n or not loss_err <= LOSS_RTOL:
+            raise AssertionError(f"losses: attention flag {attn_only['losses']}, default "
+                                 f"{default_losses}, largest relative difference {loss_err}")
+        for name in KERNELS:
+            by_path["fused"][name] += attn_only_launches[name]
+        print(f"train step, fp32, --batchSize {TRAIN_BATCH} ({card}), median after the first of "
+              f"{FUSED_TRAIN_STEPS}: both fused flags {float(np.median(fused['step_seconds'][1:])):.4f} s "
+              f"(all: {[round(x, 4) for x in fused['step_seconds']]}), {FUSED_FLAGS[0]} alone "
+              f"{float(np.median(attn_only['step_seconds'][1:])):.4f} s (all: "
+              f"{[round(x, 4) for x in attn_only['step_seconds']]}), default route "
+              f"{float(np.median(step_s)):.4f} s; losses with the attention flag alone against the "
+              f"default route's: largest relative difference {loss_err:.3g}")
+
         # -- path 4: the bf16 configuration, serving then training ------------------
         model_b = TransKun(conf, device=dev, seed=SEED, compute_dtype=torch.bfloat16)
         with torch.no_grad():
@@ -1019,7 +1173,7 @@ def main() -> int:
             if vit_calls.shapes != {(696, 696, 128)} or vit_calls.dtypes != {torch.bfloat16}:
                 raise AssertionError(f"the Viterbi kernel was held against its plain version at "
                                      f"[696,696,128] bf16; the path gave {vit_calls.shapes} {vit_calls.dtypes}")
-            check_notes(bf16_notes)
+            check_notes(bf16_notes, n_seg)
             with torch.no_grad():
                 ctx_b = model_b.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
             ctx_err, ctx_max = float((ctx_b - ctx).abs().max()), float(ctx.abs().max())
@@ -1036,38 +1190,54 @@ def main() -> int:
             print(f"segment 3 ctx {tuple(ctx.shape)}: bf16 vs fp32 max |diff| {ctx_err:.3g} "
                   f"(max |ctx| {ctx_max:.3g}, allowed {BF16_CTX_RTOL} * max |ctx|)")
 
-            # the same with TRANSKUN_TPU_FUSED_ATTN alone: bf16 q, k, v at the kernel
-            os.environ[FUSED_FLAGS[0]] = "1"
-            with CallCounter(attention, "fused_attention") as attn_calls:
-                fa_notes, fa_wall, fa_peak_gb, fa_launches = timed_transcription(model_b)
-                with torch.no_grad():
-                    ctx_fa = model_b.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
-            del os.environ[FUSED_FLAGS[0]]
-            # the warm-up run, the timed run, and one segment more for ctx
-            want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg, "attention_fwd": n_seg * n_attn}
-            if fa_launches != want or attn_calls.calls != (2 * n_seg + 1) * n_attn:
-                raise AssertionError(f"bf16 fused-attention transcription launches {fa_launches}, "
-                                     f"calls made {attn_calls.calls} over two runs of {n_seg} "
-                                     f"segments and one segment, {n_attn} attention blocks")
-            if attn_calls.shapes != set(ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
-                raise AssertionError(f"the attention kernel was held against its plain version at "
-                                     f"{ATTN_SHAPES} bf16; the path gave {attn_calls.shapes} "
-                                     f"{attn_calls.dtypes}")
-            check_notes(fa_notes)
-            ctx_err = float((ctx_fa - ctx).abs().max())
-            if ctx_fa.dtype != torch.float32 or not bool(torch.isfinite(ctx_fa).all()) \
-                    or ctx_err > BF16_CTX_RTOL * ctx_max:
-                raise AssertionError(f"bf16 fused-attention ctx differs from the fp32 route's by "
-                                     f"{ctx_err} (max |ctx| {ctx_max})")
-            for name in KERNELS:
-                by_path["bf16"][name] += fa_launches[name]
-            differing = len({key(n) for n in notes} ^ {key(n) for n in fa_notes})
-            print(f"bf16 + {FUSED_FLAGS[0]} transcribe {PIECE_SECONDS:.0f} s ({card}): wall "
-                  f"{fa_wall:.3f} s (bf16 default route {bf16_wall:.3f} s, fp32 {wall:.3f} s), peak memory "
-                  f"{fa_peak_gb:.2f} GB ({bf16_peak_gb:.2f} GB, {peak_gb:.2f} GB), {len(fa_notes)} notes, "
-                  f"{differing} differ from the fp32 route's; launches {fa_launches}; q at the kernel "
-                  f"{sorted(attn_calls.shapes)} bf16; segment 3 ctx vs fp32 max |diff| {ctx_err:.3g} "
-                  f"(allowed {BF16_CTX_RTOL} * max |ctx| {ctx_max:.3g})")
+            # the same with TRANSKUN_TPU_FUSED_ATTN alone, then with both fused
+            # flags: bf16 q, k, v at the attention kernel, bf16 x at the MLP kernel
+            for flags in (FUSED_FLAGS[:1], FUSED_FLAGS):
+                with_mlp = int(FUSED_FLAGS[1] in flags)
+                label = " + ".join(flags)
+                for flag in flags:
+                    os.environ[flag] = "1"
+                with CallCounter(attention, "fused_attention") as attn_calls, \
+                        CallCounter(mlp, "fused_mlp") as mlp_calls:
+                    fa_notes, fa_wall, fa_peak_gb, fa_launches = timed_transcription(model_b)
+                    with torch.no_grad():
+                        ctx_fa = model_b.module.process_frames_decode(frames, -(-t // 8) * 8, 128)[3]
+                for flag in flags:
+                    del os.environ[flag]
+                # the warm-up run, the timed run, and one segment more for ctx
+                want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg,
+                        "attention_fwd": n_seg * n_attn, "fused_mlp": n_seg * n_ffn * with_mlp}
+                if fa_launches != want or attn_calls.calls != (2 * n_seg + 1) * n_attn \
+                        or mlp_calls.calls != (2 * n_seg + 1) * n_ffn * with_mlp:
+                    raise AssertionError(f"bf16 {label} transcription launches {fa_launches}, calls "
+                                         f"made {attn_calls.calls} and {mlp_calls.calls} over two runs "
+                                         f"of {n_seg} segments and one segment, {n_attn} attention and "
+                                         f"{n_ffn} FFN blocks")
+                if attn_calls.shapes != set(ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
+                    raise AssertionError(f"the attention kernel was held against its plain version at "
+                                         f"{ATTN_SHAPES} bf16; the path gave {attn_calls.shapes} "
+                                         f"{attn_calls.dtypes}")
+                if with_mlp and (mlp_calls.shapes != {MLP_SHAPE} or mlp_calls.dtypes != {torch.bfloat16}):
+                    raise AssertionError(f"the MLP kernel was held against its plain version at "
+                                         f"{MLP_SHAPE} bf16; the path gave {mlp_calls.shapes} "
+                                         f"{mlp_calls.dtypes}")
+                check_notes(fa_notes, n_seg)
+                ctx_err = float((ctx_fa - ctx).abs().max())
+                if ctx_fa.dtype != torch.float32 or not bool(torch.isfinite(ctx_fa).all()) \
+                        or ctx_err > BF16_CTX_RTOL * ctx_max:
+                    raise AssertionError(f"bf16 {label} ctx differs from the fp32 route's by "
+                                         f"{ctx_err} (max |ctx| {ctx_max})")
+                for name in KERNELS:
+                    by_path["bf16"][name] += fa_launches[name]
+                differing = len({key(n) for n in notes} ^ {key(n) for n in fa_notes})
+                print(f"bf16 + {label} transcribe {PIECE_SECONDS:.0f} s ({card}): wall "
+                      f"{fa_wall:.3f} s (bf16 default route {bf16_wall:.3f} s, fp32 {wall:.3f} s), peak "
+                      f"memory {fa_peak_gb:.2f} GB ({bf16_peak_gb:.2f} GB, {peak_gb:.2f} GB), "
+                      f"{len(fa_notes)} notes, {differing} differ from the fp32 route's; launches "
+                      f"{fa_launches}; q at the attention kernel {sorted(attn_calls.shapes)} bf16"
+                      + (f", x at the MLP kernel {sorted(mlp_calls.shapes)} bf16" if with_mlp else "")
+                      + f"; segment 3 ctx vs fp32 max |diff| {ctx_err:.3g} (allowed {BF16_CTX_RTOL} * "
+                      f"max |ctx| {ctx_max:.3g})")
             del model_b, ctx, ctx_b, ctx_fa, frames
 
             reset_counts()
@@ -1105,41 +1275,58 @@ def main() -> int:
               f"route's, step by step: largest relative difference {loss_err:.3g} "
               f"(allowed {BF16_LOSS_RTOL}); launches {bf16_launches}")
 
-        # --bf16 with TRANSKUN_TPU_FUSED_ATTN alone: both attention kernels at bf16
-        os.environ[FUSED_FLAGS[0]] = "1"
-        reset_counts()
-        with CallCounter(attention, "fused_attention") as attn_calls:
-            fa_run = train_cli.main([os.path.join(tmp, "ckpt_bf16_attn.pt"), *args, "--statsEvery", "0",
-                                     "--maxEpoch", "1", "--stopAtStep", str(BF16_FUSED_TRAIN_STEPS),
-                                     "--bf16"])
-            torch.cuda.synchronize()
-        del os.environ[FUSED_FLAGS[0]]
-        fa_launches = counts()
-        n = fa_run["steps"]
-        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n,
-                "attention_fwd": attn_calls.calls, "attention_bwd": n * n_attn}
-        if fa_launches != want or n != BF16_FUSED_TRAIN_STEPS or attn_calls.calls != n * n_attn * recompute:
-            raise AssertionError(f"bf16 fused-attention training launches {fa_launches}, calls made "
-                                 f"{want} ({n} steps, {n_attn} attention blocks, x{recompute} forwards)")
-        if attn_calls.shapes != set(TRAIN_ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
-            raise AssertionError(f"the attention kernels were held against their plain versions at "
-                                 f"{TRAIN_ATTN_SHAPES} bf16; training gave {attn_calls.shapes} "
-                                 f"{attn_calls.dtypes}")
-        fp32_losses = first["losses"][:n]
-        if len(fa_run["losses"]) != n or not np.isfinite(fa_run["losses"]).all():
-            raise AssertionError(f"bf16 fused-attention losses {fa_run['losses']}")
-        loss_err = max(abs(b - d) / abs(d) for b, d in zip(fa_run["losses"], fp32_losses))
-        if loss_err > BF16_LOSS_RTOL:
-            raise AssertionError(f"losses: bf16 fused-attention {fa_run['losses']}, fp32 {fp32_losses}, "
-                                 f"largest relative difference {loss_err}")
-        for name in KERNELS:
-            by_path["bf16"][name] += fa_launches[name]
-        print(f"bf16 + {FUSED_FLAGS[0]} train --batchSize {TRAIN_BATCH} --bf16 ({card}): {n} steps, "
-              f"step seconds {[round(x, 4) for x in fa_run['step_seconds']]} (bf16 default route "
-              f"{float(np.median(bf16_run['step_seconds'][1:])):.4f} s), peak memory "
-              f"{fa_run['step_peak_bytes'] / 1e9:.2f} GB; losses {[round(x, 3) for x in fa_run['losses']]}, "
-              f"against the fp32 route's: largest relative difference {loss_err:.3g} (allowed "
-              f"{BF16_LOSS_RTOL}); launches {fa_launches}; q at the kernels {sorted(attn_calls.shapes)} bf16")
+        # --bf16 with TRANSKUN_TPU_FUSED_ATTN alone, then with both fused flags:
+        # both attention kernels, and the MLP kernel, at bf16
+        for flags in (FUSED_FLAGS[:1], FUSED_FLAGS):
+            with_mlp = int(FUSED_FLAGS[1] in flags)
+            label = " + ".join(flags)
+            for flag in flags:
+                os.environ[flag] = "1"
+            reset_counts()
+            with CallCounter(attention, "fused_attention") as attn_calls, \
+                    CallCounter(mlp, "fused_mlp") as mlp_calls:
+                fa_run = train_cli.main([os.path.join(tmp, f"ckpt_bf16_{len(flags)}.pt"), *args,
+                                         "--statsEvery", "0", "--maxEpoch", "1", "--stopAtStep",
+                                         str(BF16_FUSED_TRAIN_STEPS), "--bf16"])
+                torch.cuda.synchronize()
+            for flag in flags:
+                del os.environ[flag]
+            fa_launches = counts()
+            n = fa_run["steps"]
+            want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n,
+                    "attention_fwd": attn_calls.calls, "attention_bwd": n * n_attn,
+                    "fused_mlp": mlp_calls.calls}
+            if fa_launches != want or n != BF16_FUSED_TRAIN_STEPS \
+                    or attn_calls.calls != n * n_attn * recompute \
+                    or mlp_calls.calls != n * n_ffn * recompute * with_mlp:
+                raise AssertionError(f"bf16 {label} training launches {fa_launches}, calls made {want} "
+                                     f"({n} steps, {n_attn} attention and {n_ffn} FFN blocks, "
+                                     f"x{recompute} forwards)")
+            if attn_calls.shapes != set(TRAIN_ATTN_SHAPES) or attn_calls.dtypes != {torch.bfloat16}:
+                raise AssertionError(f"the attention kernels were held against their plain versions at "
+                                     f"{TRAIN_ATTN_SHAPES} bf16; training gave {attn_calls.shapes} "
+                                     f"{attn_calls.dtypes}")
+            if with_mlp and (mlp_calls.shapes != {TRAIN_MLP_SHAPE} or mlp_calls.dtypes != {torch.bfloat16}):
+                raise AssertionError(f"the MLP kernel was held against its plain version at "
+                                     f"{TRAIN_MLP_SHAPE} bf16; training gave {mlp_calls.shapes} "
+                                     f"{mlp_calls.dtypes}")
+            fp32_losses = first["losses"][:n]
+            if len(fa_run["losses"]) != n or not np.isfinite(fa_run["losses"]).all():
+                raise AssertionError(f"bf16 {label} losses {fa_run['losses']}")
+            loss_err = max(abs(b - d) / abs(d) for b, d in zip(fa_run["losses"], fp32_losses))
+            if loss_err > BF16_LOSS_RTOL:
+                raise AssertionError(f"losses: bf16 {label} {fa_run['losses']}, fp32 {fp32_losses}, "
+                                     f"largest relative difference {loss_err}")
+            for name in KERNELS:
+                by_path["bf16"][name] += fa_launches[name]
+            print(f"bf16 + {label} train --batchSize {TRAIN_BATCH} --bf16 ({card}): {n} steps, "
+                  f"step seconds {[round(x, 4) for x in fa_run['step_seconds']]} (bf16 default route "
+                  f"{float(np.median(bf16_run['step_seconds'][1:])):.4f} s), peak memory "
+                  f"{fa_run['step_peak_bytes'] / 1e9:.2f} GB; losses {[round(x, 3) for x in fa_run['losses']]}, "
+                  f"against the fp32 route's: largest relative difference {loss_err:.3g} (allowed "
+                  f"{BF16_LOSS_RTOL}); launches {fa_launches}; q at the attention kernels "
+                  f"{sorted(attn_calls.shapes)} bf16"
+                  + (f", x at the MLP kernel {sorted(mlp_calls.shapes)} bf16" if with_mlp else ""))
 
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"

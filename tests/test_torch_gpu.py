@@ -292,13 +292,20 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
         attention.attention_bwd_cuda(q, k, v, o, torch.zeros_like(k), 2, 0.5)
 
 
-def _mlp_inputs(rng, m, d, hidden, dev):
+def _mlp_inputs(rng, m, d, hidden, dev, dtype=torch.float32):
     arrays = [
         rng.normal(size=(m, d)), rng.normal(size=(d, hidden)) / np.sqrt(d),
         rng.normal(size=hidden) * 0.1, rng.normal(size=(hidden, d)) / np.sqrt(hidden),
         rng.normal(size=d) * 0.1,
     ]
-    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+    return [torch.from_numpy(a.astype(np.float32)).to(dev).to(dtype) for a in arrays]
+
+
+def _bf16_spacing_at_max(x):
+    """The bf16 spacing at the largest |value| of ``x``."""
+    import math
+
+    return 2.0 ** (math.frexp(float(x.float().abs().max()))[1] - 8)
 
 
 @pytest.mark.gpu
@@ -332,22 +339,80 @@ def test_mlp_kernel_equals_plain(cuda, m, d, hidden):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,hidden", [(13261, 256, 1024), (1000, 128, 192), (1000, 256, 64),
+                                        (113, 128, 1024), (1, 256, 64)])
+def test_mlp_kernel_both_types_and_layouts(cuda, m, d, hidden, dtype):
+    """Row-major [in, out] weights, ``nn.Linear``'s layout and one of each:
+    the same bits.  fp32 within 2e-5 of the plain version.  bf16 within one
+    bf16 spacing of the largest output of the same function in fp64, and
+    within two of the plain version, which rounds h and its sum with b1 to
+    bf16 before the GELU where the kernel keeps fp32 until g."""
+    from transkun_tpu_torch.ops import mlp
+
+    x, w1, b1, w2, b2 = _mlp_inputs(np.random.default_rng(m + d), m, d, hidden, cuda, dtype)
+    w1t, w2t = w1.t().contiguous().t(), w2.t().contiguous().t()
+    before = mlp.launches
+    got = mlp.mlp_fwd_cuda(x, w1, b1, w2, b2)
+    others = [mlp.mlp_fwd_cuda(x, a, b1, b, b2) for a, b in ((w1t, w2t), (w1t, w2), (w1, w2t))]
+    torch.cuda.synchronize()
+    assert mlp.launches == before + 4
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert all(torch.equal(got, o) for o in others)
+    want = mlp.mlp_plain(x, w1, b1, w2, b2)
+    exact = (torch.nn.functional.gelu(x.double() @ w1.double() + b1.double())
+             @ w2.double() + b2.double())
+    err = float((got.float() - want.float()).abs().max())
+    err_exact = float((got.double() - exact).abs().max())
+    if dtype == torch.float32:
+        assert err <= 2e-5 and err_exact <= 2e-5
+    else:
+        spacing = _bf16_spacing_at_max(want)
+        assert err <= 2 * spacing and err_exact <= spacing
+
+
+@pytest.mark.gpu
+def test_mlp_bf16_through_autograd(cuda):
+    """``mlp`` at bf16 over leading dimensions: one launch, a bf16 result,
+    and the gradients of the plain version recomputed at bf16."""
+    from transkun_tpu_torch.ops import mlp
+
+    ops = _mlp_inputs(np.random.default_rng(3), 4 * 37, 128, 256, cuda, torch.bfloat16)
+    got = [a.clone().requires_grad_() for a in ops]
+    want = [a.clone().requires_grad_() for a in ops]
+    before = mlp.launches
+    out = mlp.mlp(got[0].view(4, 37, 128), *got[1:])
+    out.float().sum().backward()
+    mlp.mlp_plain(*want).float().sum().backward()
+    torch.cuda.synchronize()
+    assert mlp.launches == before + 1 and out.shape == (4, 37, 128) and out.dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert g.grad.dtype == torch.bfloat16 and torch.equal(g.grad, w.grad)
+
+
+@pytest.mark.gpu
 def test_mlp_kernel_rejects_what_it_does_not_take(cuda):
     from transkun_tpu_torch.ops import mlp
 
     x, w1, b1, w2, b2 = _mlp_inputs(np.random.default_rng(0), 40, 128, 128, cuda)
     with pytest.raises(TypeError):
-        mlp.mlp_fwd_cuda(x.double(), w1, b1, w2, b2)
-    with pytest.raises(ValueError):  # a transposed view, as nn.Linear.weight.t()
-        mlp.mlp_fwd_cuda(x, w2.t(), b1, w2, b2)
+        mlp.mlp_fwd_cuda(x.double(), w1.double(), b1.double(), w2.double(), b2.double())
+    with pytest.raises(TypeError):  # one type for all: bf16 x against fp32 weights
+        mlp.mlp_fwd_cuda(x.bfloat16(), w1, b1, w2, b2)
+    with pytest.raises(TypeError):  # an fp32 bias among bf16 tensors
+        mlp.mlp_fwd_cuda(x.bfloat16(), w1.bfloat16(), b1, w2.bfloat16(), b2.bfloat16())
+    with pytest.raises(ValueError):  # a transposed view of the wrong shape
+        mlp.mlp_fwd_cuda(x, w2.t()[:, :64], b1, w2, b2)
+    with pytest.raises(ValueError):  # neither row-major nor the transposed view of row-major
+        mlp.mlp_fwd_cuda(x, torch.zeros(128, 256, device=cuda)[:, ::2], b1, w2, b2)
     with pytest.raises(ValueError):  # widths the kernel has no instance for
         mlp.mlp_fwd_cuda(x[:, :96].contiguous(), w1[:96].contiguous(), b1,
                          w2[:, :96].contiguous(), b2[:96].contiguous())
-    with pytest.raises(ValueError):  # hidden not a multiple of the chunk
+    with pytest.raises(ValueError):  # hidden not a multiple of 64
         mlp.mlp_fwd_cuda(x, w1[:, :100].contiguous(), b1[:100].contiguous(),
                          w2[:100].contiguous(), b2)
     with pytest.raises(ValueError):  # misaligned bias
-        mlp.mlp_fwd_cuda(x, w1, torch.zeros(129, device=cuda)[1:], w2, b2)
+        mlp.mlp_fwd_cuda(x, w1, torch.zeros(132, device=cuda)[1:129], w2, b2)
     with pytest.raises(ValueError):  # another device
         mlp.mlp_fwd_cuda(x, w1.cpu(), b1, w2, b2)
     with pytest.raises(ValueError):  # no rows
@@ -360,6 +425,7 @@ SOFTMAX_SHAPES = [  # rows, columns
     (106088, 149),  # flagship F-attention logits, one segment
     (106088, 89),  # flagship T-attention logits
     (1003, 1), (1003, 9), (1003, 33), (1003, 149),  # ragged: last block part full
+    (5, 149), (8, 256),  # fewer rows than a block; the widest row the registers hold
     (1003, 300),  # wider than the registers hold: the re-reading kernel
 ]
 
@@ -378,17 +444,30 @@ def _assert_softmax_close(got, want, atol, extra=0.0):
         assert bool((diff <= ulp + extra).all()), float((diff - ulp).max())
 
 
+def _past_boundary(x, offset):
+    """The same values in a tensor whose first value lies ``offset`` values
+    past a 16-byte boundary (torch allocations start on one)."""
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    view = buf[offset : offset + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == (offset * x.element_size()) % 16 and view.is_contiguous()
+    return view
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,c", SOFTMAX_SHAPES)
-def test_softmax_kernels_equal_plain(cuda, r, c, dtype):
+def test_softmax_kernels_equal_plain(cuda, r, c, dtype, offset):
     """Forward within 1e-6 of the plain version, backward within 1e-6 times
     the largest cotangent (dl is linear in do; the sums run in another
     order).  The backward's ``do - delta`` cancels, so at bf16 it gets that
-    fp32 bound besides the one bf16 unit."""
+    fp32 bound besides the one bf16 unit.  With the tensors on a 16-byte
+    boundary and 1 and 4 values past one, and (1003 rows) a last block that
+    is part full."""
     gen = torch.Generator(device=cuda).manual_seed(r + c)
-    l = (torch.randn(r, c, generator=gen, device=cuda) * 3).to(dtype)
-    do = torch.randn(r, c, generator=gen, device=cuda).to(dtype)
+    l = _past_boundary((torch.randn(r, c, generator=gen, device=cuda) * 3).to(dtype), offset)
+    do = _past_boundary(torch.randn(r, c, generator=gen, device=cuda).to(dtype), offset)
     f0, b0 = softmax.fwd_launches, softmax.bwd_launches
     p = softmax.softmax_fwd_cuda(l)
     dl = softmax.softmax_bwd_cuda(l, do)

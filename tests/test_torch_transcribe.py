@@ -145,6 +145,102 @@ def test_transcribe_matches_jax(monkeypatch):
     assert margin > 10 * diff, (margin, diff)
 
 
+def _note_key(n):
+    return (n.start, n.end, n.pitch, n.velocity, n.hasOnset, n.hasOffset)
+
+
+@pytest.fixture(scope="module")
+def grouped():
+    """A piece of 9 segments at narrow width, the port's model with a
+    confident scorer, and its notes one segment a group."""
+    model = TransKun(ModelConfig.from_dict(TINY), seed=5)
+    with torch.no_grad():
+        m = model.module.scorer.map[0]
+        e = m.weight.shape[0] // 2
+        m.weight *= 10.0
+        m.bias[0] += 6.0
+        m.bias[e] -= 6.0
+        m.bias[-1] = -8.0
+    audio = _piece(dur=7.0, seed=11)
+    return model, audio, model.transcribe(audio, segment_batch=1)
+
+
+@pytest.mark.parametrize("segment_batch", [2, 3, None, 100])
+def test_segment_batch_changes_no_note(grouped, segment_batch):
+    """Grouping is bookkeeping: the same notes, bit for bit and in the same
+    order, for every group size, the default and one group for the piece."""
+    model, audio, want = grouped
+    assert len(want) > 30
+    got = model.transcribe(audio, segment_batch=segment_batch)
+    assert [_note_key(n) for n in got] == [_note_key(n) for n in want]
+
+
+@pytest.mark.parametrize("segment_batch", [1, 2, None])
+def test_at_most_two_groups_of_ctx_alive(grouped, monkeypatch, segment_batch):
+    """Whenever a group's device work is enqueued or its attributes are read,
+    no ctx but its own and one neighbour's exists: memory does not grow with
+    the piece."""
+    import gc
+    import weakref
+
+    model, audio, _ = grouped
+    made, alive_seen, sizes = [], [], []
+    group_tables, assemble = model._group_tables, model._attr_and_assemble
+
+    def alive():
+        gc.collect()
+        return sum(r() is not None for r in made)
+
+    def counted_tables(audio, starts, *args):
+        out = group_tables(audio, starts, *args)
+        made.append(weakref.ref(out[3]))
+        sizes.append(len(starts))
+        assert tuple(out[3].shape[:2]) == (len(starts), 90)
+        alive_seen.append(alive())
+        return out
+
+    def counted_assemble(ctx, *args, **kwargs):
+        alive_seen.append(alive())
+        return assemble(ctx, *args, **kwargs)
+
+    monkeypatch.setattr(model, "_group_tables", counted_tables)
+    monkeypatch.setattr(model, "_attr_and_assemble", counted_assemble)
+    model.transcribe(audio, segment_batch=segment_batch)
+    per_group = segment_batch or port_transkun.DEFAULT_SEGMENT_BATCH
+    assert sum(sizes) == 9 and max(sizes) == per_group and len(sizes) == -(-9 // per_group) >= 3
+    assert len(alive_seen) == 2 * len(sizes) and max(alive_seen) == 2
+    assert alive() == 0  # nothing of the piece stays on the device
+
+
+def test_segment_batch_matches_jax():
+    """Grouped transcription against the JAX package's own ``segment_batch``
+    on a piece of 9 segments: the same notes for every group size."""
+    conf_j = JaxModelConfig.from_dict(TINY)
+    jax_model = JaxTransKun(conf_j)
+    params = jax.jit(lambda k: jax_model.init(k, n_frames=126))(jax.random.PRNGKey(2))
+    params = jax.tree_util.tree_map(lambda a: np.array(a), params)
+    m = params["params"]["scorer"]["map"]  # a confident scorer, as above
+    e = m["kernel"].shape[1] // 2
+    m["kernel"] *= 10.0
+    m["bias"][0] += 6.0
+    m["bias"][e] -= 6.0
+    m["bias"][-1] = -8.0
+    audio = _piece(dur=7.0, seed=4)
+    want = jax_model.transcribe(params, audio, segment_batch=2)
+    model = TransKun(ModelConfig.from_dict(TINY))
+    model.load_state_dict(state_dict_from_flax(params))
+    key = lambda n: (n.pitch, n.start)
+    assert len(want) > 100
+    for segment_batch in (1, 2, 3, None):
+        got = model.transcribe(audio, segment_batch=segment_batch)
+        assert len(got) == len(want)
+        for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+            assert (a.pitch, a.velocity, a.hasOnset, a.hasOffset) == (
+                b.pitch, b.velocity, b.hasOnset, b.hasOffset
+            )
+            assert abs(a.start - b.start) < 1e-6 and abs(a.end - b.end) < 1e-6
+
+
 @pytest.mark.parametrize("n", [60, 2000])  # the JAX package's scalar and vector paths
 def test_resolve_overlapping_equals_jax(n):
     """The port's copy of the note tail against ``transkun_tpu.data.note``

@@ -1,6 +1,8 @@
 // Building blocks of the two attention kernels (attention_fwd.cu,
-// attention_bwd.cu): the warp-level tensor-core product, the high/low split
-// that makes it fp32-grade, the tile loader and the launch bookkeeping.
+// attention_bwd.cu) on top of mma_tf32.cuh, which holds the warp-level
+// tensor-core product and the high/low split that makes it fp32-grade (the
+// fused MLP shares them): the fragment loaders over fp32 tiles, the tile
+// loader and the launch bookkeeping.
 //
 // The product is `mma.sync.m16n8k8` on TF32 operands with fp32 accumulators
 // in registers.  A TF32 value keeps 11 significant bits, so one product is
@@ -41,16 +43,7 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
-#include <mutex>
-#include <set>
-#include <utility>
-
-#include "as_float.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -58,53 +51,6 @@ constexpr int kPitchPad = 4;      // floats added to a tile row
 constexpr int kMaxKeyTiles = 20;  // 8-key tiles a thread keeps: Skv <= 160
 constexpr int kGroup = 4;         // tiles whose `mma`s are interleaved; 32 rows
 constexpr int kMaxHeadDim = 64;   // head_dim of the largest mma instance
-constexpr size_t kSmemLimit = 232448;  // bytes a Hopper block may use
-
-template <typename T>
-constexpr bool kExactInTf32 = sizeof(T) == 2;  // bf16: 8 significant bits
-
-__host__ __device__ constexpr int ceil_to(int x, int m) { return (x + m - 1) / m * m; }
-
-// x rounded to TF32's 11 significant bits, ties away from zero, as
-// `cvt.rna.tf32.f32` rounds; that conversion is emulated with a test for
-// infinity and a select (four operations), this is two.  The inputs are
-// finite (an infinite one would give NaN here, as its logits do anyway).
-__device__ __forceinline__ uint32_t tf32_of(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x - hi, the low part of the split.  It goes to the `mma` as it is: the
-// tensor core reads the upper 19 bits of an operand, so the low part is cut
-// to 11 bits, 2^-21 of x, where rounding it would leave 2^-22.
-__device__ __forceinline__ uint32_t low_part(float x, uint32_t hi) {
-  return __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment, split; `lo` is unused (and compiled away) where the values
-// are exact in TF32.
-struct AFrag {
-  uint32_t hi[4], lo[4];
-};
-
-template <bool kExact>
-__device__ __forceinline__ void set_a(AFrag& f, int i, float x) {
-  if (kExact) {
-    f.hi[i] = __float_as_uint(x);
-  } else {
-    f.hi[i] = tf32_of(x);
-    f.lo[i] = low_part(x, f.hi[i]);
-  }
-}
 
 // Rows g and g+8, columns k0+t and k0+t+4 of the 16-row tile at `tile`.
 template <bool kExact>
@@ -116,44 +62,6 @@ __device__ __forceinline__ AFrag a_from_tile(const float* tile, int pitch, int k
   set_a<kExact>(f, 2, tile[g * pitch + k0 + t + 4]);
   set_a<kExact>(f, 3, tile[(g + 8) * pitch + k0 + t + 4]);
   return f;
-}
-
-// An accumulator tile as an A operand whose k-slots t and t+4 are the
-// tile's columns 2t and 2t+1; fp32 by contract, so always split.
-__device__ __forceinline__ AFrag a_from_acc(const float (&c)[4]) {
-  AFrag f;
-  set_a<false>(f, 0, c[0]);
-  set_a<false>(f, 1, c[2]);
-  set_a<false>(f, 2, c[1]);
-  set_a<false>(f, 3, c[3]);
-  return f;
-}
-
-// d[i] += a b_i for G accumulator tiles that share the A operand, with the
-// operands that are not exact in TF32 split and the small terms added
-// first.  The G products are written term by term, so that consecutive
-// `mma`s go to different accumulators and none waits for the one before it
-// (the compiler's own schedule measured the same).
-template <bool kAExact, bool kBExact, int G>
-__device__ __forceinline__ void mma_split(float (*d)[4], const AFrag& a,
-                                          const float (&b0)[G], const float (&b1)[G]) {
-  uint32_t b0h[G], b1h[G];
-#pragma unroll
-  for (int i = 0; i < G; ++i) {
-    b0h[i] = kBExact ? __float_as_uint(b0[i]) : tf32_of(b0[i]);
-    b1h[i] = kBExact ? __float_as_uint(b1[i]) : tf32_of(b1[i]);
-  }
-  if (!kBExact) {
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-      mma_tf32(d[i], a.hi, low_part(b0[i], b0h[i]), low_part(b1[i], b1h[i]));
-  }
-  if (!kAExact) {
-#pragma unroll
-    for (int i = 0; i < G; ++i) mma_tf32(d[i], a.lo, b0h[i], b1h[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < G; ++i) mma_tf32(d[i], a.hi, b0h[i], b1h[i]);
 }
 
 // d[i] += a B_i^T for G consecutive 8-row tiles B_i (the first at `rows`)
@@ -271,21 +179,6 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst, const float (&c)[
 inline int warps_for(int tiles, int max_warps) {
   const int rounds = (tiles + max_warps - 1) / max_warps;
   return (tiles + rounds - 1) / rounds;
-}
-
-// cudaFuncSetAttribute(MaxDynamicSharedMemorySize) once per kernel and
-// device, to the most a block may use, instead of on every launch.
-template <typename Kernel>
-cudaError_t allow_dynamic_smem(Kernel kernel, int device) {
-  static std::mutex mutex;
-  static std::set<std::pair<const void*, int>> done;
-  const std::pair<const void*, int> key(reinterpret_cast<const void*>(kernel), device);
-  std::lock_guard<std::mutex> lock(mutex);
-  if (done.count(key)) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
-  if (err == cudaSuccess) done.insert(key);
-  return err;
 }
 
 }  // namespace

@@ -1,193 +1,483 @@
 // Fused MLP forward on Hopper (sm_90a): out = gelu(x w1 + b1) w2 + b2 with
-// the exact-erf GELU, the hidden activation never leaving the chip.
+// the exact-erf GELU, the hidden activation never leaving the registers.
 //
 // Replaces the TPU kernel _mlp_kernel in transkun_tpu/ops/mlp_pallas.py
 // (called through _mlp_fwd_call / fused_mlp).  x [M, D], w1 [D, hidden],
-// b1 [hidden], w2 [hidden, D], b2 [D], all fp32 and row-major.  Both products
-// are computed here, in fp32 FMAs on the CUDA cores (TF32 would not keep the
-// 1e-5 agreement the tests ask of fp32).  GELU uses erff: the TPU kernel's
-// rational erf approximation exists only because its compiler has no erf.
+// b1 [hidden], w2 [hidden, D], b2 [D], all float or all bfloat16.
+// h = x w1 with an fp32 sum, + b1 in fp32, GELU in fp32 with erff (the TPU
+// kernel's rational erf exists only because its compiler has no erf), g
+// rounded to the input type, o = g w2 with an fp32 sum, + b2, rounded once
+// to the input type.  At fp32 the roundings are no-ops.
 //
-// What bounds it: operations.  At the flagship shape (M = 13261, D = 256,
-// hidden = 1024) it does 13.9 GFLOP on 29 MB of inputs and outputs; the
-// [M, 1024] hidden activation (54 MB written and read back by the unfused
-// route) stays in shared memory.
+// The weights come in either of two layouts, told apart by the caller from
+// their strides: [in, out] row-major (the contract of the public signature),
+// or the `.t()` view of a row-major [out, in] tensor, which is how
+// nn.Linear stores them: the element (k, n) then lies at n * in + k, "k
+// contiguous", the layout the `mma` B operand wants.  Shared memory always
+// holds the k-contiguous form, so both layouts run the same arithmetic in
+// the same order and give the same bits.
 //
-// Design: the weights (1 MB each) do not fit in a block's shared memory as
-// they fit in VMEM, so a block owns a tile of 64 rows of x, held in shared
-// memory for the whole kernel, and walks the hidden units in chunks of 64.
-// For a chunk it loads w1[:, chunk] and w2[chunk, :] (through L2, which
-// holds both matrices), forms the [64, 64] hidden tile with a 4x4 register
-// tile per thread, adds b1, applies GELU, parks the tile in shared memory,
-// and adds its product with w2[chunk, :] into the [64, D] output
-// accumulators, an 8 x (D/32) register tile per thread that lives across all
-// chunks.  Shared-memory reads are float4; rows of x and of the hidden tile
-// carry 4 floats of padding so that the two rows a warp reads at once fall
-// on different banks.  256 threads, one block per SM (210 KB of shared
-// memory at D = 256).  The last row tile is guarded: rows past M are loaded
-// as zeros and not stored.  Faster later: double-buffered weight chunks
-// (cp.async or TMA) so loads overlap the FMAs, and 3xTF32 or bf16 wgmma once
-// a lower-precision route is ported.
+// What bounds it: operations on the tensor cores.  At the flagship shape
+// (M = 13261, D = 256, hidden = 1024) it does 13.9 GFLOP on 29 MB of inputs
+// and outputs; the [M, 1024] hidden activation (54 MB written and read back
+// by the unfused route) stays on chip.  fp32 takes three TF32 `mma` a
+// product (the high/low split of mma_tf32.cuh), 41.7 GFLOP at the TF32 rate;
+// bf16 one bf16 `mma`.
+//
+// Design:
+//   * A warp owns 16 rows of x and all D output columns: D/8 accumulator
+//     tiles (128 registers a thread at D = 256) live across the whole
+//     kernel.  A block is up to 8 such warps (128 rows) around one copy of
+//     the streamed weights; 255 registers a thread, one block an SM.
+//   * The hidden units are walked in chunks (32 at fp32, 64 at bf16: 128
+//     bytes of a w2 row either way).  For a chunk the warp forms its
+//     [16, chunk] tile of h from its rows of x (shared memory) and the
+//     chunk's rows of w1, adds b1, applies GELU, and uses the accumulator
+//     tiles of g directly as the A operand of the second product with the
+//     chunk's columns of w2: g never touches shared memory.  fp32: the
+//     thread's columns 2t, 2t+1 of a tile are k-slots t, t+4 of an m16n8k8
+//     (mma_tf32.cuh).  bf16: two neighbouring tiles, packed in pairs, are
+//     the four A registers of an m16n8k16 as they stand.
+//   * Weight tiles are double-buffered with cp.async: w1's chunk c in slot
+//     0, w2's chunk c in slot 1; while the first product of chunk c runs,
+//     w2's chunk c lands; while the second runs, w1's chunk c+1 lands.  One
+//     __syncthreads a tile.  The [in, out] layout has no 16-byte runs along
+//     k, so it is loaded and transposed with plain loads and does not
+//     overlap; the production path (models/layers.py) hands nn.Linear's
+//     layout.
+//   * Fragment reads.  fp32: the k-slots of a step of 8 are permuted the
+//     same way for A and B (slot t is word 2t, slot t+4 word 2t+1), so every
+//     fragment is one 8-byte shared-memory load a row; row pitches are 8
+//     mod 32 words, which spreads the 16 lanes of a half-warp over all
+//     banks.  bf16: `ldmatrix` brings the four registers of an A fragment, or
+//     the B fragments of two neighbouring tiles, in one load (a
+//     quarter of the loads that 4-byte reads take: 0.091 against 0.101 ms
+//     at M = 13261 on an H100 SXM at 700 W); pitches are 4 mod 32 words, so
+//     the 8 rows of 16 bytes of a tile fall into different banks.
+//   * Rows are dealt evenly: with T tiles of 16 rows and S SMs, the launch
+//     takes w = ceil(T / (S * waves)) warps a block (waves = ceil(T / 8S))
+//     and ceil(T / w) blocks, so M = 13261 runs as 119 blocks of 7 warps in
+//     one wave and M = 53044 as 474 blocks of 7 warps, instead of 64-row
+//     blocks whose last wave fills half the card.  Rows past M are loaded as
+//     zeros and not stored.
+//   * The tensor core truncates when it adds into its accumulator.  Chained
+//     over the 384 `mma`s of an fp32 output tile that is a bias of 3e-5, so
+//     at fp32 a chain is at most 24 (first product) or 12 (second) long and
+//     the partial sums are added with ordinary fp32 adds (6e-6 then, the
+//     plain version's own distance from an fp64 reference).  At bf16 the
+//     output's rounding is 2^-9 and the chains stay whole.
+// No --use_fast_math: erff and the divisions are the accurate ones.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kRows = 64;     // rows of x per block
-constexpr int kChunk = 64;    // hidden units per step
-constexpr int kThreads = 256;
-constexpr int kPad = 4;       // floats of padding per shared-memory row
+constexpr int kMaxWarps = 8;   // 16-row tiles a block holds
+constexpr int kWarpRows = 16;
+constexpr int kGroup = 4;      // fp32: accumulator tiles whose `mma`s interleave
 
-template <int NV>  // D = 128 * NV
-constexpr size_t smem_bytes() {
-  constexpr int D = 128 * NV;
-  return ((size_t)kRows * (D + kPad) + (size_t)2 * D * kChunk +
-          (size_t)kRows * (kChunk + kPad)) * sizeof(float);
-}
+// Geometry by element type, in 32-bit words of shared memory.
+template <typename T>
+struct Geometry;
+template <>
+struct Geometry<float> {
+  static constexpr int kChunk = 32;  // hidden units a step
+  static constexpr int kPad = 8;     // words added to a tile row: pitch 8 mod 32
+};
+template <>
+struct Geometry<__nv_bfloat16> {
+  static constexpr int kChunk = 64;
+  static constexpr int kPad = 4;     // pitch 4 mod 32
+};
+
+template <typename T, int D>
+struct Layout {
+  static constexpr int kPerWord = 4 / sizeof(T);
+  static constexpr int kChunk = Geometry<T>::kChunk;
+  static constexpr int kDWords = D / kPerWord;            // words of a row of x or w1
+  static constexpr int kChunkWords = kChunk / kPerWord;   // 32: words of a w2 tile row
+  static constexpr int kPitchX = kDWords + Geometry<T>::kPad;       // x and w1 tiles
+  static constexpr int kPitch2 = kChunkWords + Geometry<T>::kPad;   // w2 tile
+  static constexpr int kXWords = kMaxWarps * kWarpRows * kPitchX;
+  static constexpr int kW1Words = kChunk * kPitchX;   // slot 0: [chunk][D]
+  static constexpr int kW2Words = D * kPitch2;        // slot 1: [D][chunk]
+  static constexpr size_t kSmemBytes = (size_t)(kXWords + kW1Words + kW2Words) * 4;
+  static constexpr int kSteps1 = kDWords / 8;      // k-steps of the first product
+  static constexpr int kSteps2 = kChunkWords / 8;  // bf16: k-steps of the second, a chunk
+  static constexpr int kTiles1 = kChunk / 8;       // accumulator tiles of h
+  static constexpr int kTiles2 = D / 8;            // accumulator tiles of out
+};
 
 __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752440f));
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ float component(const float4& a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+// 16 bytes from global to shared memory without passing through registers;
+// `bytes` of them are read (0 or 16), the rest is written as zeros.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_address(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kThreads)
-    fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     int m, int hidden) {
-  constexpr int D = 128 * NV;
-  constexpr int LDX = D + kPad;
-  constexpr int LDG = kChunk + kPad;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                 // [kRows][LDX]
-  float* w1s = xs + kRows * LDX;    // [D][kChunk]
-  float* w2s = w1s + D * kChunk;    // [kChunk][D]
-  float* gs = w2s + kChunk * D;     // [kRows][LDG]
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
+// Four 8 x 8 tiles of 16-bit values from shared memory: lane 8i + r gives the
+// address of row r (16 bytes) of tile i, and gets of every tile the values
+// 2t, 2t+1 of row g: a tile whose rows run along k is an `mma` fragment
+// register as it comes.
+__device__ __forceinline__ void load_tiles(uint32_t (&r)[4], const uint32_t* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_address(row)));
+}
 
-  for (int idx = tid; idx < kRows * (D / 4); idx += kThreads) {
-    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < m) val = ld4(x + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(xs + r * LDX + c) = val;
+// two floats rounded to bf16 (nearest even), the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The block's rows of x into the x tile, zeros past row m.
+template <typename T, int D>
+__device__ __forceinline__ void load_x(uint32_t* xs, const T* __restrict__ x, int row0,
+                                       int rows, int m) {
+  using L = Layout<T, D>;
+  constexpr int kPieces = L::kDWords / 4;  // 16-byte pieces of a row
+  for (int idx = threadIdx.x; idx < rows * kPieces; idx += blockDim.x) {
+    const int r = idx / kPieces, p = idx - r * kPieces;
+    const bool real = row0 + r < m;
+    const T* src = x + (size_t)(real ? row0 + r : 0) * D + p * (16 / sizeof(T));
+    copy16_async(xs + r * L::kPitchX + p * 4, src, real ? 16 : 0);
   }
+}
 
-  // product 1: thread (ty1, tx1) owns hidden-tile rows ty1*4.., columns tx1*4..
-  const int ty1 = tid / 16, tx1 = tid % 16;
-  // product 2: thread (ty2, tx2) owns output rows ty2*8.., columns
-  // v*128 + tx2*4.. for v < NV
-  const int ty2 = tid / 32, tx2 = tid % 32;
-
-  float acc[8][4 * NV];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NV; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < hidden; c0 += kChunk) {
-    __syncthreads();  // the previous chunk's readers of w1s, w2s and gs are done
-    for (int idx = tid; idx < D * (kChunk / 4); idx += kThreads) {
-      const int k = idx / (kChunk / 4), c = (idx % (kChunk / 4)) * 4;
-      *reinterpret_cast<float4*>(w1s + k * kChunk + c) =
-          ld4(w1 + (size_t)k * hidden + c0 + c);
+// Hidden units c0 .. c0+chunk-1 of w1 into slot 0 as [unit][k].
+template <typename T, int D>
+__device__ __forceinline__ void load_w1(uint32_t* slot, const T* __restrict__ w1, int c0,
+                                        int hidden, bool k_contiguous) {
+  using L = Layout<T, D>;
+  if (k_contiguous) {  // unit n is the row w1 + n * D
+    constexpr int kPieces = L::kDWords / 4;
+    for (int idx = threadIdx.x; idx < L::kChunk * kPieces; idx += blockDim.x) {
+      const int n = idx / kPieces, p = idx - n * kPieces;
+      copy16_async(slot + n * L::kPitchX + p * 4,
+                   w1 + (size_t)(c0 + n) * D + p * (16 / sizeof(T)), 16);
     }
-    for (int idx = tid; idx < kChunk * D / 4; idx += kThreads)
-      reinterpret_cast<float4*>(w2s)[idx] =
-          reinterpret_cast<const float4*>(w2 + (size_t)c0 * D)[idx];
-    __syncthreads();
+  } else {  // [D][hidden]: neighbouring lanes on neighbouring units
+    T* tile = reinterpret_cast<T*>(slot);
+    for (int idx = threadIdx.x; idx < D * L::kChunk; idx += blockDim.x) {
+      const int k = idx / L::kChunk, n = idx - k * L::kChunk;
+      tile[n * (L::kPitchX * L::kPerWord) + k] = w1[(size_t)k * hidden + c0 + n];
+    }
+  }
+}
 
-    float h[4][4];
+// Hidden units c0 .. c0+chunk-1 of w2 into slot 1 as [output column][unit].
+template <typename T, int D>
+__device__ __forceinline__ void load_w2(uint32_t* slot, const T* __restrict__ w2, int c0,
+                                        int hidden, bool k_contiguous) {
+  using L = Layout<T, D>;
+  if (k_contiguous) {  // output column n is the row w2 + n * hidden
+    constexpr int kPieces = L::kChunkWords / 4;
+    for (int idx = threadIdx.x; idx < D * kPieces; idx += blockDim.x) {
+      const int n = idx / kPieces, p = idx - n * kPieces;
+      copy16_async(slot + n * L::kPitch2 + p * 4,
+                   w2 + (size_t)n * hidden + c0 + p * (16 / sizeof(T)), 16);
+    }
+  } else {  // [hidden][D]
+    T* tile = reinterpret_cast<T*>(slot);
+    for (int idx = threadIdx.x; idx < L::kChunk * D; idx += blockDim.x) {
+      const int k = idx / D, n = idx - k * D;
+      tile[n * (L::kPitch2 * L::kPerWord) + k] = w2[(size_t)(c0 + k) * D + n];
+    }
+  }
+}
+
+// d[i] += t[i] for G accumulator tiles, in fp32 with round to nearest.
+template <int G>
+__device__ __forceinline__ void add_tiles(float (*d)[4], const float (&t)[G][4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < G; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
-    for (int k = 0; k < D; k += 4) {
-      float4 xa[4];
+    for (int c = 0; c < 4; ++c) d[i][c] += t[i][c];
+}
+
+// h += x_rows w1_chunk for the warp's 16 rows (`xr`: row 0 of them).  The
+// tensor core adds into its accumulator with truncation, a bias that grows
+// with the number of `mma`s chained on one accumulator (3e-5 over this
+// kernel's 384 at hidden = 1024): at fp32 at most kFlush k-steps are chained
+// and the partial sums are added here, rounded to nearest.
+constexpr int kFlush = 8;
+
+template <int D>
+__device__ __forceinline__ void first_product(float (*h)[4], const uint32_t* xr,
+                                              const uint32_t* w1s, int g, int t, float) {
+  using L = Layout<float, D>;
+  static_assert(L::kTiles1 == kGroup, "one group of accumulator tiles a chunk");
+  static_assert(L::kSteps1 % kFlush == 0, "whole runs of k-steps");
+  for (int k0 = 0; k0 < L::kSteps1; k0 += kFlush) {
+    float part[kGroup][4] = {};
+#pragma unroll 4
+    for (int ks = k0; ks < k0 + kFlush; ++ks) {
+      // slot t is word 2t of the step, slot t+4 word 2t+1, for A and B alike
+      const uint2 r0 = *reinterpret_cast<const uint2*>(xr + g * L::kPitchX + ks * 8 + 2 * t);
+      const uint2 r8 =
+          *reinterpret_cast<const uint2*>(xr + (g + 8) * L::kPitchX + ks * 8 + 2 * t);
+      AFrag a;
+      set_a<false>(a, 0, __uint_as_float(r0.x));
+      set_a<false>(a, 1, __uint_as_float(r8.x));
+      set_a<false>(a, 2, __uint_as_float(r0.y));
+      set_a<false>(a, 3, __uint_as_float(r8.y));
+      float b0[kGroup], b1[kGroup];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) xa[i] = ld4(xs + (ty1 * 4 + i) * LDX + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 w = ld4(w1s + (k + kk) * kChunk + tx1 * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = component(xa[i], kk);
-          h[i][0] = fmaf(a, w.x, h[i][0]);
-          h[i][1] = fmaf(a, w.y, h[i][1]);
-          h[i][2] = fmaf(a, w.z, h[i][2]);
-          h[i][3] = fmaf(a, w.w, h[i][3]);
-        }
+      for (int j = 0; j < kGroup; ++j) {
+        const uint2 b = *reinterpret_cast<const uint2*>(w1s + (j * 8 + g) * L::kPitchX +
+                                                        ks * 8 + 2 * t);
+        b0[j] = __uint_as_float(b.x);
+        b1[j] = __uint_as_float(b.y);
       }
+      mma_split<false, false, kGroup>(part, a, b0, b1);
     }
-    const float4 bias1 = ld4(b1 + c0 + tx1 * 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(gs + (ty1 * 4 + i) * LDG + tx1 * 4) =
-          make_float4(gelu_erf(h[i][0] + bias1.x), gelu_erf(h[i][1] + bias1.y),
-                      gelu_erf(h[i][2] + bias1.z), gelu_erf(h[i][3] + bias1.w));
-    __syncthreads();
-
-    for (int k = 0; k < kChunk; k += 4) {
-      float4 ga[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ga[i] = ld4(gs + (ty2 * 8 + i) * LDG + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          const float4 w = ld4(w2s + (k + kk) * D + v * 128 + tx2 * 4);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float a = component(ga[i], kk);
-            acc[i][v * 4 + 0] = fmaf(a, w.x, acc[i][v * 4 + 0]);
-            acc[i][v * 4 + 1] = fmaf(a, w.y, acc[i][v * 4 + 1]);
-            acc[i][v * 4 + 2] = fmaf(a, w.z, acc[i][v * 4 + 2]);
-            acc[i][v * 4 + 3] = fmaf(a, w.w, acc[i][v * 4 + 3]);
-          }
-        }
-      }
-    }
+    add_tiles<kGroup>(h, part);
   }
+}
 
+template <int D>
+__device__ __forceinline__ void first_product(float (*h)[4], const uint32_t* xr,
+                                              const uint32_t* w1s, int g, int t,
+                                              __nv_bfloat16) {
+  using L = Layout<__nv_bfloat16, D>;
+  // A: tiles (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+  // (rows 8-15, k 8-15) are a0..a3.  B: of two neighbouring unit tiles, (k
+  // 0-7) and (k 8-15) of each are b0, b1.
+  const int lane = g * 4 + t, r = lane & 7, tile = lane >> 3;
+  const uint32_t* a_row = xr + (r + 8 * (tile & 1)) * L::kPitchX + 4 * (tile >> 1);
+  const uint32_t* b_row = w1s + (r + 8 * (tile >> 1)) * L::kPitchX + 4 * (tile & 1);
+#pragma unroll 4
+  for (int ks = 0; ks < L::kSteps1; ++ks) {
+    uint32_t a[4];
+    load_tiles(a, a_row + ks * 8);
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int col = v * 128 + tx2 * 4;
-    const float4 bias2 = ld4(b2 + col);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = row0 + ty2 * 8 + i;
-      if (row < m)
-        *reinterpret_cast<float4*>(out + (size_t)row * D + col) = make_float4(
-            acc[i][v * 4 + 0] + bias2.x, acc[i][v * 4 + 1] + bias2.y,
-            acc[i][v * 4 + 2] + bias2.z, acc[i][v * 4 + 3] + bias2.w);
+    for (int j = 0; j < L::kTiles1; j += 2) {
+      uint32_t b[4];
+      load_tiles(b, b_row + j * 8 * L::kPitchX + ks * 8);
+      mma_bf16(h[j], a, b[0], b[1]);
+      mma_bf16(h[j + 1], a, b[2], b[3]);
     }
   }
 }
 
-template <int NV>
-cudaError_t launch(const float* x, const float* w1, const float* b1,
-                   const float* w2, const float* b2, float* out, int m,
-                   int hidden, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NV>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// h = gelu(h + b1[c0 ..]) in fp32; the thread holds columns 2t, 2t+1 of
+// every tile, in rows g (c0, c1) and g+8 (c2, c3).
+template <typename T, int NT>
+__device__ __forceinline__ void bias_gelu(float (*h)[4], const T* __restrict__ b1, int c0,
+                                          int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float bias0 = as_float(b1[c0 + j * 8 + 2 * t]);
+    const float bias1 = as_float(b1[c0 + j * 8 + 2 * t + 1]);
+    h[j][0] = gelu_erf(h[j][0] + bias0);
+    h[j][1] = gelu_erf(h[j][1] + bias1);
+    h[j][2] = gelu_erf(h[j][2] + bias0);
+    h[j][3] = gelu_erf(h[j][3] + bias1);
+  }
+}
+
+// acc += g w2_chunk, g being the accumulator tiles of the first product.
+// fp32: the chunk's product of a group of output tiles is summed on its own
+// (12 chained `mma`s) and added to acc rounded to nearest; see first_product.
+template <int D>
+__device__ __forceinline__ void second_product(float (*acc)[4], const float (*h)[4],
+                                               const uint32_t* w2s, int g, int t, float) {
+  using L = Layout<float, D>;
+  AFrag a[L::kTiles1];  // hidden units 8j .. 8j+7 of the chunk
+#pragma unroll
+  for (int j = 0; j < L::kTiles1; ++j) a[j] = a_from_acc(h[j]);
+#pragma unroll
+  for (int n0 = 0; n0 < L::kTiles2; n0 += kGroup) {
+    float part[kGroup][4] = {};
+#pragma unroll
+    for (int j = 0; j < L::kTiles1; ++j) {
+      float b0[kGroup], b1[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        const uint2 b = *reinterpret_cast<const uint2*>(
+            w2s + ((n0 + i) * 8 + g) * L::kPitch2 + j * 8 + 2 * t);
+        b0[i] = __uint_as_float(b.x);
+        b1[i] = __uint_as_float(b.y);
+      }
+      mma_split<false, false, kGroup>(part, a[j], b0, b1);
+    }
+    add_tiles<kGroup>(acc + n0, part);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void second_product(float (*acc)[4], const float (*h)[4],
+                                               const uint32_t* w2s, int g, int t,
+                                               __nv_bfloat16) {
+  using L = Layout<__nv_bfloat16, D>;
+#pragma unroll
+  for (int j = 0; j < L::kSteps2; ++j) {  // hidden units 16j .. 16j+15 of the chunk
+    // g rounded to bf16 here; tiles 2j and 2j+1 are k = 2t, 2t+1 and
+    // k = 2t+8, 2t+9 of the step, which is the A layout of m16n8k16
+    const uint32_t a[4] = {pack_bf16(h[2 * j][0], h[2 * j][1]),
+                           pack_bf16(h[2 * j][2], h[2 * j][3]),
+                           pack_bf16(h[2 * j + 1][0], h[2 * j + 1][1]),
+                           pack_bf16(h[2 * j + 1][2], h[2 * j + 1][3])};
+    const int lane = g * 4 + t;
+    const uint32_t* b_row =
+        w2s + ((lane & 7) + 8 * (lane >> 4)) * L::kPitch2 + 4 * ((lane >> 3) & 1) + j * 8;
+#pragma unroll
+    for (int n = 0; n < L::kTiles2; n += 2) {
+      uint32_t b[4];
+      load_tiles(b, b_row + n * 8 * L::kPitch2);
+      mma_bf16(acc[n], a, b[0], b[1]);
+      mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                     const T* __restrict__ b1, const T* __restrict__ w2,
+                     const T* __restrict__ b2, T* __restrict__ out, int m, int hidden,
+                     int w1_k_contiguous, int w2_k_contiguous) {
+  using L = Layout<T, D>;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* xs = smem;                // [warps * 16][kPitchX]
+  uint32_t* w1s = xs + L::kXWords;    // [chunk][kPitchX]
+  uint32_t* w2s = w1s + L::kW1Words;  // [D][kPitch2]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int block_rows = (blockDim.x >> 5) * kWarpRows;
+  const int block_row0 = blockIdx.x * block_rows;
+  const int row0 = block_row0 + warp * kWarpRows;
+  const bool has_rows = row0 < m;  // the same for the whole warp
+  const uint32_t* xr = xs + warp * kWarpRows * L::kPitchX;
+
+  load_x<T, D>(xs, x, block_row0, block_rows, m);
+  load_w1<T, D>(w1s, w1, 0, hidden, w1_k_contiguous);
+  commit_copies();
+
+  float acc[L::kTiles2][4];
+#pragma unroll
+  for (int n = 0; n < L::kTiles2; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int c0 = 0; c0 < hidden; c0 += L::kChunk) {
+    // w1's chunk has landed for everyone, and everyone is done with w2's slot
+    wait_copies();
+    __syncthreads();
+    load_w2<T, D>(w2s, w2, c0, hidden, w2_k_contiguous);
+    commit_copies();
+
+    float h[L::kTiles1][4];
+#pragma unroll
+    for (int j = 0; j < L::kTiles1; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) h[j][c] = 0.f;
+    if (has_rows) {
+      first_product<D>(h, xr, w1s, g, t, T());
+      bias_gelu<T, L::kTiles1>(h, b1, c0, t);
+    }
+
+    // w2's chunk has landed, and everyone is done with w1's slot
+    wait_copies();
+    __syncthreads();
+    if (c0 + L::kChunk < hidden) {
+      load_w1<T, D>(w1s, w1, c0 + L::kChunk, hidden, w1_k_contiguous);
+      commit_copies();
+    }
+    if (has_rows) second_product<D>(acc, h, w2s, g, t, T());
+  }
+
+#pragma unroll
+  for (int n = 0; n < L::kTiles2; ++n) {
+    const int col = n * 8 + 2 * t;
+    const float bias0 = as_float(b2[col]), bias1 = as_float(b2[col + 1]);
+    if (row0 + g < m)
+      store_pair(out + (size_t)(row0 + g) * D + col, acc[n][0] + bias0, acc[n][1] + bias1);
+    if (row0 + g + 8 < m)
+      store_pair(out + (size_t)(row0 + g + 8) * D + col, acc[n][2] + bias0, acc[n][3] + bias1);
+  }
+}
+
+// Warps a block and blocks for m rows on `sms` SMs: as few waves of
+// 8-warp blocks as the rows need, and the rows dealt evenly over them.
+void plan(int m, int sms, int* blocks, int* warps) {
+  const int tiles = (m + kWarpRows - 1) / kWarpRows;
+  const int waves = (tiles + sms * kMaxWarps - 1) / (sms * kMaxWarps);
+  *warps = (tiles + sms * waves - 1) / (sms * waves);
+  *blocks = (tiles + *warps - 1) / *warps;
+}
+
+cudaError_t sm_count(int device, int* sms) {
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+template <typename T, int D>
+cudaError_t launch_d(const void* x, const void* w1, const void* b1, const void* w2,
+                     const void* b2, void* out, int m, int hidden, int w1_k_contiguous,
+                     int w2_k_contiguous, int device, cudaStream_t stream) {
+  auto kernel = fused_mlp_kernel<T, D>;
+  cudaError_t err = allow_dynamic_smem(kernel, device);
   if (err != cudaSuccess) return err;
-  fused_mlp_kernel<NV><<<(m + kRows - 1) / kRows, kThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, out, m, hidden);
+  int sms = 0, blocks = 0, warps = 0;
+  err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  plan(m, sms, &blocks, &warps);
+  kernel<<<blocks, warps * 32, Layout<T, D>::kSmemBytes, stream>>>(
+      (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2, (T*)out, m,
+      hidden, w1_k_contiguous, w2_k_contiguous);
   return cudaGetLastError();
+}
+
+bool takes(int d, int hidden) {
+  return (d == 128 || d == 256) && hidden > 0 && hidden % 64 == 0;
+}
+
+template <typename T>
+int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+           void* out, int m, int d, int hidden, int w1_k_contiguous, int w2_k_contiguous,
+           int device, void* stream) {
+  if (m <= 0 || !takes(d, hidden)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (d == 128)
+    return (int)launch_d<T, 128>(x, w1, b1, w2, b2, out, m, hidden, w1_k_contiguous,
+                                 w2_k_contiguous, device, (cudaStream_t)stream);
+  return (int)launch_d<T, 256>(x, w1, b1, w2, b2, out, m, hidden, w1_k_contiguous,
+                               w2_k_contiguous, device, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -195,33 +485,37 @@ cudaError_t launch(const float* x, const float* w1, const float* b1,
 extern "C" {
 
 // 1 where the kernel takes these widths: D of 128 or 256, hidden a positive
-// multiple of the chunk.
-int fused_mlp_takes(int d, int hidden) {
-  return (d == 128 || d == 256) && hidden > 0 && hidden % kChunk == 0;
+// multiple of 64.
+int fused_mlp_takes(int d, int hidden) { return takes(d, hidden); }
+
+// The launch of m rows on `device`: blocks, and warps (16 rows each) a block.
+int fused_mlp_plan(int m, int device, int* blocks, int* warps) {
+  int sms = 0;
+  const cudaError_t err = sm_count(device, &sms);
+  if (err == cudaSuccess) plan(m, sms, blocks, warps);
+  return (int)err;
 }
 
 const char* fused_mlp_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Launches on `stream`, allocates nothing and does not synchronise.
-// Returns the cudaError_t of the launch (0 on success).
+// Launch on `stream`; allocate nothing, do not synchronise.  Return the
+// cudaError_t of the launch (0 on success).  `w*_k_contiguous`: 1 where the
+// weight is the transposed view of a row-major [out, in] tensor, 0 where it
+// is row-major [in, out].  All tensors float, or all bfloat16.
 int fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-              const void* b2, void* out, int m, int d, int hidden, int device,
-              void* stream) {
-  if (m <= 0 || !fused_mlp_takes(d, hidden)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const float* xf = (const float*)x;
-  const float* w1f = (const float*)w1;
-  const float* b1f = (const float*)b1;
-  const float* w2f = (const float*)w2;
-  const float* b2f = (const float*)b2;
-  if (d == 128)
-    return (int)launch<1>(xf, w1f, b1f, w2f, b2f, (float*)out, m, hidden,
-                          (cudaStream_t)stream);
-  return (int)launch<2>(xf, w1f, b1f, w2f, b2f, (float*)out, m, hidden,
-                        (cudaStream_t)stream);
+              const void* b2, void* out, int m, int d, int hidden, int w1_k_contiguous,
+              int w2_k_contiguous, int device, void* stream) {
+  return launch<float>(x, w1, b1, w2, b2, out, m, d, hidden, w1_k_contiguous,
+                       w2_k_contiguous, device, stream);
+}
+
+int fused_mlp_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                   const void* b2, void* out, int m, int d, int hidden,
+                   int w1_k_contiguous, int w2_k_contiguous, int device, void* stream) {
+  return launch<__nv_bfloat16>(x, w1, b1, w2, b2, out, m, d, hidden, w1_k_contiguous,
+                               w2_k_contiguous, device, stream);
 }
 
 }  // extern "C"

@@ -9,16 +9,33 @@
 //
 // The output has the input's type; max, exp, sum and delta are fp32.
 //
-// What bounds it: bytes.  The forward reads l and writes p once, the
-// backward reads l and do and writes dl once; there are a handful of fp32
-// operations a value.
+// What bounds it: bytes by the count (the forward reads l and writes p once,
+// the backward reads l and do and writes dl once), and at fp32 in fact: the
+// forward runs at 80% of the card's memory rate, where torch.softmax's own
+// kernel runs too.  But the accurate expf and the true division make about
+// 200 machine operations a row of 149 values, some 30 us of an SM's schedulers
+// against 38 us for the fp32 bytes and 19 us for the bf16 ones: at bf16 the
+// operations bind, and at either type whatever adds operations costs
+// time, whatever it does for the memory system (see the design note).
 //
 // Design: a warp per row, 8 rows a block, the row kept in registers
 // (lane j holds columns j, j + 32, ...; 5 values a lane at C = 149), one
 // shuffle reduction for the maximum and one for the sum (a third for delta
 // in the backward), one read and one write of every value.  Loads are
 // scalar, 128 contiguous bytes a warp in fp32: a row of 149 values starts
-// at no 16-byte boundary.  Rows wider than 256 columns do not fit the
+// at no 16-byte boundary.  16-byte accesses were built four ways and
+// measured on an H100 SXM (700 W, [106088, 149] fp32 forward, device time;
+// this kernel 0.047 ms, torch.softmax 0.047 ms): a block's 8 rows staged in
+// shared memory between two __syncthreads (0.068 ms); the 16-byte pieces
+// that cover a row held by the lanes as they come, with the neighbours'
+// values masked (0.074 ms: 8 values a lane where 5 are the row's); 4
+// consecutive rows, a 16-byte-aligned span, staged by one warp in its own
+// shared memory (0.051 ms); the same spans moved by the copy engine
+// (cp.async.bulk with an mbarrier a buffer, two buffers a warp, no load or
+// store operation left: 0.054 ms).  Each moves the same bytes in wider
+// accesses and is slower by about the operations it adds to place the
+// values where the lane that reduces them wants them, so the scalar loads
+// stay.  Rows wider than 256 columns do not fit the
 // registers set aside and are read again (from L1/L2) for each pass.  The
 // TPU version pads R to a multiple of its 2048-row VMEM block and slices
 // the result; here the last block is part full and nothing is padded.
@@ -59,6 +76,15 @@ __device__ __forceinline__ long long warp_row(long long rows) {
   return row < rows ? row : -1;
 }
 
+// Whether column c, the lane's register i of N, lies in the row.  The launch
+// picks N = ceil(cols / 32), so only the last register can lie past the end,
+// and the others cost no comparison (0.030 against 0.033 ms at [106088, 149]
+// bf16 forward on an H100 SXM at 700 W; nothing at fp32).
+template <int N>
+__device__ __forceinline__ bool in_row(int i, int c, int cols) {
+  return i < N - 1 || c < cols;
+}
+
 // N > 0: the row lives in N registers a lane.  N == 0: any width, the row
 // is read once per pass.
 template <typename T, int N>
@@ -78,21 +104,21 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int c = lane + 32 * i;
-      x[i] = c < cols ? as_float(in[c]) : neg_inf;
+      x[i] = in_row<N>(i, c, cols) ? as_float(in[c]) : neg_inf;
       m = fmaxf(m, x[i]);
     }
     m = warp_max(m);
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      x[i] = lane + 32 * i < cols ? expf(x[i] - m) : 0.f;
+      x[i] = in_row<N>(i, lane + 32 * i, cols) ? expf(x[i] - m) : 0.f;
       s += x[i];
     }
     s = warp_sum(s);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int c = lane + 32 * i;
-      if (c < cols) store_float(o + c, x[i] / s);
+      if (in_row<N>(i, c, cols)) store_float(o + c, x[i] / s);
     }
   } else {
     float m = neg_inf;
@@ -125,15 +151,15 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int c = lane + 32 * i;
-      p[i] = c < cols ? as_float(in[c]) : neg_inf;
-      dp[i] = c < cols ? as_float(din[c]) : 0.f;
+      p[i] = in_row<N>(i, c, cols) ? as_float(in[c]) : neg_inf;
+      dp[i] = in_row<N>(i, c, cols) ? as_float(din[c]) : 0.f;
       m = fmaxf(m, p[i]);
     }
     m = warp_max(m);
     float s = 0.f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      p[i] = lane + 32 * i < cols ? expf(p[i] - m) : 0.f;
+      p[i] = in_row<N>(i, lane + 32 * i, cols) ? expf(p[i] - m) : 0.f;
       s += p[i];
     }
     s = warp_sum(s);
@@ -147,7 +173,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       const int c = lane + 32 * i;
-      if (c < cols) store_float(o + c, p[i] * (dp[i] - delta));
+      if (in_row<N>(i, c, cols)) store_float(o + c, p[i] * (dp[i] - delta));
     }
   } else {
     float m = neg_inf;

@@ -206,9 +206,10 @@ class FFNResBlock(nn.Module):
         if mlp_ops.use_fused_mlp() and (not self.training or mid_drop.p == 0.0):
             # the hidden activation stays on chip; the mid-FFN dropout is a
             # no-op under this condition.  nn.Linear stores [out, in], the
-            # fused route takes [in, out]; weights and biases go in cast
-            h = mlp_ops.mlp(xin, lin1.weight.t().to(dt), lin1.bias.to(dt),
-                            lin2.weight.t().to(dt), lin2.bias.to(dt))
+            # fused route takes [in, out]: the transposed views go in as they
+            # lie (no copy at fp32, only the casts at bf16)
+            h = mlp_ops.mlp(xin, lin1.weight.to(dt).t(), lin1.bias.to(dt),
+                            lin2.weight.to(dt).t(), lin2.bias.to(dt))
         else:
             h = dense(lin2, mid_drop(act(dense(lin1, xin, self.dtype))), self.dtype)
         return x + (self.drop(h) * self.scale).to(x.dtype)

@@ -4,12 +4,15 @@ in PyTorch: the training objective and the decode.
 Port of ``transkun_tpu/models/transkun.py``.  Transcription follows the JAX
 package's host-walk decode route (``_transcribe_segment_group`` ->
 ``_process_group`` -> ``_attr_and_assemble`` -> ``_assemble_from_arrays``),
-which gives the same notes as its default route.  Every segment's device
-work is independent of the stitching state, so all of it is enqueued first;
-the pointer walk and the forcedStartPos chain then run on the host over one
-fetch.  Training runs ``log_prob_padded`` on the fused route: the scorer
-writes the padded alpha-layout score tensor once, and ``ops/logz`` takes
-logZ from it with the alpha and beta kernels.
+which gives the same notes as its default route.  A segment's device work
+is independent of the stitching state, so the segments run in groups
+(``segment_batch``): a group's work is enqueued one group ahead of the
+pointer walk and the forcedStartPos chain, which run on the host over one
+fetch a group, and a group's device tensors are dropped once its notes are
+assembled, so device memory does not grow with the piece.  Training runs
+``log_prob_padded`` on the fused route: the scorer writes the padded
+alpha-layout score tensor once, and ``ops/logz`` takes logZ from it with the
+alpha and beta kernels.
 
 Train and eval modes are explicit: each entry point sets the mode it needs
 (``make_train_loss`` train; ``log_prob``, the stats and the decode eval).
@@ -40,6 +43,11 @@ from .layers import (
 )
 
 Config = ModelConfig
+
+# Segments a group of ``TransKun.transcribe`` holds when the caller names no
+# ``segment_batch``: two groups' ctx (2 x 4 x 64 MB at flagship width) are the
+# most that is alive, at any piece length.
+DEFAULT_SEGMENT_BATCH = 4
 
 
 def target_midi_pitches(_conf: ModelConfig = None) -> List[int]:
@@ -613,6 +621,25 @@ class TransKun:
         bpres = self.module.boundary_offset_presence(ctx, t - last_frame_idx)
         return ptr[: t - 1, :n_sym], (diag_raw > 0)[:t, :n_sym], bpres[0], ctx[0]
 
+    def _group_tables(self, audio: torch.Tensor, starts: Sequence[int], segment_size: int,
+                      last_frame_idx: int):
+        """``_segment_tables`` of the segments of ``audio`` [C, nSample] that
+        begin at ``starts``, enqueued one after the other: (ptr [n, t-1, P],
+        diag [n, t, P], bpres [n, P, t, n_edge], ctx [n, P, t, D]) on the
+        device.  Each segment's ctx is written into the group's one buffer
+        as it is made, so a group holds its ctx once."""
+        ptrs, diags, bpress, ctx_group = [], [], [], None
+        for i, s in enumerate(starts):
+            ptr, diag, bpres, ctx = self._segment_tables(
+                audio[:, s : s + segment_size], last_frame_idx)
+            if ctx_group is None:
+                ctx_group = ctx.new_empty((len(starts), *ctx.shape))
+            ctx_group[i] = ctx
+            ptrs.append(ptr)
+            diags.append(diag)
+            bpress.append(bpres)
+        return torch.stack(ptrs), torch.stack(diags), torch.stack(bpress), ctx_group
+
     @torch.no_grad()
     def transcribe(
         self,
@@ -622,16 +649,31 @@ class TransKun:
         discard_second_half: bool = False,
         merge_incomplete_event: bool = True,
         velocity_criterion: str = "hamming",
+        segment_batch: Optional[int] = None,
     ) -> List[Note]:
         """Full-piece transcription with exact cross-segment stitching
         (ref ``transcribe``, ``ModelTransformer.py:729-848``).
 
         x: [nSample, nChannel] float waveform at conf.fs (int16 is read as
-        x / 32768)."""
+        x / 32768).
+
+        The segments go through the device in groups of ``segment_batch``
+        (``None``: DEFAULT_SEGMENT_BATCH, whatever the piece's length).  A
+        segment's device work does not depend on the stitching state, so
+        group g+1 is enqueued before group g's tables are fetched and the
+        card works while the host walks.  Group g's pointers are then
+        walked, its attributes read from its ctx and its device tensors
+        dropped: at most two groups' ctx are alive at any time, so device
+        memory does not grow with the piece.  The notes do not depend on
+        ``segment_batch``."""
         self.module.eval()
         if step_in_second is None and segment_size_in_second is None:
             step_in_second = self.segmentHopSizeInSecond
             segment_size_in_second = self.segmentSizeInSecond
+        if segment_batch is None:
+            segment_batch = DEFAULT_SEGMENT_BATCH
+        if segment_batch < 1:
+            raise ValueError(f"segment_batch must be at least 1, got {segment_batch}")
         x = np.asarray(x)
         if x.dtype == np.int16:
             x = x.astype(np.float32) / 32768.0
@@ -648,46 +690,48 @@ class TransKun:
         starts = list(range(0, n_sample, step_size))
         step_frames = int(step_size / self.hopSize)
         n_sym = len(self.targetMIDIPitch)
+        groups = [starts[g0 : g0 + segment_batch] for g0 in range(0, len(starts), segment_batch)]
 
         # the padded waveform goes to the device once; the extra segment of
         # zeros keeps every window in bounds
         audio = torch.from_numpy(np.pad(x, ((0, 0), (pad, pad + segment_size))))
         audio = audio.to(self.device)
 
-        # every segment's device work first: none of it depends on the
-        # stitching state
-        tables = [
-            self._segment_tables(audio[:, s : s + segment_size], last_frame_idx)
-            for s in starts
-        ]
-        ptr_np = torch.stack([tb[0] for tb in tables]).cpu().numpy()
-        diag_np = torch.stack([tb[1] for tb in tables]).cpu().numpy()
-        bpres_np = torch.stack([tb[2] for tb in tables]).cpu().numpy()
-
-        # the sequential stitching chain on the host
-        paths = []
+        seg_notes: List[List[Note]] = []
         cur_start = [start_frame_idx] * n_sym
-        for gi in range(len(starts)):
-            path = semicrf.backtrack_backward(ptr_np[gi], diag_np[gi], cur_start)
-            if onset_bound is not None:
-                path = [[e for e in p if e[0] < onset_bound] for p in path]
-            paths.append(path)
-            # lastP: end of the last decoded interval whose offset is real;
-            # edge-touching intervals consult the presence bits
-            last_p = []
-            for j in range(n_sym):
-                cur_last = 0
-                for b, e in path[j]:
-                    if e < last_frame_idx or bpres_np[gi, j, b, e - last_frame_idx]:
-                        cur_last = e
-                last_p.append(cur_last)
-            cur_start = [max(k - step_frames, 0) for k in last_p]
+        enqueued = self._group_tables(audio, groups[0], segment_size, last_frame_idx)
+        for g, group in enumerate(groups):
+            ptr, diag, bpres, ctx = enqueued
+            # the next group's device work before this group's first fetch
+            enqueued = None
+            if g + 1 < len(groups):
+                enqueued = self._group_tables(audio, groups[g + 1], segment_size, last_frame_idx)
+            ptr_np, diag_np, bpres_np = ptr.cpu().numpy(), diag.cpu().numpy(), bpres.cpu().numpy()
+            del ptr, diag, bpres
 
-        begin_times = np.array([s / self.fs - pad_time_begin for s in starts], np.float64)
-        seg_notes, _ = self._attr_and_assemble(
-            torch.stack([tb[3] for tb in tables]), paths, velocity_criterion,
-            last_frame_idx, begin_times,
-        )
+            # the sequential stitching chain on the host
+            paths = []
+            for gi in range(len(group)):
+                path = semicrf.backtrack_backward(ptr_np[gi], diag_np[gi], cur_start)
+                if onset_bound is not None:
+                    path = [[e for e in p if e[0] < onset_bound] for p in path]
+                paths.append(path)
+                # lastP: end of the last decoded interval whose offset is real;
+                # edge-touching intervals consult the presence bits
+                last_p = []
+                for j in range(n_sym):
+                    cur_last = 0
+                    for b, e in path[j]:
+                        if e < last_frame_idx or bpres_np[gi, j, b, e - last_frame_idx]:
+                            cur_last = e
+                    last_p.append(cur_last)
+                cur_start = [max(k - step_frames, 0) for k in last_p]
+
+            begin_times = np.array([s / self.fs - pad_time_begin for s in group], np.float64)
+            notes, _ = self._attr_and_assemble(
+                ctx, paths, velocity_criterion, last_frame_idx, begin_times)
+            seg_notes.extend(notes)
+            del ctx
         return _merge_segments(seg_notes, merge_incomplete_event)
 
 

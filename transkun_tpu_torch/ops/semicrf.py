@@ -270,6 +270,38 @@ def viterbi_backward_tables(
     return ptr[: t - 1, :n], diag > 0
 
 
+def viterbi_forward_tables(
+    score: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left-to-right Viterbi DP on unpadded ``score [T, T, N]`` (end, begin)
+    and ``noise [T-1, N]``, one position at a time (ref ``viterbi``).
+
+    Returns (ptr [T-1, N] int32, diag_pos [T, N] bool).  ``ptr[i-1]`` is the
+    best move into position ``i``: -1 = skip from i-1, j >= 0 = interval
+    (j, i).  Skip wins ties; among intervals the smallest begin wins.  Plain
+    PyTorch on any device: the JAX package has no kernel for this direction
+    either."""
+    t, _, n = score.shape
+    dev = score.device
+    score = score.float()
+    noise = noise.float()
+    diag = _diag(score)
+    diag_gate = diag * (diag > 0)
+    v = torch.zeros(t, n, dtype=torch.float32, device=dev)
+    v[0] = diag_gate[0]
+    ptr = torch.empty(t - 1, n, dtype=torch.int32, device=dev)
+    begins = torch.arange(t, dtype=torch.int32, device=dev)[:, None]
+    no_begin = torch.tensor(t, dtype=torch.int32, device=dev)
+    for i in range(1, t):
+        cand = v[:i] + score[i, :i]
+        best = cand.max(dim=0).values
+        best_b = torch.where(cand == best, begins[:i], no_begin).min(dim=0).values
+        skip = v[i - 1] + noise[i - 1]
+        ptr[i - 1] = torch.where(skip >= best, -1, best_b)
+        v[i] = torch.maximum(skip, best) + diag_gate[i]
+    return ptr, diag > 0
+
+
 def backtrack_backward(
     ptr: np.ndarray,
     diag_pos: np.ndarray,
@@ -304,6 +336,37 @@ def backtrack_backward(
     return results
 
 
+def backtrack_forward(
+    ptr: np.ndarray,
+    diag_pos: np.ndarray,
+    forced_start: Optional[Sequence[int]] = None,
+) -> List[List[Tuple[int, int]]]:
+    """Host pointer walk for the left-to-right DP (ref ``:157-202``), from
+    ``forced_start[b]`` (default T-1) down to 0; intervals in time order."""
+    tm1, n = ptr.shape
+    t = tm1 + 1
+    if forced_start is None:
+        forced_start = [t - 1] * n
+    results: List[List[Tuple[int, int]]] = []
+    for b in range(n):
+        j = int(forced_start[b])
+        out: List[Tuple[int, int]] = []
+        while j > 0:
+            sel = int(ptr[j - 1, b])
+            if diag_pos[j, b]:
+                out.append((j, j))
+            if sel < 0:
+                j -= 1
+            else:
+                out.append((sel, j))
+                j = sel
+        if diag_pos[0, b]:
+            out.append((0, 0))
+        out.reverse()
+        results.append(out)
+    return results
+
+
 class NeuralSemiCRFInterval:
     """Stateless wrapper bundling a score pair with the CRF operations (ref
     ``NeuralSemiCRFInterval``)."""
@@ -312,7 +375,16 @@ class NeuralSemiCRFInterval:
         self.score = score
         self.noiseScore = noiseScore
 
-    def decode(self, forcedStartPos: Optional[Sequence[int]] = None):
+    def decode(
+        self, forcedStartPos: Optional[Sequence[int]] = None, forward: bool = False
+    ) -> List[List[Tuple[int, int]]]:
+        """The best interval set of every track.  ``forward`` runs the
+        left-to-right DP and walks it from ``forcedStartPos`` (default T-1)
+        down; otherwise the right-to-left DP, walked from ``forcedStartPos``
+        (default 0) up."""
+        if forward:
+            ptr, diag = viterbi_forward_tables(self.score, self.noiseScore)
+            return backtrack_forward(ptr.cpu().numpy(), diag.cpu().numpy(), forcedStartPos)
         ptr, diag = viterbi_backward_tables(self.score, self.noiseScore)
         return backtrack_backward(ptr.cpu().numpy(), diag.cpu().numpy(), forcedStartPos)
 

@@ -85,32 +85,42 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _function(direction: str, dtype: torch.dtype):
+    """The exported C function of ``direction`` ("fwd" or "bwd") for ``dtype``."""
+    return getattr(_library(), f"softmax_rows_{direction}{_SUFFIX_OF[dtype]}")
+
+
 def _launch(direction: str, l: torch.Tensor, *more: torch.Tensor) -> torch.Tensor:
     """Check ``l`` (and ``do``), allocate the output and launch the
-    ``direction`` ("fwd" or "bwd") kernel on the current stream."""
-    if l.dtype not in _SUFFIX_OF:
-        raise TypeError(f"l must be float32 or bfloat16, got {l.dtype}")
-    if l.dim() != 2 or 0 in l.shape:
-        raise ValueError(f"l {tuple(l.shape)} must be [R, C] with R, C >= 1")
-    for name, a in zip(("l", "do"), (l, *more)):
-        if a.device != l.device or a.device.type != "cuda":
-            raise ValueError(f"{name} is on {a.device}, l on {l.device}")
-        if a.dtype != l.dtype or a.shape != l.shape:
-            raise TypeError(
-                f"{name} is {a.dtype} {tuple(a.shape)}, l {l.dtype} {tuple(l.shape)}"
-            )
+    ``direction`` ("fwd" or "bwd") kernel on the current stream.  The kernel
+    takes about as long as this function, so the checks are written for the
+    host's time: one pass, no intermediate lists."""
+    dtype, shape, device = l.dtype, l.shape, l.device
+    if dtype not in _SUFFIX_OF:
+        raise TypeError(f"l must be float32 or bfloat16, got {dtype}")
+    if len(shape) != 2 or shape[0] == 0 or shape[1] == 0:
+        raise ValueError(f"l {tuple(shape)} must be [R, C] with R, C >= 1")
+    if device.type != "cuda":
+        raise ValueError(f"l is on {device}: the kernels take CUDA tensors")
+    if not l.is_contiguous():
+        raise ValueError("l must be contiguous")
+    for a in more:
+        if a.device != device:
+            raise ValueError(f"do is on {a.device}, l on {device}")
+        if a.dtype != dtype or a.shape != shape:
+            raise TypeError(f"do is {a.dtype} {tuple(a.shape)}, l {dtype} {tuple(shape)}")
         if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = _library()
+            raise ValueError("do must be contiguous")
     out = torch.empty_like(l)
-    err = getattr(lib, f"softmax_rows_{direction}{_SUFFIX_OF[l.dtype]}")(
-        *[a.data_ptr() for a in (l, *more, out)], l.shape[0], l.shape[1],
-        l.device.index, torch.cuda.current_stream(l.device).cuda_stream,
+    err = _function(direction, dtype)(
+        l.data_ptr(), *[a.data_ptr() for a in more], out.data_ptr(), shape[0], shape[1],
+        device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"softmax_rows_{direction} launch failed: "
-            f"{lib.softmax_rows_error_string(err).decode()}"
+            f"{_library().softmax_rows_error_string(err).decode()}"
         )
     return out
 
