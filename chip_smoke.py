@@ -6,16 +6,26 @@
 1. Builds the eight CUDA kernels from the seven sources of
    ``transkun_tpu_torch/csrc`` (nvcc, sm_90a), one ``nvcc`` per source, all
    at once.
-2. Holds the Viterbi kernel against its plain PyTorch version at the
-   flagship decode shape [696, 696, 128] and at a ragged shape (t = 123,
-   Tp = 128, two segments' lanes): the pointer tables must be equal.
+2. Holds the Viterbi kernel (kernel 1, a blocked recurrence over a
+   thread-block cluster) against its plain PyTorch version, with fp32 and
+   with bf16 scores, at every shape the paths give it: the decode shape
+   [696, 696, 128], the stats pass's [696, 696, 384] and the ragged
+   [128, 128, 256] (t = 123), on unit-normal and on small-integer
+   (tie-heavy) scores, and at the cluster edges (one lane group; more lane
+   groups than SMs): the pointer tables must be equal bit for bit, and two
+   runs must give the same bits.  Prints each launch plan (CTAs, cluster
+   size, shared memory, registers from ``-Xptxas -v``).
 3. Holds the alpha and beta kernels against their plain versions at the
    flagship training shape [696, 696, 384] (t = 691, 360 real lanes) and
-   at a ragged shape (t = 123, Tp = 128, NBp = 256): |kernel - plain| <=
-   1e-5 * max(1, |plain|), the sums being taken in another order.  Then the
-   logZ gradient through the kernels against autograd of the plain
-   ``log_z_slow`` at a small ragged shape.  Every kernel and plain version
-   is timed with CUDA events (median of several runs).
+   at a ragged shape (t = 123, Tp = 128, NBp = 256), and the beta kernel
+   (kernel 3, the same design as kernel 1) also at the cluster edges and at
+   Tp = 125: |kernel - plain| <= 1e-5 * max(1, |plain|), the sums being
+   taken in another order, two runs the same bits; with fp32 and bf16
+   scores.  Then the logZ gradient through the kernels against autograd of
+   the plain ``log_z_slow`` at a small ragged shape.  Kernels 1-3 are timed
+   with CUDA events (median of several runs): a lone launch, the device's
+   time a launch over 20 launches, the plain version, and the bound (the
+   strict triangle of the score tensor read once).
    The attention forward and backward kernels against their plain versions,
    with fp32 and with bf16 inputs, at the flagship shapes of one segment
    ([89, 149, 256] and [149, 89, 256], 8 heads), of a training batch of 4
@@ -45,9 +55,6 @@
    forward at the segment's shape and the backward at the batch's, the only
    one the paths launch it at.  A kernel time under its bound is a wrong
    count and fails the run.
-   The Viterbi, alpha and beta kernels again with the same scores rounded to
-   bf16, at the same shapes: Viterbi bit for bit, alpha and beta within the
-   same 1e-5 * max(1, |plain|) (the plain versions upcast the same bits).
    The row softmax kernels, forward and backward, against their plain
    versions at the attention logits of one segment ([106088, 149] and
    [106088, 89]), of a training batch of 4 (four times the rows) and at
@@ -223,30 +230,37 @@ def cuda_ms(fn, runs=5, before=None, launches=1):
     return float(np.median(times))
 
 
-def decode_inputs(rng, t, nbp, dev):
-    """Random NEG-padded decode-layout inputs ([begin, end, lane])."""
+def decode_inputs(rng, t, nbp, dev, ties=False):
+    """Random NEG-padded decode-layout inputs ([begin, end, lane]); with
+    ``ties`` small-integer scores and noise, so that equal candidates abound."""
     import torch
 
     tp = -(-t // 8) * 8
     s_t = torch.full((tp, tp, nbp), NEG, device=dev)
-    s_t[:t, :t] = torch.from_numpy(rng.normal(size=(t, t, nbp)).astype(np.float32)).to(dev)
+    scores = rng.integers(-3, 3, size=(t, t, nbp)) if ties else rng.normal(size=(t, t, nbp))
+    s_t[:t, :t] = torch.from_numpy(scores.astype(np.float32)).to(dev)
     noise = torch.zeros(tp, nbp, device=dev)
+    if ties:
+        noise[: t - 1] = torch.from_numpy(rng.integers(-1, 2, size=(t - 1, nbp)).astype(np.float32)).to(dev)
     diag = torch.zeros(tp, nbp, device=dev)
     diag[:t] = torch.diagonal(s_t[:t, :t]).t()
     return s_t, noise, diag * (diag > 0)
 
 
 def check_kernel(viterbi, s_t, noise, diag_gate):
-    """Kernel table vs plain table on the same card inputs; returns the
-    largest absolute difference, which must be 0."""
+    """Kernel table vs plain table on the same card inputs, the kernel run
+    twice for the same bits; returns the largest absolute difference, which
+    must be 0."""
     import torch
 
     got = viterbi.viterbi_backward_tables_cuda(s_t, noise, diag_gate)
+    again = viterbi.viterbi_backward_tables_cuda(s_t, noise, diag_gate)
     want = viterbi.viterbi_backward_tables_plain(s_t, noise, diag_gate)
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
-    if err != 0:
-        raise AssertionError(f"Viterbi kernel != plain at {tuple(s_t.shape)}: max |diff| {err}")
+    if err != 0 or not torch.equal(got, again):
+        raise AssertionError(f"Viterbi kernel != plain at {tuple(s_t.shape)} {s_t.dtype}: max |diff| "
+                             f"{err}, two runs equal {torch.equal(got, again)}")
     return err
 
 
@@ -280,14 +294,16 @@ def check_tables(logz, s, shift, noise, spdiag):
         ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
     ):
         got = kernel(s, rows, spdiag)
+        again = kernel(s, rows, spdiag)
         want = plain(s, rows, spdiag)
         torch.cuda.synchronize()
         diff = (got - want).abs()
         if not bool(torch.isfinite(got).all()) or bool(
             (diff > TABLE_RTOL * torch.clamp(want.abs(), min=1.0)).any()
-        ):
+        ) or not torch.equal(got, again):
             raise AssertionError(
-                f"{name} != plain at {tuple(s.shape)}: max |diff| {float(diff.max())}"
+                f"{name} != plain at {tuple(s.shape)} {s.dtype}: max |diff| {float(diff.max())}, "
+                f"two runs equal {torch.equal(got, again)}"
             )
         err[name] = float(diff.max())
     return err
@@ -323,6 +339,21 @@ def check_logz_grad(logz, semicrf, dev):
     return err
 
 
+def ptxas_registers(log):
+    """Registers a thread of each kernel instance (mangled name) in what
+    ``nvcc -Xptxas -v`` printed."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
 def bound(n_bytes, flops, peak=FP32_FLOPS):
     """The least milliseconds the card could take: every input read and every
     output written once at the memory rate, or the operations at ``peak``
@@ -333,11 +364,13 @@ def bound(n_bytes, flops, peak=FP32_FLOPS):
 
 
 def table_bound(tp, nbp, ops_per_term, score_bytes=4):
-    """Bound of one pass over a [Tp, Tp, NBp] score tensor of ``score_bytes``
-    a value with two fp32 [Tp, NBp] inputs and one 4-byte [Tp, NBp] output;
-    Tp(Tp-1)/2 terms a lane."""
-    n_bytes = score_bytes * tp * tp * nbp + 3 * 4 * tp * nbp
-    return bound(n_bytes, ops_per_term * tp * (tp - 1) // 2 * nbp)
+    """Bound of one table over a [Tp, Tp, NBp] score tensor of ``score_bytes``
+    a value: the strict triangle that the recurrence reads (Tp(Tp-1)/2 terms
+    a lane) read once, two fp32 [Tp, NBp] inputs read and one 4-byte
+    [Tp, NBp] table written once."""
+    terms = tp * (tp - 1) // 2 * nbp
+    n_bytes = score_bytes * terms + 3 * 4 * tp * nbp
+    return bound(n_bytes, ops_per_term * terms)
 
 
 def attention_inputs(rng, b, sq, skv, d, dev, dtype=None):
@@ -607,8 +640,10 @@ def main() -> int:
 
     # -- build, one nvcc per source, all at once -------------------------------
     t0 = time.perf_counter()
+    registers = {}  # kernel instance (mangled name) -> registers a thread
     for name, (_, build_s, log) in _build.build_all(SOURCES).items():
         print(f"build {name}: {build_s:.2f} s")
+        registers.update(ptxas_registers(log))
         if log:
             print(log.strip())
             # what -Xptxas -v says, in one line: a spill is memory traffic the source does not show
@@ -619,19 +654,18 @@ def main() -> int:
     print(f"build wall: {time.perf_counter() - t0:.2f} s")
 
     # -- each kernel against its plain version ---------------------------------
+    # kernels 1 and 3 (the blocked cluster kernels) at every shape the paths
+    # give them, fp32 and bf16 scores: Viterbi [696,696,128] (decode) and
+    # [696,696,384] (stats pass and validation), beta and alpha [696,696,384]
+    # (training), the ragged [128,128,256] (t = 123), tie-heavy scores for
+    # the Viterbi, and the cluster edges: one lane group, and more lane
+    # groups than SMs; every kernel run twice for the same bits
     rng = np.random.default_rng(SEED)
-    err = {}
-    flagship = decode_inputs(rng, 691, 128, dev)  # Tp = 696
-    err["viterbi_bwd"] = max(check_kernel(viterbi, *flagship),
-                             check_kernel(viterbi, *decode_inputs(rng, 123, 256, dev)))
-    ms = {"viterbi_bwd": cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(*flagship))}
-    plain_ms = {"viterbi_bwd": cuda_ms(lambda: viterbi.viterbi_backward_tables_plain(*flagship), runs=3)}
-    print(f"viterbi [696,696,128] ({card}): kernel {ms['viterbi_bwd']:.3f} ms, "
-          f"plain {plain_ms['viterbi_bwd']:.3f} ms, ptr equal at [696,696,128] and [128,128,256]")
-    # an add and a compare a term; 4 operations a logsumexp term (add,
-    # subtract the max, exp, add)
-    bounds = {"viterbi_bwd": table_bound(*flagship[0].shape[1:], 2)}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = {"viterbi_bwd": 0, "semicrf_alpha": 0.0, "semicrf_beta": 0.0}
+    ms, plain_ms, device_ms, bounds = {}, {}, {}, {}
     library_ms = dict.fromkeys(KERNELS)  # no single PyTorch call computes kernels 1-3 or 6
+    bf16 = {}  # per kernel: the times and the bound with bf16 input
 
     def decode_bf16(s_t, noise, _gate):
         """The same inputs with the scores rounded to bf16 and the gate
@@ -640,34 +674,6 @@ def main() -> int:
         diag = torch.diagonal(s_b).t().float().contiguous()
         return s_b, noise, diag * (diag > 0)
 
-    bf16 = {}  # per kernel: the times and the bound with bf16 input
-    flagship_b = decode_bf16(*flagship)
-    check_kernel(viterbi, *flagship_b)
-    check_kernel(viterbi, *decode_bf16(*decode_inputs(rng, 123, 256, dev)))
-    bf16["viterbi_bwd"] = {
-        "max_abs_err": 0,
-        "ms": cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(*flagship_b)),
-        "plain_ms": cuda_ms(lambda: viterbi.viterbi_backward_tables_plain(*flagship_b), runs=3),
-        "bound": table_bound(*flagship[0].shape[1:], 2, score_bytes=2)}
-    print(f"viterbi [696,696,128] bf16 scores ({card}): kernel {bf16['viterbi_bwd']['ms']:.3f} ms, "
-          f"plain {bf16['viterbi_bwd']['plain_ms']:.3f} ms, ptr equal at [696,696,128] and [128,128,256]")
-    del flagship, flagship_b
-
-    s, shift, noise, spdiag = table_inputs(rng, 691, 384, 360, dev)  # the training shape
-    errs = [check_tables(logz, s, shift, noise, spdiag),
-            check_tables(logz, *table_inputs(rng, 123, 256, 200, dev))]
-    for name, kernel, plain, rows in (
-        ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift),
-        ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
-    ):
-        err[name] = max(e[name] for e in errs)
-        ms[name] = cuda_ms(lambda: kernel(s, rows, spdiag))
-        plain_ms[name] = cuda_ms(lambda: plain(s, rows, spdiag), runs=3)
-        bounds[name] = table_bound(*s.shape[1:], 4)
-        print(f"{name} [696,696,384] ({card}): kernel {ms[name]:.3f} ms, plain {plain_ms[name]:.3f} ms")
-    print(f"alpha/beta within {TABLE_RTOL}*max(1,|plain|) of plain at [696,696,384] and "
-          f"[128,128,256]: max |diff| alpha {err['semicrf_alpha']:.3g}, beta {err['semicrf_beta']:.3g}")
-
     def table_bf16(s, shift, noise, _spdiag):
         """The same inputs with the scores rounded to bf16 and spdiag taken
         from the rounded diagonal, as ``logz._fb_padded`` takes it."""
@@ -675,21 +681,118 @@ def main() -> int:
         spdiag = torch.nn.functional.softplus(torch.diagonal(s_b).t().float()).contiguous()
         return s_b, shift, noise, spdiag
 
-    s_b, shift, noise, spdiag_b = table_bf16(s, shift, noise, spdiag)
-    del s, spdiag
-    errs = [check_tables(logz, s_b, shift, noise, spdiag_b),
-            check_tables(logz, *table_bf16(*table_inputs(rng, 123, 256, 200, dev)))]
-    for name, kernel, plain, rows in (
-        ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift),
-        ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
-    ):
-        bf16[name] = {"max_abs_err": max(e[name] for e in errs),
-                      "ms": cuda_ms(lambda: kernel(s_b, rows, spdiag_b)),
-                      "plain_ms": cuda_ms(lambda: plain(s_b, rows, spdiag_b), runs=3),
-                      "bound": table_bound(*s_b.shape[1:], 4, score_bytes=2)}
-        print(f"{name} [696,696,384] bf16 scores ({card}): kernel {bf16[name]['ms']:.3f} ms, "
-              f"plain {bf16[name]['plain_ms']:.3f} ms, max |diff| {bf16[name]['max_abs_err']:.3g}")
-    del s_b, shift, noise, spdiag_b
+    def plan_line(name, plan, s):
+        """The launch plan of a cluster kernel on this card, as it launched."""
+        kind = "f" if s.dtype == torch.float32 else "13__nv_bfloat16"
+        pattern = {"viterbi_bwd": f"viterbi_bwd_kernelI{kind}E",
+                   "semicrf_beta": f"lse_cluster_kernelILb0E{kind}E"}[name]
+        regs = [r for k, r in registers.items() if pattern in k]
+        print(f"launch plan {name} {list(s.shape)} {str(s.dtype)[6:]} ({card}): {plan.groups} lane groups "
+              f"of {plan.lanes} lanes x clusters of {plan.cluster} = {plan.ctas} CTAs of {plan.threads} "
+              f"threads ({n_sm} SMs), {plan.smem} B shared memory, {regs[0] if regs else '?'} registers "
+              f"a thread (ptxas)")
+
+    def lone_device_plain(fn, plain_fn):
+        """(lone launch ms, device ms over DEVICE_LAUNCHES launches, plain ms)."""
+        return (cuda_ms(fn), cuda_ms(fn, launches=DEVICE_LAUNCHES), cuda_ms(plain_fn, runs=3))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag, fp32 = str(dtype)[6:], dtype == torch.float32
+        lanes = viterbi.launch_plan(696, 128, dtype, n_sm).lanes
+        into = err if fp32 else bf16.setdefault("viterbi_bwd", {"max_abs_err": 0})
+        key = "viterbi_bwd" if fp32 else "max_abs_err"
+        cases = [(691, 128, False), (691, 128, True), (691, 384, False), (123, 256, False),
+                 (123, 256, True), (123, lanes, False), (123, lanes, True), (61, 2 * n_sm * lanes, False)]
+        for t, nbp, ties in cases:
+            args = decode_inputs(rng, t, nbp, dev, ties)
+            args = args if fp32 else decode_bf16(*args)
+            into[key] = max(into[key], check_kernel(viterbi, *args))
+            if (t, nbp, ties) in ((691, 128, False), (691, 384, False), (123, lanes, False),
+                                  (61, 2 * n_sm * lanes, False)):
+                plan_line("viterbi_bwd", viterbi.card_plan(args[0]), args[0])
+            if (t, nbp, ties) == (691, 128, False):
+                k_ms, dev_ms, p_ms = lone_device_plain(
+                    lambda: viterbi.viterbi_backward_tables_cuda(*args),
+                    lambda: viterbi.viterbi_backward_tables_plain(*args))
+                bnd = table_bound(696, 128, 2, score_bytes=args[0].element_size())
+                if fp32:
+                    ms["viterbi_bwd"], device_ms["viterbi_bwd"], plain_ms["viterbi_bwd"] = k_ms, dev_ms, p_ms
+                    bounds["viterbi_bwd"] = bnd
+                else:
+                    bf16["viterbi_bwd"].update(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound=bnd)
+                print(f"viterbi [696,696,128] {tag} ({card}): lone launch {k_ms:.4f} ms, device "
+                      f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound "
+                      f"{bnd[0]:.4f} ms ({bnd[1]})")
+            if (t, nbp, ties) == (691, 384, False):
+                k_ms, dev_ms = (cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(*args)),
+                                cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(*args),
+                                        launches=DEVICE_LAUNCHES))
+                print(f"viterbi [696,696,384] {tag} ({card}): lone launch {k_ms:.4f} ms, device "
+                      f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, bound "
+                      f"{table_bound(696, 384, 2, score_bytes=args[0].element_size())[0]:.4f} ms")
+            del args
+        print(f"viterbi {tag}: ptr equal to plain bit for bit, two runs the same bits, at "
+              f"{[[-(-t // 8) * 8, -(-t // 8) * 8, n] + (['ties'] if ties else []) for t, n, ties in cases]}")
+
+        # alpha and beta: the training batch, the ragged shape; beta also at
+        # the cluster edges and at a Tp that is not a multiple of 8
+        table_cases = [(691, 384, 360), (123, 256, 200)]
+        for t, nbp, nb_real in table_cases:
+            args = table_inputs(rng, t, nbp, nb_real, dev)
+            args = args if fp32 else table_bf16(*args)
+            errs = check_tables(logz, *args)
+            for name in ("semicrf_alpha", "semicrf_beta"):
+                if fp32:
+                    err[name] = max(err[name], errs[name])
+                else:
+                    bf16.setdefault(name, {"max_abs_err": 0.0})
+                    bf16[name]["max_abs_err"] = max(bf16[name]["max_abs_err"], errs[name])
+            if (t, nbp) != (691, 384):
+                continue
+            s, shift, noise, spdiag = args
+            plan_line("semicrf_beta", logz.beta_card_plan(s), s)
+            for name, kernel, plain, rows in (
+                ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift),
+                ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
+            ):
+                k_ms, dev_ms, p_ms = lone_device_plain(lambda: kernel(s, rows, spdiag),
+                                                       lambda: plain(s, rows, spdiag))
+                bnd = table_bound(696, 384, 4, score_bytes=s.element_size())
+                if fp32:
+                    ms[name], device_ms[name], plain_ms[name], bounds[name] = k_ms, dev_ms, p_ms, bnd
+                else:
+                    bf16[name].update(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound=bnd)
+                print(f"{name} [696,696,384] {tag} ({card}): lone launch {k_ms:.4f} ms, device "
+                      f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound "
+                      f"{bnd[0]:.4f} ms ({bnd[1]})")
+            del s, shift, noise, spdiag, args
+        lanes = logz.launch_plan(696, 384, dtype, n_sm).lanes
+        for t, nbp in ((123, lanes), (61, 2 * n_sm * lanes), (125, 256)):
+            s, _, noise, spdiag = table_inputs(rng, t, nbp, nbp, dev)
+            if t == 125:  # Tp = 125: the last block (t = 0 .. 4) is part full
+                s, noise, spdiag = (s[:125, :125].contiguous(), noise[:125].contiguous(),
+                                    spdiag[:125].contiguous())
+            s, _, noise, spdiag = (s, None, noise, spdiag) if fp32 else table_bf16(s, None, noise, spdiag)
+            got = logz.beta_table_padded_cuda(s, noise, spdiag)
+            again = logz.beta_table_padded_cuda(s, noise, spdiag)
+            want = logz.beta_table_padded_plain(s, noise, spdiag)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if bool((diff > TABLE_RTOL * want.abs().clamp(min=1.0)).any()) or not torch.equal(got, again):
+                raise AssertionError(f"semicrf_beta != plain at {list(s.shape)} {tag}: max |diff| "
+                                     f"{float(diff.max())}, two runs equal {torch.equal(got, again)}")
+            if fp32:
+                err["semicrf_beta"] = max(err["semicrf_beta"], float(diff.max()))
+            else:
+                bf16["semicrf_beta"]["max_abs_err"] = max(bf16["semicrf_beta"]["max_abs_err"], float(diff.max()))
+            if t != 125:
+                plan_line("semicrf_beta", logz.beta_card_plan(s), s)
+            del s, noise, spdiag, got, again, want
+        a_err, b_err = ((err["semicrf_alpha"], err["semicrf_beta"]) if fp32 else
+                        (bf16["semicrf_alpha"]["max_abs_err"], bf16["semicrf_beta"]["max_abs_err"]))
+        print(f"alpha/beta {tag} within {TABLE_RTOL}*max(1,|plain|) of plain, two runs the same bits, at "
+              f"[696,696,384] and [128,128,256] (beta also at [128,128,{lanes}], "
+              f"[64,64,{2 * n_sm * lanes}] and [125,125,256]): max |diff| alpha {a_err:.3g}, beta {b_err:.3g}")
     grad_err = check_logz_grad(logz, semicrf, dev)
     print(f"logZ + score cotangent via kernels vs autograd of log_z_slow [45,45,5]: "
           f"max |diff| {grad_err:.3g}")
@@ -1018,6 +1121,9 @@ def main() -> int:
         print(f"train step: median {float(np.median(step_s)):.4f} s over {len(step_s)} steps "
               f"after each run's first (all: {[round(x, 4) for x in first['step_seconds'] + second['step_seconds']]}), "
               f"peak memory {train_peak_gb:.2f} GB")
+        stats_s = first["stats_seconds"] + second["stats_seconds"]
+        print(f"stats pass (two decodes of the batch, [696,696,384] Viterbi tables each) ({card}): "
+              f"{[round(x, 4) for x in stats_s]} s")
         print(f"train losses: {[round(x, 3) for x in losses]}")
         print(f"validation: {first['val_results']}")
         print(f"training launches {by_path['train']} (= steps + validation batches; "
@@ -1392,8 +1498,8 @@ def main() -> int:
         if name not in bf16:
             return None
         e = bf16[name]
-        return {"max_abs_err": e["max_abs_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
-                "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
+        return {"max_abs_err": e["max_abs_err"], "ms": e["ms"], "device_ms": e.get("device_ms"),
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
                 "library_ms": e.get("library_ms")}
 
     for name in KERNELS:
@@ -1408,6 +1514,7 @@ def main() -> int:
         "launches_by_path": {path: by_path[path][name] for path in by_path},
         "max_abs_err": err[name],
         "ms": ms[name],
+        "device_ms": device_ms.get(name),
         "plain_ms": plain_ms[name],
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],

@@ -128,7 +128,7 @@ def main(argv=None):
         return sum(ms for name, ms, _ in kernels if pred(name))
 
     alpha_ms = ms_of(lambda n: "lse_table_kernel<true" in n)
-    beta_ms = ms_of(lambda n: "lse_table_kernel<false" in n)
+    beta_ms = ms_of(lambda n: "lse_cluster_kernel<false" in n)
     gemm_ms = ms_of(lambda n: "gemm" in n.lower() or "sm90_xmma" in n or "cutlass" in n.lower())
     print(json.dumps({
         "card": chip_smoke.card_line(),

@@ -124,7 +124,7 @@ def models():
     params = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + (rng.normal(size=np.shape(a)) * 0.05).astype(np.float32), params
     )
-    model = TransKun(ModelConfig.from_dict(TINY))
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
     return params["params"], model
 
@@ -188,7 +188,7 @@ def test_training_step_fused_matches_default(models, fused_flags, monkeypatch):
     within 1e-4 of the default route's, relative to each tensor's largest
     entry (the explicit attention backward and the recomputed MLP against
     autograd of the written-out forms)."""
-    model = TransKun(ModelConfig.from_dict({**TINY, "contextDropoutProb": 0.0}))
+    model = TransKun(ModelConfig.from_dict({**TINY, "contextDropoutProb": 0.0}), device="cpu")
     model.load_state_dict(models[1].module.state_dict())
     calls = _routes_taken(monkeypatch)
     rng = np.random.default_rng(0)
@@ -310,7 +310,7 @@ def test_fused_attention_backward_casts_the_cotangent():
 @pytest.fixture(scope="module")
 def bf16_model(models):
     """The port's TransKun at bf16 on the weights of ``models``."""
-    model = TransKun(ModelConfig.from_dict(TINY), compute_dtype=torch.bfloat16)
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu", compute_dtype=torch.bfloat16)
     model.load_state_dict(models[1].module.state_dict())
     return model
 

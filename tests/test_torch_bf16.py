@@ -82,7 +82,7 @@ def _jittered_params(conf_dict, n_frames, seed):
 
 
 def _port(conf_dict, params, compute_dtype=torch.bfloat16):
-    model = TransKun(ModelConfig.from_dict(conf_dict), compute_dtype=compute_dtype)
+    model = TransKun(ModelConfig.from_dict(conf_dict), device="cpu", compute_dtype=compute_dtype)
     model.load_state_dict(state_dict_from_flax(params))
     return model
 
@@ -587,7 +587,7 @@ def test_cli_train_and_transcribe_with_bf16(tmp_path, monkeypatch):
     assert record_run["val_batches"] >= 1 and np.isfinite(record_run["losses"]).all()
     assert seen == {k: {torch.bfloat16} for k in seen}
     saved = ckpt_mod.load_checkpoint(ckpt)
-    reference = TransKun(ModelConfig.from_dict(TINY1)).module.state_dict()
+    reference = TransKun(ModelConfig.from_dict(TINY1), device="cpu").module.state_dict()
     assert set(saved["state_dict"]) == set(reference)
     assert all(v.dtype == reference[k].dtype for k, v in saved["state_dict"].items())
 

@@ -32,7 +32,7 @@ def test_flax_params_round_trip_through_state_dict():
     jax_model = JaxTransKun(conf)
     params = jax.jit(lambda k: jax_model.init(k, n_frames=126))(jax.random.PRNGKey(0))
     params = jax.tree_util.tree_map(np.asarray, params)
-    model = TransKun(ModelConfig.from_dict(TINY))
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params, conf))  # strict
     # the JAX converter reads the reference's tied [out] upsample bias; at
     # init the port's untied [8*out] bias is zero, so its first step is it
@@ -50,7 +50,7 @@ def test_flax_params_round_trip_through_state_dict():
 
 
 def test_reference_key_names():
-    keys = set(TransKun(ModelConfig.from_dict(TINY)).module.state_dict())
+    keys = set(TransKun(ModelConfig.from_dict(TINY), device="cpu").module.state_dict())
     for k in [
         "framewiseFeatureExtractor.spectrogramExtractor.winGen.sigma",
         "framewiseFeatureExtractor.spectrogramExtractor.winGen.center",

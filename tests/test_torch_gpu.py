@@ -1,4 +1,6 @@
-"""The port's eight CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's eight CUDA kernels against their plain PyTorch versions, on the card;
+the Viterbi and beta kernels also on tie-heavy inputs, at every cluster size
+and at the cluster edges (one lane group; more lane groups than SMs).
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -117,8 +119,10 @@ def test_logz_kernels_equal_plain(cuda, t, nbp, nb_real):
 def test_logz_kernels_equal_plain_from_bf16_scores(cuda, t, nbp, nb_real):
     """bf16 scores, spdiag from the rounded diagonal: within the fp32 bound
     of the plain versions (which upcast the same bits), and equal to the
-    fp32 kernels on the upcast tensor bit for bit; then ``log_z_padded``
-    gives a bf16 score cotangent that is zero on the padded lanes."""
+    fp32 kernels on the upcast tensor bit for bit (the beta kernel at the
+    bf16 launch's cluster size: the cluster splits each lane's sum, and the
+    two types are planned apart); then ``log_z_padded`` gives a bf16 score
+    cotangent that is zero on the padded lanes."""
     s, shift, noise, _ = _table_inputs(np.random.default_rng(t), t, nbp, nb_real, cuda)
     s_b = s.bfloat16()
     spdiag = torch.nn.functional.softplus(torch.diagonal(s_b).t().float()).contiguous()
@@ -130,7 +134,8 @@ def test_logz_kernels_equal_plain_from_bf16_scores(cuda, t, nbp, nb_real):
     _assert_table_close(v, logz.alpha_table_padded_plain(s_b, shift, spdiag))
     _assert_table_close(q, logz.beta_table_padded_plain(s_b, noise, spdiag))
     assert torch.equal(v, logz.alpha_table_padded(s_b.float(), shift, spdiag))
-    assert torch.equal(q, logz.beta_table_padded(s_b.float(), noise, spdiag))
+    cluster = logz.beta_card_plan(s_b).cluster
+    assert torch.equal(q, logz.beta_table_padded_cuda(s_b.float(), noise, spdiag, cluster=cluster))
     s_b.requires_grad_()
     logz.log_z_padded(t, s_b, noise).sum().backward()
     assert s_b.grad.dtype == torch.bfloat16 and bool(torch.isfinite(s_b.grad).all())
@@ -155,6 +160,100 @@ def test_logz_kernels_reject_what_they_do_not_take(cuda):
             fn(s, rows[:-1], spdiag)
         with pytest.raises(ValueError):  # another device
             fn(s, rows.cpu(), spdiag)
+
+
+# -- the blocked cluster kernels (Viterbi, beta): ties, cluster edges ---------
+
+# one lane group (NBp = the lanes of one CTA), and more lane groups than SMs
+CLUSTER_EDGES = [(123, None), (61, 8192)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tie_inputs(rng, t, nbp, dev):
+    """Decode inputs with small-integer scores and noise (exact in bf16):
+    equal candidates abound, so every tie rule is exercised."""
+    tp = -(-t // 8) * 8
+    s_t = np.full((tp, tp, nbp), NEG, np.float32)
+    s_t[:t, :t] = rng.integers(-3, 3, size=(t, t, nbp))
+    noise = np.zeros((tp, nbp), np.float32)
+    noise[: t - 1] = rng.integers(-1, 2, size=(t - 1, nbp))
+    diag = np.zeros((tp, nbp), np.float32)
+    diag[:t] = np.einsum("iin->in", s_t[:t, :t])
+    return [torch.from_numpy(a).to(dev) for a in (s_t, noise, diag * (diag > 0))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,nbp", [(691, 128), (123, 256)])
+def test_kernel_equals_plain_on_ties(cuda, t, nbp, dtype):
+    s_t, noise, gate = _tie_inputs(np.random.default_rng(t), t, nbp, cuda)
+    s_t = s_t.to(dtype)
+    got = viterbi.viterbi_backward_tables_cuda(s_t, noise, gate)
+    again = viterbi.viterbi_backward_tables_cuda(s_t, noise, gate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, viterbi.viterbi_backward_tables_plain(s_t, noise, gate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,nbp", CLUSTER_EDGES)
+def test_kernel_equals_plain_at_cluster_edges(cuda, t, nbp, dtype):
+    from transkun_tpu_torch.ops import _cluster
+
+    nbp = nbp or _cluster.lanes_per_cta(dtype)
+    for args in (_decode_inputs(np.random.default_rng(t), t, nbp, cuda),
+                 _tie_inputs(np.random.default_rng(t), t, nbp, cuda)):
+        args[0] = args[0].to(dtype)
+        got = viterbi.viterbi_backward_tables_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, viterbi.viterbi_backward_tables_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,nbp", CLUSTER_EDGES)
+def test_beta_kernel_equals_plain_at_cluster_edges(cuda, t, nbp, dtype):
+    from transkun_tpu_torch.ops import _cluster
+
+    nbp = nbp or _cluster.lanes_per_cta(dtype)
+    s, _, noise, spdiag = _table_inputs(np.random.default_rng(t), t + 2, nbp, nbp, cuda)
+    s = s.to(dtype)
+    got = logz.beta_table_padded_cuda(s, noise, spdiag)
+    again = logz.beta_table_padded_cuda(s, noise, spdiag)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_table_close(got, logz.beta_table_padded_plain(s, noise, spdiag))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 7, 8, 12, 16])
+def test_cluster_kernels_at_every_cluster_size(cuda, cluster):
+    """Every cluster size gives the plain version's tables; with one CTA a
+    group a thread takes its ends in more than one round of loads."""
+    args = _tie_inputs(np.random.default_rng(cluster), 691, 128, cuda)
+    got = viterbi.viterbi_backward_tables_cuda(*args, cluster=cluster)
+    s, _, noise, spdiag = _table_inputs(np.random.default_rng(cluster), 301, 64, 64, cuda)
+    # a ragged Tp of 301: the last block (t = 0 .. 4) is part full
+    s, noise, spdiag = s[:301, :301].contiguous(), noise[:301].contiguous(), spdiag[:301].contiguous()
+    q = logz.beta_table_padded_cuda(s, noise, spdiag, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got, viterbi.viterbi_backward_tables_plain(*args))
+    _assert_table_close(q, logz.beta_table_padded_plain(s, noise, spdiag))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_launch_plans_match_the_libraries(cuda, dtype):
+    """The shared memory that the host plans is what the kernels lay out."""
+    from transkun_tpu_torch.ops import _cluster
+
+    n_sm = _cluster.sm_count(cuda.index or 0)
+    bf16 = int(dtype == torch.bfloat16)
+    for tp, nbp in ((696, 128), (696, 384), (45, 256)):
+        vp, bp = viterbi.launch_plan(-(-tp // 8) * 8, nbp, dtype, n_sm), logz.launch_plan(tp, nbp, dtype, n_sm)
+        assert viterbi._library().viterbi_bwd_smem_bytes(-(-tp // 8) * 8, vp.cluster, bf16) == vp.smem
+        assert logz._library("semicrf_beta").semicrf_beta_smem_bytes(tp, bp.cluster, bf16) == bp.smem
 
 
 # -- fused attention and MLP --------------------------------------------------

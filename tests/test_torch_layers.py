@@ -44,7 +44,7 @@ def models():
         return a + (rng.normal(size=a.shape) * 0.05).astype(a.dtype)
 
     params = jax.tree_util.tree_map(jitter, params)
-    model = TransKun(ModelConfig.from_dict(TINY))
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
     return params["params"], model
 

@@ -175,3 +175,19 @@ def test_viterbi_route_1b_matches_jax(t, nb):
     np.testing.assert_array_equal(diag.numpy(), np.asarray(diag_j))
     crf = semicrf.NeuralSemiCRFInterval(torch.from_numpy(s), torch.from_numpy(n))
     assert crf.decode() == jsemicrf.NeuralSemiCRFInterval(jnp.asarray(s), jnp.asarray(n)).decode()
+
+
+# the training batch [696,696,384], the ragged ones (any Tp >= 1), one lane
+# group, and more lane groups than SMs
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp,nbp", [(696, 384), (128, 256), (45, 256), (1, 128), (128, None), (64, 8192)])
+def test_beta_launch_plan_covers_every_lane_and_term(tp, nbp, dtype, n_sm):
+    from test_torch_viterbi import check_plan
+    from transkun_tpu_torch.ops import _build, _cluster
+
+    lanes = _cluster.lanes_per_cta(dtype)
+    nbp = nbp or lanes
+    plan = logz.launch_plan(tp, nbp, dtype, n_sm)
+    assert plan.groups * plan.lanes == nbp
+    check_plan(plan, tp, nbp, n_sm, _build.SMEM_LIMIT)

@@ -67,7 +67,7 @@ def params():
 
 
 def _port(conf_dict, params):
-    model = TransKun(ModelConfig.from_dict(conf_dict))
+    model = TransKun(ModelConfig.from_dict(conf_dict), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
     return model
 
@@ -96,7 +96,7 @@ def _close_rel(got, want, rel=1e-3, what=""):
 def test_scorer_applies_no_dropout_in_train_mode():
     """The JAX scorer never applies its dropout field: in train mode the
     port's q, k and diag equal their eval values."""
-    model = TransKun(ModelConfig.from_dict({**TINY, "scoreDropoutProb": 0.5}), seed=0)
+    model = TransKun(ModelConfig.from_dict({**TINY, "scoreDropoutProb": 0.5}), device="cpu", seed=0)
     ctx = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 5, 7, 16)).astype(np.float32))
     scorer = model.module.scorer
     scorer.train()
@@ -134,7 +134,7 @@ def test_untied_upsample_bias_round_trips(params):
 def test_reference_tied_bias_loads():
     """A reference state_dict holds the ConvTranspose1d bias [out]; it loads
     tiled 8x (step-major)."""
-    model = TransKun(ModelConfig.from_dict(TINY), seed=1)
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu", seed=1)
     sd = dict(model.module.state_dict())
     tied = torch.arange(16, dtype=torch.float32)
     sd["backbone.upConv1dSkip.bias"] = tied
@@ -327,7 +327,7 @@ def test_optimizer_and_clip_match_optax(params, start_count):
 
 
 def _train_state(seed=0):
-    model = TransKun(ModelConfig.from_dict(TINY1), seed=seed)
+    model = TransKun(ModelConfig.from_dict(TINY1), device="cpu", seed=seed)
     optimizer = AdaBelief(model.module.named_parameters(), max_lr=2e-3, n_iter=1000, warmup_cutoff=0)
     return TrainState(model, optimizer)
 
@@ -468,6 +468,7 @@ def test_cli_train_resume_transcribe(tmp_path):
 
     first = train(args + ["--maxEpoch", "1"])
     assert first["steps"] >= 3 and first["stats_passes"] >= 1 and first["val_batches"] >= 1
+    assert len(first["stats_seconds"]) == first["stats_passes"]
     assert np.isfinite(first["losses"]).all() and len(first["losses"]) == first["steps"]
     saved = ckpt_mod.load_checkpoint(ckpt)
     assert saved["step"] == first["steps"] and saved["extra"]["epoch"] == 1

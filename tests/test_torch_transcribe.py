@@ -90,7 +90,7 @@ def test_transcribe_matches_jax(monkeypatch):
 
     want = jax_model.transcribe(params, audio)
 
-    model = TransKun(ModelConfig.from_dict(TINY))
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
     frames_seen, tables, starts = [], [], []
     decode = model.module.process_frames_decode
@@ -153,7 +153,7 @@ def _note_key(n):
 def grouped():
     """A piece of 9 segments at narrow width, the port's model with a
     confident scorer, and its notes one segment a group."""
-    model = TransKun(ModelConfig.from_dict(TINY), seed=5)
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu", seed=5)
     with torch.no_grad():
         m = model.module.scorer.map[0]
         e = m.weight.shape[0] // 2
@@ -227,7 +227,7 @@ def test_segment_batch_matches_jax():
     m["bias"][-1] = -8.0
     audio = _piece(dur=7.0, seed=4)
     want = jax_model.transcribe(params, audio, segment_batch=2)
-    model = TransKun(ModelConfig.from_dict(TINY))
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
     key = lambda n: (n.pitch, n.start)
     assert len(want) > 100
@@ -275,7 +275,7 @@ def test_cli_transcribes_to_midi(tmp_path):
     conf_path.write_text(json.dumps(
         {"Model": {"module": "transkun_tpu.models.transkun", "config": TINY}}
     ))
-    model = TransKun(ModelConfig.from_dict(TINY), seed=1)
+    model = TransKun(ModelConfig.from_dict(TINY), device="cpu", seed=1)
     with torch.no_grad():
         model.module.scorer.map[0].bias[-1] = -8.0
     weight = tmp_path / "ref.pt"
@@ -291,3 +291,15 @@ def test_cli_transcribes_to_midi(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             main(args)
+
+
+def test_transkun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``TransKun(conf)`` means the card: without CUDA it raises and names
+    ``device="cpu"`` rather than carrying on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    conf = ModelConfig.from_dict(TINY)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TransKun(conf)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TransKun(conf, device="cuda")
+    assert TransKun(conf, device="cpu").device == torch.device("cpu")

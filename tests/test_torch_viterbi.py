@@ -133,3 +133,73 @@ def test_decode_equals_jax(rng, forward, ties):
     # without ties the two directions find the same best path
     if not ties:
         assert crf.decode(forward=True) == crf.decode()
+
+
+# the path's shapes (decode [696,696,128], the stats pass [696,696,384]),
+# the ragged one, one lane group, and more lane groups than SMs
+PLAN_SHAPES = [(696, 128), (696, 384), (128, 256), (128, None), (64, 8192)]
+
+
+def check_plan(plan, tp, nbp, n_sm, smem_limit):
+    """What a launch plan of the blocked cluster kernels must give: each lane
+    in one lane group, every earlier position of every block reduced by
+    exactly one thread slot of the cluster, shared memory within the limit, a
+    cluster size the card allows, and all clusters on the card at once
+    whenever the groups allow."""
+    from transkun_tpu_torch.ops import _cluster
+
+    lanes = [lane for cta in range(0, plan.ctas, plan.cluster)
+             for lane in _cluster.lanes_of_cta(plan, cta)]
+    assert sorted(lanes) == list(range(nbp))
+    for k0 in range(0, tp, _cluster.BLOCK):
+        others = [m for rank in range(plan.cluster) for slot in range(_cluster.SLOTS)
+                  for m in _cluster.others_of_thread(plan, rank, slot, k0)]
+        assert sorted(others) == list(range(k0))
+    assert plan.smem <= smem_limit
+    assert plan.cluster in _cluster.CLUSTER_SIZES and plan.portable == (plan.cluster <= 8)
+    fits = _cluster.model_max_clusters(n_sm)
+    assert plan.groups <= fits[plan.cluster] or plan.cluster == 1
+    blocks = -(-tp // _cluster.BLOCK)
+    assert all(plan.groups > fits[c] for c in _cluster.CLUSTER_SIZES
+               if plan.cluster < c <= blocks)  # no larger cluster fits
+    assert plan.threads == 256
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp,nbp", PLAN_SHAPES)
+def test_launch_plan_covers_every_lane_and_end(tp, nbp, dtype, n_sm):
+    from transkun_tpu_torch.ops import _build, _cluster
+
+    lanes = _cluster.lanes_per_cta(dtype)
+    nbp = nbp or lanes
+    plan = viterbi.launch_plan(tp, nbp, dtype, n_sm)
+    assert plan.lanes == lanes == (8 if dtype == torch.float32 else 16)
+    assert plan.groups == nbp // lanes
+    check_plan(plan, tp, nbp, n_sm, _build.SMEM_LIMIT)
+    if (tp, nbp, n_sm) == (696, 128, 132):  # the decode shape fills the card
+        assert plan.ctas == 128 and plan.cluster == (8 if dtype == torch.float32 else 16)
+
+
+def test_plan_takes_the_cards_own_cluster_counts():
+    """The wrappers plan with what the card reports (asked once) in place of
+    the model: a card that holds fewer clusters gets a smaller cluster."""
+    import ctypes
+
+    from transkun_tpu_torch.ops import _cluster
+
+    asked = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_int))
+
+    def report(tp, cluster, bf16, device, n):  # 15 clusters of 8, 7 of 16, ... as an H100
+        asked.append(cluster)
+        n[0] = {1: 132, 2: 66, 8: 15, 16: 7}.get(cluster, 120 // cluster)
+        return 0
+
+    query = proto(report)
+    counts = _cluster.card_max_clusters(query, 696, torch.float32, 0)
+    assert _cluster.card_max_clusters(query, 696, torch.float32, 0) is counts  # asked once
+    assert asked == list(_cluster.CLUSTER_SIZES) and counts[8] == 15
+    plan = viterbi.launch_plan(696, 128, torch.float32, 132, max_clusters=counts)
+    assert plan.cluster == 7 and plan.ctas == 112  # 16 clusters of 8 would not fit at once

@@ -16,8 +16,9 @@ TF32 is turned off for matmuls and convolutions.  The default device is
 the plain PyTorch versions of the kernels.
 
 ``main`` returns a record of the run (losses, per-step seconds, the largest
-per-step device memory, and the counts of steps, stats passes and
-validation batches) for callers that drive it from Python.
+per-step device memory, the seconds of each stats pass, and the counts of
+steps, stats passes and validation batches) for callers that drive it from
+Python.
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ def main(argv=None):
             sampleRate=conf.fs, noiseFolder=args.noiseFolder, convIRFolder=args.irFolder
         )
 
-    record = {"losses": [], "step_seconds": [], "step_peak_bytes": 0,
+    record = {"losses": [], "step_seconds": [], "step_peak_bytes": 0, "stats_seconds": [],
               "steps": 0, "stats_passes": 0, "val_batches": 0, "val_results": []}
     global_step = state.step
     for epoch in range(start_epoch, args.maxEpoch):
@@ -214,8 +215,10 @@ def main(argv=None):
                     raise SystemExit(1)
 
             if args.statsEvery > 0 and idx % args.statsEvery == 0:
+                t_stats = time.perf_counter()  # both passes end in host numbers
                 stats = model.compute_stats(audio, notes_batch)
                 stats2 = model.compute_stats_mireval(audio, notes_batch)
+                record["stats_seconds"].append(time.perf_counter() - t_stats)
                 record["stats_passes"] += 1
                 n_gt = stats2["nGT"] + 1e-4
                 n_est = stats2["nEst"] + 1e-4

@@ -1,6 +1,7 @@
-// The log-space semi-CRF tables on Hopper (sm_90a): one kernel template for
-// the forward (alpha) and the backward (beta) recurrence, included by
-// semicrf_alpha.cu and semicrf_beta.cu.
+// The log-space semi-CRF tables on Hopper (sm_90a), the first port's
+// design: one kernel template for the forward (alpha) and the backward
+// (beta) recurrence, of which only the forward instance is built, by
+// semicrf_alpha.cu (the beta kernel runs semicrf_lse_cluster.cuh).
 //
 //   alpha, i = 0 .. Tp-1:   v[0] = spdiag[0]
 //     v[i] = logaddexp(v[i-1] + noise[i], logsumexp_{j<i} v[j] + s[i, j])

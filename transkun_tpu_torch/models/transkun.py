@@ -310,14 +310,22 @@ class TransKun:
 
     Config = ModelConfig
 
-    def __init__(self, conf: ModelConfig, device="cpu", seed: Optional[int] = None,
+    def __init__(self, conf: ModelConfig, device=None, seed: Optional[int] = None,
                  compute_dtype: Optional[torch.dtype] = None):
-        """``seed`` draws random weights from a ``torch.Generator``; without
-        it, load weights with ``load_state_dict``.  ``compute_dtype=
-        torch.bfloat16`` runs the activations in bf16 (the CLIs' ``--bf16``);
-        the parameters, and so the checkpoints, stay fp32."""
+        """``device`` is the card (``cuda``) unless given: without a CUDA
+        device, pass ``device="cpu"``, else this raises.  ``seed`` draws
+        random weights from a ``torch.Generator``; without it, load weights
+        with ``load_state_dict``.  ``compute_dtype=torch.bfloat16`` runs the
+        activations in bf16 (the CLIs' ``--bf16``); the parameters, and so
+        the checkpoints, stay fp32."""
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                'TransKun runs on the card unless asked for the CPU: CUDA is not '
+                'available, pass device="cpu"'
+            )
         self.conf = conf
-        self.device = torch.device(device)
+        self.device = device
         self.fs = conf.fs
         self.hopSize = conf.hopSize
         self.windowSize = conf.windowSize

@@ -57,10 +57,14 @@ def library_path(name: str) -> str:
 def build(name: str) -> Tuple[str, float, str]:
     """Compile ``csrc/<name>.cu`` unless its library is current.
 
-    Returns (library path, seconds spent compiling, compiler log); the log is
-    empty when nothing was compiled."""
+    Returns (library path, seconds spent compiling, compiler log); a library
+    that was current returns 0 seconds and the log of the build that made it."""
     lib = library_path(name)
     if os.path.exists(lib):
+        log_path = lib + ".log"
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                return lib, 0.0, f.read()
         return lib, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
@@ -72,8 +76,12 @@ def build(name: str) -> Tuple[str, float, str]:
         raise RuntimeError(
             f"nvcc failed for {name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    log = proc.stdout + proc.stderr
+    with open(f"{lib}.{os.getpid()}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{lib}.{os.getpid()}.log", lib + ".log")
     os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
+    return lib, seconds, log
 
 
 def build_all(names: Sequence[str]) -> Dict[str, Tuple[str, float, str]]:

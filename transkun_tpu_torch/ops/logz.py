@@ -16,16 +16,20 @@ logZ 0.
 On a CPU tensor each wrapper runs its plain version.  On a CUDA tensor it
 launches its kernel or raises; it never falls back.  Both kernels are
 bounded by their chain of Tp dependent positions (see the CUDA sources).
+The beta kernel takes them in blocks of 8 and splits each lane group's
+terms over a thread-block cluster, as planned by ``launch_plan``; the alpha
+kernel still runs the first port's one-position-at-a-time design.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Mapping, Optional
 
 import torch
 
-from . import _build, semicrf
+from . import _build, _cluster, semicrf
 
 # Kernel launches made by alpha_table_padded / beta_table_padded; nothing
 # else changes them except a caller resetting them to 0.
@@ -69,33 +73,50 @@ def beta_table_padded_plain(
     return q
 
 
+def launch_plan(tp: int, nbp: int, dtype: torch.dtype, n_sm: int,
+                cluster: Optional[int] = None,
+                max_clusters: Optional[Mapping[int, int]] = None) -> _cluster.LaunchPlan:
+    """The beta kernel's grid for ``s_pad [tp, tp, nbp]`` of ``dtype`` on a
+    card of ``n_sm`` SMs (``_cluster.launch_plan``): the CTAs of a lane group split
+    the terms as one cluster; its partials are (max, rescaled sum) pairs."""
+    return _cluster.launch_plan(tp, nbp, dtype, n_sm, cluster, max_clusters)
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
+    # the beta kernel also takes the cluster size
+    n_int = 4 if name == "semicrf_beta" else 3
     for suffix in _SUFFIX_OF.values():
         fn = getattr(lib, name + suffix)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    getattr(lib, name + "_smem_bytes").argtypes = [ctypes.c_int]
+    if name == "semicrf_alpha":
+        lib.semicrf_alpha_lanes_per_block.argtypes = []
+        lib.semicrf_alpha_lanes_per_block.restype = ctypes.c_int
+    else:
+        lib.semicrf_beta_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        lib.semicrf_beta_max_clusters.restype = ctypes.c_int
+    getattr(lib, name + "_smem_bytes").argtypes = [ctypes.c_int] * (n_int - 2)
     getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
-    getattr(lib, name + "_lanes_per_block").argtypes = []
-    getattr(lib, name + "_lanes_per_block").restype = ctypes.c_int
     getattr(lib, name + "_error_string").argtypes = [ctypes.c_int]
     getattr(lib, name + "_error_string").restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.Tensor):
+def beta_card_plan(s_pad: torch.Tensor, cluster: Optional[int] = None) -> _cluster.LaunchPlan:
+    """The plan ``beta_table_padded_cuda`` launches ``s_pad`` with."""
+    return _cluster.card_plan(s_pad, _library("semicrf_beta").semicrf_beta_max_clusters, cluster)
+
+
+def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.Tensor,
+            cluster: Optional[int] = None) -> torch.Tensor:
     """Check the inputs, allocate the table and launch ``name`` on the
-    current stream."""
-    lib = _library(name)
-    tp, tp2, nbp = s_pad.shape
-    lanes = getattr(lib, name + "_lanes_per_block")()
+    current stream; the beta kernel with ``launch_plan``'s grid (``cluster``
+    overrides its cluster size)."""
     if s_pad.dtype not in _SUFFIX_OF:
         raise TypeError(f"s_pad must be float32 or bfloat16, got {s_pad.dtype}")
+    tp, tp2, nbp = s_pad.shape
     for arg, a in (("s_pad", s_pad), ("noise", noise), ("spdiag", spdiag)):
         if a.device != s_pad.device or a.device.type != "cuda":
             raise ValueError(f"{arg} is on {a.device}, s_pad on {s_pad.device}")
@@ -103,14 +124,26 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
             raise TypeError(f"{arg} must be float32, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{arg} must be 16-byte aligned")
     if tp2 != tp or noise.shape != (tp, nbp) or spdiag.shape != (tp, nbp):
         raise ValueError(
             f"shapes s_pad {tuple(s_pad.shape)}, noise {tuple(noise.shape)}, "
             f"spdiag {tuple(spdiag.shape)}: want [Tp,Tp,NBp], [Tp,NBp], [Tp,NBp]"
         )
-    if tp == 0 or nbp == 0 or nbp % lanes:
-        raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
-    smem = getattr(lib, name + "_smem_bytes")(tp)
+    lib = _library(name)
+    if name == "semicrf_beta":
+        lanes = _cluster.lanes_per_cta(s_pad.dtype)
+        if tp == 0 or nbp == 0 or nbp % lanes:
+            raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
+        plan = beta_card_plan(s_pad, cluster)
+        extra, smem = (plan.cluster,), plan.smem
+    else:
+        lanes = lib.semicrf_alpha_lanes_per_block()
+        if tp == 0 or nbp == 0 or nbp % lanes:
+            raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
+        extra = ()
+        smem = lib.semicrf_alpha_smem_bytes(tp)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"Tp={tp} needs {smem} B of shared memory, above {_build.SMEM_LIMIT} B: "
@@ -119,7 +152,7 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
     out = torch.empty(tp, nbp, dtype=torch.float32, device=s_pad.device)
     err = getattr(lib, name + _SUFFIX_OF[s_pad.dtype])(
         s_pad.data_ptr(), noise.data_ptr(), spdiag.data_ptr(), out.data_ptr(),
-        tp, nbp, s_pad.device.index,
+        tp, nbp, *extra, s_pad.device.index,
         torch.cuda.current_stream(s_pad.device).cuda_stream,
     )
     if err != 0:
@@ -140,11 +173,13 @@ def alpha_table_padded_cuda(
 
 
 def beta_table_padded_cuda(
-    s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.Tensor
+    s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.Tensor,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the beta kernel; raises on anything it does not take."""
+    """Launch the beta kernel with ``launch_plan``'s grid (``cluster``
+    overrides its cluster size); raises on anything it does not take."""
     global beta_launches
-    q = _launch("semicrf_beta", s_pad, noise, spdiag)
+    q = _launch("semicrf_beta", s_pad, noise, spdiag, cluster)
     beta_launches += 1
     return q
 
