@@ -15,14 +15,18 @@
    groups than SMs): the pointer tables must be equal bit for bit, and two
    runs must give the same bits.  Prints each launch plan (CTAs, cluster
    size, shared memory, registers from ``-Xptxas -v``).
-3. Holds the alpha and beta kernels against their plain versions at the
+3. Holds the alpha and beta kernels (kernels 2 and 3, blocked as kernel 1;
+   alpha's far scores arrive by TMA) against their plain versions at the
    flagship training shape [696, 696, 384] (t = 691, 360 real lanes) and
-   at a ragged shape (t = 123, Tp = 128, NBp = 256), and the beta kernel
-   (kernel 3, the same design as kernel 1) also at the cluster edges and at
-   Tp = 125: |kernel - plain| <= 1e-5 * max(1, |plain|), the sums being
-   taken in another order, two runs the same bits; with fp32 and bf16
-   scores.  Then the logZ gradient through the kernels against autograd of
-   the plain ``log_z_slow`` at a small ragged shape.  Kernels 1-3 are timed
+   at a ragged shape (t = 123, Tp = 128, NBp = 256), and both also at the
+   cluster edges (one lane group; more lane groups than SMs) and at
+   Tp = 125, and alpha at every cluster size its plan allows (1-8) at
+   [696, 696, 384]: |kernel - plain| <= 1e-5 * max(1, |plain|), the sums
+   being taken in another order, two runs the same bits, one launch counted
+   for each call; with fp32 and bf16 scores.  Each kernel's launch plan
+   (lanes, cluster, CTAs, shared memory; alpha's TMA ring) goes into the
+   kernels line.  Then the logZ gradient through the kernels against
+   autograd of the plain ``log_z_slow`` at a small ragged shape.  Kernels 1-3 are timed
    with CUDA events (median of several runs): a lone launch, the device's
    time a launch over 20 launches, the plain version, and the bound (the
    strict triangle of the score tensor read once).
@@ -665,6 +669,7 @@ def main() -> int:
     err = {"viterbi_bwd": 0, "semicrf_alpha": 0.0, "semicrf_beta": 0.0}
     ms, plain_ms, device_ms, bounds = {}, {}, {}, {}
     library_ms = dict.fromkeys(KERNELS)  # no single PyTorch call computes kernels 1-3 or 6
+    plans = dict.fromkeys(KERNELS)  # kernels 1-3: the plan at the main path's shape, by dtype
     bf16 = {}  # per kernel: the times and the bound with bf16 input
 
     def decode_bf16(s_t, noise, _gate):
@@ -685,12 +690,17 @@ def main() -> int:
         """The launch plan of a cluster kernel on this card, as it launched."""
         kind = "f" if s.dtype == torch.float32 else "13__nv_bfloat16"
         pattern = {"viterbi_bwd": f"viterbi_bwd_kernelI{kind}E",
+                   "semicrf_alpha": f"alpha_tma_kernelI{kind}E",
                    "semicrf_beta": f"lse_cluster_kernelILb0E{kind}E"}[name]
         regs = [r for k, r in registers.items() if pattern in k]
+        ring = (f", a TMA ring of {plan.stages} stages of 8 ends x {plan.rows} begins (box "
+                f"{list(plan.box)}, element strides {list(plan.element_strides)})") if plan.stages else ""
         print(f"launch plan {name} {list(s.shape)} {str(s.dtype)[6:]} ({card}): {plan.groups} lane groups "
               f"of {plan.lanes} lanes x clusters of {plan.cluster} = {plan.ctas} CTAs of {plan.threads} "
               f"threads ({n_sm} SMs), {plan.smem} B shared memory, {regs[0] if regs else '?'} registers "
-              f"a thread (ptxas)")
+              f"a thread (ptxas){ring}")
+        return {"lanes": plan.lanes, "row_bytes": plan.row_bytes, "cluster": plan.cluster,
+                "ctas": plan.ctas, "smem": plan.smem, "tma_stages": plan.stages}
 
     def lone_device_plain(fn, plain_fn):
         """(lone launch ms, device ms over DEVICE_LAUNCHES launches, plain ms)."""
@@ -709,7 +719,9 @@ def main() -> int:
             into[key] = max(into[key], check_kernel(viterbi, *args))
             if (t, nbp, ties) in ((691, 128, False), (691, 384, False), (123, lanes, False),
                                   (61, 2 * n_sm * lanes, False)):
-                plan_line("viterbi_bwd", viterbi.card_plan(args[0]), args[0])
+                plan = plan_line("viterbi_bwd", viterbi.card_plan(args[0]), args[0])
+                if (t, nbp) == (691, 128):
+                    plans["viterbi_bwd"] = {**(plans["viterbi_bwd"] or {}), tag: plan}
             if (t, nbp, ties) == (691, 128, False):
                 k_ms, dev_ms, p_ms = lone_device_plain(
                     lambda: viterbi.viterbi_backward_tables_cuda(*args),
@@ -750,7 +762,26 @@ def main() -> int:
             if (t, nbp) != (691, 384):
                 continue
             s, shift, noise, spdiag = args
-            plan_line("semicrf_beta", logz.beta_card_plan(s), s)
+            for name, plan_of in (("semicrf_alpha", logz.alpha_card_plan), ("semicrf_beta", logz.beta_card_plan)):
+                plans[name] = {**(plans[name] or {}), tag: plan_line(name, plan_of(s), s)}
+            # alpha at every cluster size its plan allows (a box traverses 32 * C <= 256 begins)
+            want = logz.alpha_table_padded_plain(s, shift, spdiag)
+            for c in range(1, 9):
+                before = logz.alpha_launches
+                got, again = (logz.alpha_table_padded_cuda(s, shift, spdiag, cluster=c) for _ in range(2))
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                if logz.alpha_launches != before + 2 or not torch.equal(got, again) or bool(
+                        (diff > TABLE_RTOL * want.abs().clamp(min=1.0)).any()):
+                    raise AssertionError(f"semicrf_alpha != plain at {list(s.shape)} {tag} cluster {c}: "
+                                         f"max |diff| {float(diff.max())}, two runs equal "
+                                         f"{torch.equal(got, again)}, launches {logz.alpha_launches - before}")
+                into = err if fp32 else bf16["semicrf_alpha"]
+                key = "semicrf_alpha" if fp32 else "max_abs_err"
+                into[key] = max(into[key], float(diff.max()))
+            print(f"semicrf_alpha [696,696,384] {tag}: within {TABLE_RTOL}*max(1,|plain|) of plain at "
+                  f"every cluster size 1-8, two runs the same bits")
+            del want, got, again, diff
             for name, kernel, plain, rows in (
                 ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift),
                 ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise),
@@ -766,33 +797,38 @@ def main() -> int:
                       f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound "
                       f"{bnd[0]:.4f} ms ({bnd[1]})")
             del s, shift, noise, spdiag, args
-        lanes = logz.launch_plan(696, 384, dtype, n_sm).lanes
-        for t, nbp in ((123, lanes), (61, 2 * n_sm * lanes), (125, 256)):
-            s, _, noise, spdiag = table_inputs(rng, t, nbp, nbp, dev)
-            if t == 125:  # Tp = 125: the last block (t = 0 .. 4) is part full
-                s, noise, spdiag = (s[:125, :125].contiguous(), noise[:125].contiguous(),
-                                    spdiag[:125].contiguous())
-            s, _, noise, spdiag = (s, None, noise, spdiag) if fp32 else table_bf16(s, None, noise, spdiag)
-            got = logz.beta_table_padded_cuda(s, noise, spdiag)
-            again = logz.beta_table_padded_cuda(s, noise, spdiag)
-            want = logz.beta_table_padded_plain(s, noise, spdiag)
-            torch.cuda.synchronize()
-            diff = (got - want).abs()
-            if bool((diff > TABLE_RTOL * want.abs().clamp(min=1.0)).any()) or not torch.equal(got, again):
-                raise AssertionError(f"semicrf_beta != plain at {list(s.shape)} {tag}: max |diff| "
-                                     f"{float(diff.max())}, two runs equal {torch.equal(got, again)}")
-            if fp32:
-                err["semicrf_beta"] = max(err["semicrf_beta"], float(diff.max()))
-            else:
-                bf16["semicrf_beta"]["max_abs_err"] = max(bf16["semicrf_beta"]["max_abs_err"], float(diff.max()))
-            if t != 125:
-                plan_line("semicrf_beta", logz.beta_card_plan(s), s)
-            del s, noise, spdiag, got, again, want
+        # the cluster edges of each kernel's plan (one lane group, more lane
+        # groups than SMs) and Tp = 125: the last block (t = 0 .. 4) part full
+        edges = []
+        for name, plan_of, kernel, plain in (
+                ("semicrf_alpha", logz.alpha_launch_plan, logz.alpha_table_padded_cuda,
+                 logz.alpha_table_padded_plain),
+                ("semicrf_beta", logz.launch_plan, logz.beta_table_padded_cuda, logz.beta_table_padded_plain)):
+            lanes = plan_of(696, 384, dtype, n_sm).lanes
+            for t, nbp in ((123, lanes), (61, 2 * n_sm * lanes), (125, 256)):
+                s, shift, noise, spdiag = table_inputs(rng, t, nbp, nbp, dev)
+                if t == 125:
+                    s, shift, noise, spdiag = (a[:125].contiguous() if a.dim() == 2 else a[:125, :125].contiguous()
+                                               for a in (s, shift, noise, spdiag))
+                s, shift, noise, spdiag = (s, shift, noise, spdiag) if fp32 else table_bf16(s, shift, noise, spdiag)
+                rows = shift if name == "semicrf_alpha" else noise
+                got, again, want = kernel(s, rows, spdiag), kernel(s, rows, spdiag), plain(s, rows, spdiag)
+                torch.cuda.synchronize()
+                diff = (got - want).abs()
+                if bool((diff > TABLE_RTOL * want.abs().clamp(min=1.0)).any()) or not torch.equal(got, again):
+                    raise AssertionError(f"{name} != plain at {list(s.shape)} {tag}: max |diff| "
+                                         f"{float(diff.max())}, two runs equal {torch.equal(got, again)}")
+                into, key = (err, name) if fp32 else (bf16[name], "max_abs_err")
+                into[key] = max(into[key], float(diff.max()))
+                if t != 125:
+                    plan_line(name, (logz.alpha_card_plan if name == "semicrf_alpha" else logz.beta_card_plan)(s), s)
+                edges.append(list(s.shape))
+                del s, shift, noise, spdiag, got, again, want
         a_err, b_err = ((err["semicrf_alpha"], err["semicrf_beta"]) if fp32 else
                         (bf16["semicrf_alpha"]["max_abs_err"], bf16["semicrf_beta"]["max_abs_err"]))
         print(f"alpha/beta {tag} within {TABLE_RTOL}*max(1,|plain|) of plain, two runs the same bits, at "
-              f"[696,696,384] and [128,128,256] (beta also at [128,128,{lanes}], "
-              f"[64,64,{2 * n_sm * lanes}] and [125,125,256]): max |diff| alpha {a_err:.3g}, beta {b_err:.3g}")
+              f"[696,696,384] and [128,128,256], and at the edges {edges} (alpha, then beta): "
+              f"max |diff| alpha {a_err:.3g}, beta {b_err:.3g}")
     grad_err = check_logz_grad(logz, semicrf, dev)
     print(f"logZ + score cotangent via kernels vs autograd of log_z_slow [45,45,5]: "
           f"max |diff| {grad_err:.3g}")
@@ -1519,6 +1555,7 @@ def main() -> int:
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
         "library_ms": library_ms[name],
+        "plan": plans[name],
         "bf16": bf16_entry(name),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -167,12 +167,17 @@ def main() -> int:
         for kernel, regs, spill in ptxas_summary(log):
             print(f"  {kernel}: {regs} registers, {spill} bytes of spill stores")
 
-    def plan_line(module, s):
-        if args.first_version:
-            return "first version (no launch plan)"
-        p = module.card_plan(s) if module is viterbi else module.beta_card_plan(s)
+    def plan_line(name, s):
+        plan_of = {"viterbi_bwd": getattr(viterbi, "card_plan", None),
+                   "semicrf_alpha": getattr(logz, "alpha_card_plan", None),
+                   "semicrf_beta": getattr(logz, "beta_card_plan", None)}[name]
+        if args.first_version or plan_of is None:
+            return "the first port's design (no launch plan)"
+        p = plan_of(s)
+        ring = (f", a TMA ring of {p.stages} stages of {p.rows} owned begins"
+                if getattr(p, "stages", 0) else "")
         return (f"{p.groups} lane groups of {p.lanes} x cluster {p.cluster} = {p.ctas} CTAs of "
-                f"{p.threads} threads, {p.smem} B shared memory")
+                f"{p.threads} threads, {p.smem} B shared memory{ring}")
 
     rng = np.random.default_rng(0)
     for dtype in (torch.float32, torch.bfloat16):
@@ -194,7 +199,7 @@ def main() -> int:
                                          f"entries differ, runs equal {torch.equal(got, again)}")
             print(f"viterbi {tag} [{-(-t // 8) * 8},{-(-t // 8) * 8},{nbp}]: equal to plain bit for "
                   f"bit{' (random and tie-heavy)' if ties else ''}, two runs equal; plan: "
-                  f"{plan_line(viterbi, inputs[0])}")
+                  f"{plan_line('viterbi_bwd', inputs[0])}")
         # -- kernels 2-3 within the table tolerance
         for t, nbp, nb_real in TABLES_CHECKED:
             s, shift, noise, spdiag = table_inputs(rng, t, nbp, nb_real, dev)
@@ -209,9 +214,8 @@ def main() -> int:
                 if bool((diff > TABLE_RTOL * want.abs().clamp(min=1.0)).any()) or not torch.equal(got, again):
                     raise AssertionError(f"{name} != plain at {tuple(s.shape)} {tag}: max |diff| "
                                          f"{float(diff.max())}, runs equal {torch.equal(got, again)}")
-                plan = plan_line(logz, s) if name == "semicrf_beta" else "the first port's"
                 print(f"{name} {tag} {list(s.shape)}: max |diff| {float(diff.max()):.3g}, two runs "
-                      f"equal; plan: {plan}")
+                      f"equal; plan: {plan_line(name, s)}")
         if args.no_times:
             continue
         # -- times at the paths' shapes

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Design studies of the blocked cluster kernels (1 Viterbi, 3 beta) on one
-CUDA card: what sizes their grid and what a block spends its time on.
+"""Design studies of the blocked cluster kernels (1 Viterbi, 2 alpha, 3
+beta) on one CUDA card: what sizes their grid and what a block spends its
+time on.
 
     python3 scripts/study_cluster_dp.py [--sweep] [--phases] [--variants]
 
@@ -8,7 +9,15 @@ CUDA card: what sizes their grid and what a block spends its time on.
 (``cudaOccupancyMaxActiveClusters``, as the wrappers ask it) and the device
 time a launch of kernels 1 and 3 at every cluster size from 1 to 16, through
 the wrappers (``cluster=``), at ``[696,696,128]`` and ``[696,696,384]``,
-fp32 and bf16, beside the size ``launch_plan`` picks.
+fp32 and bf16, beside the size ``launch_plan`` picks.  Then kernel 2 at
+``[696,696,384]``, fp32 and bf16, at every cluster size from 1 to 8: as it
+is (through the wrapper), built with a row of 64 and of 128 bytes a CTA in
+place of its own, with a ring of 4 and of 8 stages in place of 16, with
+stages of 64 owned begins in place of 32 (clusters of at most 4), with no
+and with 256-byte L2 promotion in place of 128, and, as the yardstick its
+TMA ring must beat, the
+forward instance of kernel 3's body (each thread loads its far scores into
+registers; "step A", sizes 1-16).
 
 ``--phases`` builds the Viterbi kernel with ``clock64`` stamps at its
 phases and prints the mean cycles a block of each (the far pass; the warp's
@@ -16,7 +25,9 @@ merge and the stores to the cluster; the cluster barrier with the next
 block's loads issued between its halves; the merge of the CTAs' partials;
 the corner) at ``[696,696,128]`` fp32, cluster sizes 1-8; a second build
 issues the loads after the barrier, which separates their cost from the
-barrier's.
+barrier's.  Then the alpha kernel, stamped the same way (its far pass
+holding the waits for the TMA ring, which are also counted apart), at
+``[696,696,384]`` fp32 and bf16, cluster sizes 1-8.
 
 ``--variants`` builds the two kernels from the sources as they are, with
 128-byte rows (4 sectors a CTA in place of 1), and with an ``L2::128B`` or
@@ -24,7 +35,8 @@ barrier's.
 1-16.
 
 Every build here is held against the plain version (Viterbi bit for bit,
-beta within 1e-5 * max(1, |plain|)); builds go to a temporary directory.
+alpha and beta within 1e-5 * max(1, |plain|)); builds go to a temporary
+directory.
 Prints the card's name and power limit first; exits 1 without a CUDA device.
 """
 
@@ -35,6 +47,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -81,22 +94,92 @@ STAMPS = [  # (text as it is, text with a stamp before or after it)
 ]
 PHASES = ("far pass", "merge in the warp + stores", "cluster barrier", "merge of the CTAs", "corner")
 
+# the alpha kernel: its row width a CTA (bytes, both score types), and kernel
+# 3's body built as the forward table (step A: semicrf_beta.cu's exports run
+# the forward instance)
+LSE = "semicrf_lse_cluster.cuh"
+ALPHA_ROWS = {"64-byte rows": [(LSE, "constexpr int kAlphaRowBytesF32 = 32;", "constexpr int kAlphaRowBytesF32 = 64;"),
+                               (LSE, "constexpr int kAlphaRowBytesBF16 = 32;",
+                                "constexpr int kAlphaRowBytesBF16 = 64;")],
+              # fp32 only: a bf16 row of 128 bytes is 64 lanes, 512 corner threads
+              "128-byte rows": [(LSE, "constexpr int kAlphaRowBytesF32 = 32;",
+                                 "constexpr int kAlphaRowBytesF32 = 128;")]}
+ALPHA_RING = {
+    **{f"{n} TMA stages": [(LSE, "constexpr int kAlphaStages = 16;", f"constexpr int kAlphaStages = {n};")]
+       for n in (4, 8)},
+    **{f"L2 promotion {p}": [("semicrf_alpha.cu", "CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                              f"CU_TENSOR_MAP_L2_PROMOTION_{p}")] for p in ("NONE", "L2_256B")},
+    # stages of 64 owned begins (4 rows a slot, 8 stages of 16 KB): half the
+    # waits a block, but a box traverses 64 C <= 256 begins, so C <= 4
+    "64 begins a stage": [
+        (LSE, "  static constexpr int kRows = 2 * kSlots;                   // owned begins a stage, 2 a slot",
+         "  static constexpr int kRows = 4 * kSlots;"),
+        (LSE, "constexpr int kAlphaStages = 16;", "constexpr int kAlphaStages = 8;"),
+        (LSE, "constexpr int kAlphaMaxCluster = 8;", "constexpr int kAlphaMaxCluster = 4;"),
+        (LSE, "        for (int t = 0; t < 2; ++t) {\n          const int u = slot + A::kSlots * t;",
+         "        for (int t = 0; t < 4; ++t) {\n          const int u = slot + A::kSlots * t;")],
+}
+STEP_A = [("semicrf_beta.cu", "launch_lse_cluster<false, float>", "launch_lse_cluster<true, float>"),
+          ("semicrf_beta.cu", "launch_lse_cluster<false, __nv_bfloat16>",
+           "launch_lse_cluster<true, __nv_bfloat16>"),
+          ("semicrf_beta.cu", "lse_cluster_max_clusters<false>", "lse_cluster_max_clusters<true>")]
+# clock64 stamps in the alpha kernel: (file, text as it is, text with a
+# stamp, the text after which the patch applies); a consumer's phases are
+# recorded by thread 0, the corner's by the first corner thread; the clock
+# reads are ordered with the memory operations and barriers around them
+ALPHA_KERNEL = "alpha_tma_kernel(const __grid_constant__"
+ALPHA_PHASES = ("far pass over the older rows", "waiting for the previous corner",
+                "far pass over the previous block's rows", "merge in the warp + stores",
+                "cluster barrier", "the corner (on its own warps)")
+ALPHA_STAMPS = [
+    (LSE, "    const int k0 = n * kBlock;\n    const int owned = owned_below(k0, rank, c);\n    // rows below",
+     "    long long t0 = study_clock(), waited = 0;\n"
+     "    const int k0 = n * kBlock;\n    const int owned = owned_below(k0, rank, c);\n    // rows below", ALPHA_KERNEL),
+    (LSE, "      if (wait) mbar_wait(&full[at], (stage / kAlphaStages) & 1);\n",
+     "      long long w0 = study_clock();\n      if (wait) mbar_wait(&full[at], (stage / kAlphaStages) & 1);\n"
+     "      waited += study_clock() - w0;\n", ALPHA_KERNEL),
+    (LSE, "    if (n > 0) named_sync(kCornerDone, kCornerMeet);",
+     "    long long t1 = study_clock();\n    if (n > 0) named_sync(kCornerDone, kCornerMeet);\n"
+     "    long long t2 = study_clock();", ALPHA_KERNEL),
+    (LSE, "    float2 pair[V];\n", "    long long t3 = study_clock();\n    float2 pair[V];\n", ALPHA_KERNEL),
+    (LSE, "    cluster_arrive();\n    cluster_wait();\n  }\n}\n",
+     "    long long t4 = study_clock();\n    cluster_arrive();\n    cluster_wait();\n"
+     "    long long t5 = study_clock();\n    if (threadIdx.x == 0) {\n"
+     "      unsigned long long* d = study_cycles + blockIdx.x * 8;\n"
+     "      d[0] += t1 - t0; d[1] += t2 - t1; d[2] += t3 - t2; d[3] += t4 - t3; d[4] += t5 - t4;\n"
+     "      d[6] += waited; d[7] += 1;\n    }\n  }\n}\n", ALPHA_KERNEL),
+    (LSE, "      cn.template run<G>(parts, tab, out, n, i, cl, tp, nbp, col0 + cl, c, rank, n & 1);\n",
+     "      long long c0 = study_clock();\n"
+     "      cn.template run<G>(parts, tab, out, n, i, cl, tp, nbp, col0 + cl, c, rank, n & 1);\n"
+     "      if (ct == 0) study_cycles[blockIdx.x * 8 + 5] += study_clock() - c0;\n", ALPHA_KERNEL),
+    (LSE, '#include "cluster_dp.cuh"\n',
+     '#include "cluster_dp.cuh"\n\n__device__ unsigned long long study_cycles[4096 * 8];\n'
+     '__device__ __forceinline__ long long study_clock() {\n  long long t;\n'
+     '  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");\n  return t;\n}\n', None),
+    ("semicrf_alpha.cu", 'extern "C" {\n', 'extern "C" {\n\nint study_read(void* host) {\n'
+     '  return (int)cudaMemcpyFromSymbol(host, study_cycles, sizeof(study_cycles));\n}\n\n'
+     'int study_zero() {\n  static unsigned long long zero[4096 * 8];\n'
+     '  return (int)cudaMemcpyToSymbol(study_cycles, zero, sizeof(zero));\n}\n', None),
+]
+
 
 def build(tmp, name, edits, source):
-    """Copy ``csrc`` to ``tmp/name``, apply ``edits``, compile ``source``;
-    returns the loaded library."""
+    """Copy ``csrc`` to ``tmp/name``, apply ``edits`` ((file, old, new) or
+    (file, old, new, anchor): the first ``old`` after ``anchor``), compile
+    ``source``; returns the loaded library."""
     from transkun_tpu_torch.ops import _build
 
     d = os.path.join(tmp, name.replace(" ", "_").replace(":", ""))
     if not os.path.exists(d):
         shutil.copytree(_build.CSRC_DIR, d)
-        for fname, old, new in edits:
+        for fname, old, new, *anchor in edits:
             path = os.path.join(d, fname)
             text = open(path).read()
-            if old not in text:
+            at = text.find(anchor[0]) if anchor and anchor[0] else 0
+            if at < 0 or old not in text[at:]:
                 raise RuntimeError(f"{name}: {fname} no longer holds {old[:50]!r}")
             with open(path, "w") as f:
-                f.write(text.replace(old, new))
+                f.write(text[:at] + text[at:].replace(old, new, 1))
     out = os.path.join(d, f"lib{source}.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
                            os.path.join(d, source + ".cu")], capture_output=True, text=True)
@@ -111,8 +194,9 @@ def build(tmp, name, edits, source):
 
 
 def inputs(kernel, t, nbp, dtype, dev):
-    """Scores, noise and diagonal of ``kernel`` ("viterbi" or "beta") at the
-    padded shape of t positions, and the plain version's table."""
+    """Scores, noise and diagonal of ``kernel`` ("viterbi", "alpha" or
+    "beta") at the padded shape of t positions, and the plain version's
+    table."""
     import torch
 
     from transkun_tpu_torch.ops import logz, viterbi
@@ -128,7 +212,11 @@ def inputs(kernel, t, nbp, dtype, dev):
     if kernel == "viterbi":
         args = [s, noise, diag * (diag > 0)]
         return args, viterbi.viterbi_backward_tables_plain(*args)
-    args = [s, noise, torch.nn.functional.softplus(diag).contiguous()]
+    spdiag = torch.nn.functional.softplus(diag).contiguous()
+    if kernel == "alpha":
+        args = [s, torch.nn.functional.pad(noise[:-1], (0, 0, 1, 0)).contiguous(), spdiag]
+        return args, logz.alpha_table_padded_plain(*args)
+    args = [s, noise, spdiag]
     return args, logz.beta_table_padded_plain(*args)
 
 
@@ -194,6 +282,53 @@ def sweep(card, dev):
                       f"ms a launch by cluster size: {'; '.join(times)}", flush=True)
 
 
+def sweep_alpha(card, dev, tmp):
+    """Kernel 2 at [696,696,384]: as it is, with other rows a CTA, and step A."""
+    import torch
+
+    from transkun_tpu_torch.ops import _cluster, logz
+
+    designs = {**{name: ("semicrf_alpha", e) for name, e in {**ALPHA_ROWS, **ALPHA_RING}.items()},
+               "step A (kernel 3's body, register loads)": ("semicrf_beta", STEP_A)}
+    with ThreadPoolExecutor(len(designs)) as pool:
+        libs = dict(zip(designs, pool.map(lambda n: build(tmp, n, designs[n][1], designs[n][0]),
+                                          designs)))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        args, want = inputs("alpha", 691, 384, dtype, dev)
+        plan = logz.alpha_card_plan(args[0])
+        counts = _cluster.card_max_clusters(logz._library("semicrf_alpha").semicrf_alpha_max_clusters,
+                                            696, dtype, 0)
+        times = []
+        for c in _cluster.ALPHA_CLUSTER_SIZES:
+            ok = agrees("alpha", logz.alpha_table_padded_cuda(*args, cluster=c), want)
+            times.append(f"{c}: {device_ms(lambda: logz.alpha_table_padded_cuda(*args, cluster=c)):.4f}"
+                         + ("" if ok else " WRONG"))
+        print(f"sweep alpha [696,696,384] {tag} ({card}): as it is ({plan.row_bytes}-byte rows, "
+              f"{plan.stages} TMA stages), planned cluster {plan.cluster} ({plan.ctas} CTAs); clusters "
+              f"the card holds at once {counts}; ms a launch by cluster size: {'; '.join(times)}",
+              flush=True)
+        out = torch.empty_like(want)
+        for name, (source, _) in designs.items():
+            if name == "128-byte rows" and dtype == torch.bfloat16:
+                continue
+            lanes = (64 if "64" in name else 128 if "128" in name else 32) // args[0].element_size()
+            times = []
+            for c in (SIZES if source == "semicrf_beta" else _cluster.ALPHA_CLUSTER_SIZES):
+                call = launcher(libs[name], source, args, out, c)
+                try:
+                    call()
+                except RuntimeError:  # e.g. more shared memory than a CTA may have
+                    times.append(f"{c}: refused")
+                    continue
+                torch.cuda.synchronize()
+                ok = agrees("alpha", out, want)
+                times.append(f"{c} ({384 // lanes * c} CTAs): {device_ms(call):.4f}" + ("" if ok else " WRONG"))
+            print(f"sweep alpha {name} [696,696,384] {tag} ({card}): ms a launch by cluster size: "
+                  f"{'; '.join(times)}", flush=True)
+        del args, want, out
+
+
 def phases(card, dev, tmp):
     import torch
 
@@ -220,6 +355,37 @@ def phases(card, dev, tmp):
             print(f"phases ({name}) viterbi [696,696,128] float32 cluster {c} ({card}): {ms:.4f} ms"
                   f"{'' if ok else ' WRONG'}; cycles a block: "
                   + ", ".join(f"{p} {x:.0f}" for p, x in zip(PHASES, per_block)), flush=True)
+    alpha_phases(card, dev, tmp, "stamps", ALPHA_STAMPS, range(1, 9))
+
+
+def alpha_phases(card, dev, tmp, name, edits, sizes):
+    """The alpha kernel built with ``edits`` (stamps included): device ms
+    and cycles a block by phase, at [696,696,384] fp32 and bf16."""
+    import torch
+
+    lib = build(tmp, "alpha " + name, edits, "semicrf_alpha")
+    lib.study_read.argtypes = [ctypes.c_void_p]
+    for dtype in (torch.float32, torch.bfloat16):
+        args, want = inputs("alpha", 691, 384, dtype, dev)
+        out = torch.empty_like(want)
+        groups = 384 // (32 // args[0].element_size())
+        for c in sizes:
+            call = launcher(lib, "semicrf_alpha", args, out, c)
+            call()
+            torch.cuda.synchronize()
+            ok = agrees("alpha", out, want)
+            lib.study_zero()
+            ms = device_ms(call)
+            cycles = np.zeros(4096 * 8, np.uint64)
+            lib.study_read(cycles.ctypes.data)
+            cycles = cycles.reshape(-1, 8)[: groups * c].astype(np.float64)
+            per_block = cycles[:, :7].sum(0) / cycles[:, 7].sum()
+            print(f"phases alpha ({name}) [696,696,384] {str(dtype)[6:]} cluster {c} ({card}): {ms:.4f} ms"
+                  f"{'' if ok else ' WRONG'}; cycles a block: "
+                  + ", ".join(f"{p} {x:.0f}" for p, x in zip(ALPHA_PHASES, per_block))
+                  + f" (of the far pass, waiting for the ring {per_block[6]:.0f}); "
+                  f"a block {ms * 1e-3 / -(-691 // 8) * 1e9:.0f} ns", flush=True)
+        del args, want, out
 
 
 def variants(card, dev, tmp):
@@ -264,6 +430,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.sweep:
             sweep(card, dev)
+            sweep_alpha(card, dev, tmp)
         if args.phases:
             phases(card, dev, tmp)
         if args.variants:

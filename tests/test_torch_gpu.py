@@ -1,6 +1,7 @@
 """The port's eight CUDA kernels against their plain PyTorch versions, on the card;
-the Viterbi and beta kernels also on tie-heavy inputs, at every cluster size
-and at the cluster edges (one lane group; more lane groups than SMs).
+the Viterbi kernel also on tie-heavy inputs, and the Viterbi, alpha and beta
+kernels at every cluster size and at the cluster edges (one lane group; more
+lane groups than SMs; a ragged Tp).
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -119,9 +120,9 @@ def test_logz_kernels_equal_plain(cuda, t, nbp, nb_real):
 def test_logz_kernels_equal_plain_from_bf16_scores(cuda, t, nbp, nb_real):
     """bf16 scores, spdiag from the rounded diagonal: within the fp32 bound
     of the plain versions (which upcast the same bits), and equal to the
-    fp32 kernels on the upcast tensor bit for bit (the beta kernel at the
-    bf16 launch's cluster size: the cluster splits each lane's sum, and the
-    two types are planned apart); then ``log_z_padded`` gives a bf16 score
+    fp32 kernels on the upcast tensor bit for bit (each at the bf16
+    launch's cluster size: the cluster splits each lane's sum, and the two
+    types are planned apart); then ``log_z_padded`` gives a bf16 score
     cotangent that is zero on the padded lanes."""
     s, shift, noise, _ = _table_inputs(np.random.default_rng(t), t, nbp, nb_real, cuda)
     s_b = s.bfloat16()
@@ -133,7 +134,8 @@ def test_logz_kernels_equal_plain_from_bf16_scores(cuda, t, nbp, nb_real):
     assert (logz.alpha_launches, logz.beta_launches) == (a0 + 1, b0 + 1)
     _assert_table_close(v, logz.alpha_table_padded_plain(s_b, shift, spdiag))
     _assert_table_close(q, logz.beta_table_padded_plain(s_b, noise, spdiag))
-    assert torch.equal(v, logz.alpha_table_padded(s_b.float(), shift, spdiag))
+    cluster = logz.alpha_card_plan(s_b).cluster
+    assert torch.equal(v, logz.alpha_table_padded_cuda(s_b.float(), shift, spdiag, cluster=cluster))
     cluster = logz.beta_card_plan(s_b).cluster
     assert torch.equal(q, logz.beta_table_padded_cuda(s_b.float(), noise, spdiag, cluster=cluster))
     s_b.requires_grad_()
@@ -254,6 +256,89 @@ def test_launch_plans_match_the_libraries(cuda, dtype):
         vp, bp = viterbi.launch_plan(-(-tp // 8) * 8, nbp, dtype, n_sm), logz.launch_plan(tp, nbp, dtype, n_sm)
         assert viterbi._library().viterbi_bwd_smem_bytes(-(-tp // 8) * 8, vp.cluster, bf16) == vp.smem
         assert logz._library("semicrf_beta").semicrf_beta_smem_bytes(tp, bp.cluster, bf16) == bp.smem
+        ap = logz.alpha_launch_plan(tp, nbp, dtype, n_sm)
+        assert logz._library("semicrf_alpha").semicrf_alpha_smem_bytes(tp, ap.cluster, bf16) == ap.smem
+
+
+# -- the alpha kernel (blocked over a cluster, far scores by TMA) --------------
+
+def _alpha_twice(s, shift, spdiag, cluster=None):
+    """Two launches of the alpha kernel, which must count two launches and
+    give the same bits; returns the table."""
+    before = logz.alpha_launches
+    got = logz.alpha_table_padded_cuda(s, shift, spdiag, cluster=cluster)
+    again = logz.alpha_table_padded_cuda(s, shift, spdiag, cluster=cluster)
+    torch.cuda.synchronize()
+    assert logz.alpha_launches == before + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.fixture(scope="module")
+def training_batch():
+    """The training batch's alpha inputs [696,696,384] (t = 691, 360 real
+    lanes), made once: (fp32 scores, shifted noise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, shift, _, _ = _table_inputs(np.random.default_rng(691), 691, 384, 360, torch.device("cuda"))
+    return s, shift
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_alpha_kernel_at_every_cluster_size(training_batch, cluster, dtype):
+    """The training batch at every cluster size the plan allows: a box of
+    32 owned begins traverses 32 * C <= 256."""
+    s, shift = training_batch
+    s = s.to(dtype)
+    spdiag = torch.nn.functional.softplus(torch.diagonal(s).t().float()).contiguous()
+    got = _alpha_twice(s, shift, spdiag, cluster)
+    _assert_table_close(got, logz.alpha_table_padded_plain(s, shift, spdiag))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,nbp", CLUSTER_EDGES + [(125, 256)])
+def test_alpha_kernel_equals_plain_at_cluster_edges(cuda, t, nbp, dtype):
+    """One lane group, more lane groups than SMs, and Tp = 125 (not a
+    multiple of 8: the last block part full, boxes past the last end)."""
+    from transkun_tpu_torch.ops import _cluster
+
+    nbp = nbp or _cluster.lanes_per_cta(dtype, _cluster.ALPHA_ROW_BYTES[dtype])
+    s, shift, _, spdiag = _table_inputs(np.random.default_rng(t), t + 2, nbp, nbp, cuda)
+    if t == 125:
+        s, shift, spdiag = s[:125, :125].contiguous(), shift[:125].contiguous(), spdiag[:125].contiguous()
+    s = s.to(dtype)
+    got = _alpha_twice(s, shift, spdiag)
+    _assert_table_close(got, logz.alpha_table_padded_plain(s, shift, spdiag))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_log_z_padded_through_the_kernels_equals_the_cpu_route(cuda, dtype):
+    """logZ and its score and noise cotangents through the alpha and beta
+    kernels against the same function on the CPU (the plain versions).
+    logZ within 1e-5 relative, as the tables; the cotangents, which
+    exponentiate sums of table entries each within 1e-5 * |v|, within 1e-4
+    (``chip_smoke.py``'s bound for the logZ gradient), and a bf16 cotangent
+    also within one bf16 spacing (2**-7 relative), which such a difference
+    can flip."""
+    t = 123
+    s, _, noise, _ = _table_inputs(np.random.default_rng(5), t, 256, 200, cuda)
+    s = s.to(dtype)
+    w = torch.from_numpy(np.random.default_rng(6).uniform(0.5, 1.5, 256).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        s_d, noise_d = (a.detach().to(dev).requires_grad_() for a in (s, noise))
+        a0 = logz.alpha_launches
+        lz = logz.log_z_padded(t, s_d, noise_d)
+        (lz * w.to(dev)).sum().backward()
+        assert logz.alpha_launches == a0 + (dev.type == "cuda")
+        grads.append([x.detach().float().cpu() for x in (lz, s_d.grad, noise_d.grad)])
+    tolerances = ((1e-5, 1e-5), (0.0 if dtype == torch.float32 else 2**-7, 1e-4), (0.0, 1e-4))
+    for got, want, (rtol, atol) in zip(*grads, tolerances):
+        assert torch.allclose(got, want, rtol=rtol, atol=atol), float((got - want).abs().max())
 
 
 # -- fused attention and MLP --------------------------------------------------

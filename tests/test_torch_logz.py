@@ -191,3 +191,41 @@ def test_beta_launch_plan_covers_every_lane_and_term(tp, nbp, dtype, n_sm):
     plan = logz.launch_plan(tp, nbp, dtype, n_sm)
     assert plan.groups * plan.lanes == nbp
     check_plan(plan, tp, nbp, n_sm, _build.SMEM_LIMIT)
+
+
+# the training batch [696,696,384], a small one and a ragged Tp (the last
+# block part full)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp,nbp", [(696, 384), (64, 256), (125, 256)])
+def test_alpha_launch_plan_covers_every_lane_and_term(tp, nbp, dtype):
+    """The alpha kernel's plan on an H100's 132 SMs (``model_max_clusters``):
+    every lane in one group, every m < k0 reduced once across the ranks and
+    slots, the TMA boxes of each rank load exactly its owned m < k0 (each
+    once, ``rows`` a box) within the TMA unit's limits (a traversal of at
+    most 256 elements and a stride of at most 8 a dimension, 16-byte inner
+    rows), and shared memory within the limit."""
+    from test_torch_viterbi import check_plan
+    from transkun_tpu_torch.ops import _build, _cluster
+
+    n_sm = 132
+    plan = logz.alpha_launch_plan(tp, nbp, dtype, n_sm, max_clusters=_cluster.model_max_clusters(n_sm))
+    assert plan == logz.alpha_launch_plan(tp, nbp, dtype, n_sm)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert plan.lanes * size == plan.row_bytes == _cluster.ALPHA_ROW_BYTES[dtype]
+    assert plan.groups * plan.lanes == nbp
+    check_plan(plan, tp, nbp, n_sm, _build.SMEM_LIMIT, _cluster.ALPHA_CLUSTER_SIZES)
+    assert plan.stages == _cluster.ALPHA_STAGES and plan.rows == 2 * plan.slots
+    assert all(1 <= b <= _cluster.TMA_MAX_BOX for b in plan.box)
+    assert all(1 <= e <= _cluster.TMA_MAX_STRIDE for e in plan.element_strides)
+    assert plan.box[0] * size % 16 == 0 and plan.element_strides[0] == 1
+    assert plan.box[2] == _cluster.BLOCK
+    for k0 in range(0, tp, _cluster.BLOCK):
+        for rank in range(plan.cluster):
+            boxes = _cluster.boxes_of_block(plan, rank, k0)
+            assert all(len(b) == plan.rows for b in boxes)  # ceil(traversal / stride)
+            loaded = [m for b in boxes for m in b if m < k0]
+            assert loaded == list(range(rank, k0, plan.cluster))
+    if (tp, nbp) == (696, 384):  # the training batch: the beta kernel's grid
+        beta = logz.launch_plan(tp, nbp, dtype, n_sm)
+        assert (plan.cluster, plan.ctas) == (beta.cluster, beta.ctas)
+        assert plan.ctas == 96 if dtype == torch.float32 else plan.cluster == 5

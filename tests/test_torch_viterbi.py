@@ -140,29 +140,31 @@ def test_decode_equals_jax(rng, forward, ties):
 PLAN_SHAPES = [(696, 128), (696, 384), (128, 256), (128, None), (64, 8192)]
 
 
-def check_plan(plan, tp, nbp, n_sm, smem_limit):
+def check_plan(plan, tp, nbp, n_sm, smem_limit, sizes=None):
     """What a launch plan of the blocked cluster kernels must give: each lane
     in one lane group, every earlier position of every block reduced by
     exactly one thread slot of the cluster, shared memory within the limit, a
-    cluster size the card allows, and all clusters on the card at once
-    whenever the groups allow."""
+    cluster size the card allows (one of ``sizes``, by default all 16), and
+    all clusters on the card at once whenever the groups allow."""
     from transkun_tpu_torch.ops import _cluster
 
+    sizes = sizes or _cluster.CLUSTER_SIZES
     lanes = [lane for cta in range(0, plan.ctas, plan.cluster)
              for lane in _cluster.lanes_of_cta(plan, cta)]
     assert sorted(lanes) == list(range(nbp))
     for k0 in range(0, tp, _cluster.BLOCK):
-        others = [m for rank in range(plan.cluster) for slot in range(_cluster.SLOTS)
+        others = [m for rank in range(plan.cluster) for slot in range(plan.slots)
                   for m in _cluster.others_of_thread(plan, rank, slot, k0)]
         assert sorted(others) == list(range(k0))
     assert plan.smem <= smem_limit
-    assert plan.cluster in _cluster.CLUSTER_SIZES and plan.portable == (plan.cluster <= 8)
+    assert plan.cluster in sizes and plan.portable == (plan.cluster <= 8)
     fits = _cluster.model_max_clusters(n_sm)
     assert plan.groups <= fits[plan.cluster] or plan.cluster == 1
     blocks = -(-tp // _cluster.BLOCK)
-    assert all(plan.groups > fits[c] for c in _cluster.CLUSTER_SIZES
+    assert all(plan.groups > fits[c] for c in sizes
                if plan.cluster < c <= blocks)  # no larger cluster fits
-    assert plan.threads == 256
+    # the alpha kernel's corner threads (one a position and lane) and producer warp
+    assert plan.threads == 256 + (8 * plan.lanes + 32) * (plan.stages > 0)
 
 
 @pytest.mark.parametrize("n_sm", [132, 114])

@@ -33,10 +33,16 @@
 // The partials go into one of two buffers by the block's parity: a CTA
 // reads buffer n & 1 after the barrier of block n, while faster CTAs may
 // already write block n+1's partials into the other one.
+//
+// The alpha kernel (semicrf_lse_cluster.cuh) takes its far scores otherwise:
+// a TMA tensor copy of each block's box into a ring in shared memory,
+// completed on mbarriers (the primitives at the end of this file), and runs
+// its corner on threads of their own.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap (a type only: the map is encoded through the runtime)
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -70,12 +76,24 @@ struct Lanes {
 
 // The cluster barrier in two halves, so that a thread can issue loads
 // between them: the partials stored before the arrive are visible to every
-// CTA of the cluster after the wait.
+// CTA of the cluster after the wait.  A thread that has exited is not
+// waited for.
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// A named barrier (not barrier 0, which __syncthreads takes) of `threads`
+// threads: a producer of data arrives, which does not wait, and its
+// consumers sync; what the producers stored before they arrived is visible
+// to the consumers after the sync.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Dynamic shared memory of either kernel: two buffers of the C CTAs' 8-byte
@@ -125,7 +143,7 @@ __device__ __forceinline__ void load_row(const float* p, float (&x)[N]) {
   }
 }
 
-// The launch of `ctas` CTAs of kThreads threads in clusters of `cluster`,
+// The launch of `ctas` CTAs of `threads` threads in clusters of `cluster`,
 // with `smem` bytes of dynamic shared memory, after setting the kernel's
 // attributes that this needs.  Returns the cudaError_t (0 on success).
 struct ClusterLaunch {
@@ -133,14 +151,15 @@ struct ClusterLaunch {
   cudaLaunchAttribute attr[1];
 
   template <typename... Args>
-  cudaError_t prepare(void (*kernel)(Args...), int ctas, int cluster, size_t smem, void* stream) {
+  cudaError_t prepare(void (*kernel)(Args...), int ctas, int cluster, size_t smem, void* stream,
+                      int threads) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess && cluster > 8) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     }
     cfg.gridDim = dim3((unsigned)ctas);
-    cfg.blockDim = dim3(kThreads);
+    cfg.blockDim = dim3((unsigned)threads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -153,22 +172,24 @@ struct ClusterLaunch {
   }
 };
 
-// Launch on `stream`; no allocation, no synchronisation.
-template <typename... Args>
+// Launch on `stream` with kBlockThreads threads a CTA; no allocation, no
+// synchronisation.
+template <int kBlockThreads = kThreads, typename... Args>
 int launch_clusters(void (*kernel)(Args...), int ctas, int cluster, size_t smem,
                     void* stream, Args... args) {
   ClusterLaunch l;
-  cudaError_t err = l.prepare(kernel, ctas, cluster, smem, stream);
+  cudaError_t err = l.prepare(kernel, ctas, cluster, smem, stream, kBlockThreads);
   if (err == cudaSuccess) err = cudaLaunchKernelEx(&l.cfg, kernel, args...);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// How many clusters of `cluster` CTAs the card holds at once (a cluster
-// lies within one GPC), written to *n; returns the cudaError_t.
-template <typename... Args>
+// How many clusters of `cluster` CTAs of kBlockThreads threads the card
+// holds at once (a cluster lies within one GPC), written to *n; returns the
+// cudaError_t.
+template <int kBlockThreads = kThreads, typename... Args>
 int max_active_clusters(void (*kernel)(Args...), int cluster, size_t smem, int* n) {
   ClusterLaunch l;
-  cudaError_t err = l.prepare(kernel, cluster, cluster, smem, nullptr);
+  cudaError_t err = l.prepare(kernel, cluster, cluster, smem, nullptr, kBlockThreads);
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(n, kernel, &l.cfg);
   return (int)err;
 }
@@ -181,6 +202,56 @@ __device__ __forceinline__ void load_pieces(uint4 (&buf)[kRound], int r0, int co
   for (int r = 0; r < kRound; ++r) {
     if (r0 + r < count) buf[r] = __ldg(reinterpret_cast<const uint4*>(piece(r0 + r)));
   }
+}
+
+// -- TMA tensor copies completed on an mbarrier (the alpha kernel's far scores)
+
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Initialise an mbarrier of `count` arrivals a phase (one thread); fence
+// before any other thread or the TMA unit uses it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_address(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive, and with `bytes` expect that many bytes of copies in this phase.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_address(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  Before the first
+// phase completes, parity 1 counts as completed, so a producer's first pass
+// over a ring does not wait.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t}" ::"r"(smem_address(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map, starting at element (x, y, z) (innermost
+// first), into shared memory at `dst`; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
 }
 
 }  // namespace

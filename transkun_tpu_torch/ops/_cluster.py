@@ -1,11 +1,13 @@
 """Launch plans of the blocked semi-CRF kernels that run as thread-block
-clusters (``csrc/cluster_dp.cuh``: the Viterbi kernel and the beta kernel).
+clusters (``csrc/cluster_dp.cuh``: the Viterbi, alpha and beta kernels).
 
-A CTA owns one lane group, a 32-byte sector of each score row (8 fp32 or 16
-bf16 lanes), and the earlier positions ``m = rank (mod C)`` of the cluster
-of C CTAs that share the group.  The plan is made here, on the host, so that
-the CPU tests can check it; the C functions take the cluster size and derive
-the rest.  The constants mirror the kernels'.
+A CTA owns one lane group (``row_bytes`` of each score row; a 32-byte
+sector holds 8 fp32 or 16 bf16 lanes) and the earlier positions
+``m = rank (mod C)`` of the cluster of C CTAs that share the group.  The
+alpha kernel's far scores arrive by TMA: a ring of stages, each one box of
+8 ends x ``rows`` owned begins.  The plan is made here, on the host, so
+that the CPU tests can check it; the C functions take the cluster size and
+derive the rest.  The constants mirror the kernels'.
 """
 
 from __future__ import annotations
@@ -13,44 +15,69 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 
 BLOCK = 8  # positions a block, one warp each
 THREADS = BLOCK * 32  # threads a CTA
-SLOTS = 16  # slots of earlier positions a warp: 16 slots x 2 halves of a sector
-SECTOR = 32  # bytes of a score row one CTA owns
+SECTOR = 32  # bytes of a score row one CTA owns (Viterbi, beta)
 CLUSTER_SIZES = tuple(range(1, 17))  # above 8 needs the non-portable attribute
 PORTABLE_CLUSTER = 8
+# the alpha kernel (csrc/semicrf_lse_cluster.cuh): bytes of a score row a CTA
+# owns by score dtype, stages of the TMA ring, and its cluster sizes: the TMA
+# unit strides at most 8 elements, and a box traverses at most 256
+ALPHA_ROW_BYTES = {torch.float32: 32, torch.bfloat16: 32}
+ALPHA_STAGES = 16
+ALPHA_CLUSTER_SIZES = tuple(range(1, 9))
+TMA_MAX_STRIDE, TMA_MAX_BOX = 8, 256
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """``lanes`` a CTA, ``groups`` of them, ``cluster`` CTAs sharing a group,
-    ``smem`` bytes of dynamic shared memory a CTA."""
+    """``lanes`` a CTA (``row_bytes`` of each score row), ``groups`` of them,
+    ``cluster`` CTAs sharing a group, ``smem`` bytes of dynamic shared memory
+    a CTA of ``threads``; with a TMA ring (the alpha kernel, whose producer
+    and corner have warps of their own), its ``stages``, each ``rows`` owned
+    begins of the block's 8 ends."""
 
     lanes: int
     groups: int
     cluster: int
     smem: int
+    row_bytes: int = SECTOR
+    stages: int = 0
+    rows: int = 0
+    threads: int = THREADS
 
     @property
     def ctas(self) -> int:
         return self.groups * self.cluster
 
     @property
-    def threads(self) -> int:
-        return THREADS
-
-    @property
     def portable(self) -> bool:
         return self.cluster <= PORTABLE_CLUSTER
 
+    @property
+    def slots(self) -> int:
+        """Slots of earlier positions a warp: 32 threads, 16 bytes of a row each."""
+        return 32 // (self.row_bytes // 16)
 
-def lanes_per_cta(dtype: torch.dtype) -> int:
-    """Lanes of one 32-byte sector of ``dtype`` scores: 8 fp32, 16 bf16."""
-    return SECTOR // torch.empty((), dtype=dtype).element_size()
+    @property
+    def box(self) -> tuple:
+        """The TMA box, innermost first: lanes, begins traversed, ends."""
+        return (self.lanes, self.rows * self.cluster, BLOCK)
+
+    @property
+    def element_strides(self) -> tuple:
+        """The TMA box's step along each dimension: every C-th begin."""
+        return (1, self.cluster, 1)
+
+
+def lanes_per_cta(dtype: torch.dtype, row_bytes: int = SECTOR) -> int:
+    """Lanes of ``row_bytes`` of ``dtype`` scores: 8 fp32 or 16 bf16 in a
+    32-byte sector."""
+    return row_bytes // torch.empty((), dtype=dtype).element_size()
 
 
 def model_max_clusters(n_sm: int) -> Dict[int, int]:
@@ -64,16 +91,17 @@ def model_max_clusters(n_sm: int) -> Dict[int, int]:
     return {c: n_sm // c if c <= 2 else 8 * (gpc // c) for c in CLUSTER_SIZES}
 
 
-def cluster_size(tp: int, groups: int, max_clusters: Mapping[int, int]) -> int:
+def cluster_size(tp: int, groups: int, max_clusters: Mapping[int, int],
+                 sizes: Sequence[int] = CLUSTER_SIZES) -> int:
     """The largest cluster (at most one CTA a block of 8 positions) of which
     the card holds all ``groups`` at once: a grid that does not fit runs as a
     second wave, which costs more than a smaller cluster (at [696,696,128]
     fp32 on an H100, 16 clusters of 8 took 0.85 ms, 16 of 6 0.49 ms:
-    ``scripts/study_cluster_dp.py --sweep``).  Any
-    size from 1 to 16 may be taken, not only powers of two."""
+    ``scripts/study_cluster_dp.py --sweep``).  Any of ``sizes`` may be
+    taken, not only powers of two."""
     blocks = -(-tp // BLOCK)
     best = 1
-    for c in CLUSTER_SIZES:
+    for c in sizes:
         if c <= blocks and groups <= max_clusters.get(c, 0):
             best = c
     return best
@@ -119,13 +147,43 @@ def launch_plan(tp: int, nbp: int, dtype: torch.dtype, n_sm: int, cluster: Optio
     return LaunchPlan(lanes, groups, cluster, smem)
 
 
-def card_plan(s: torch.Tensor, query, cluster: Optional[int] = None) -> LaunchPlan:
-    """The plan a wrapper launches the CUDA scores ``s`` with: ``launch_plan`` with
-    its card's SM count and the card's own count of co-resident clusters
-    (``query``: the kernel library's ``<name>_max_clusters``)."""
+def alpha_launch_plan(tp: int, nbp: int, dtype: torch.dtype, n_sm: int,
+                      cluster: Optional[int] = None,
+                      max_clusters: Optional[Mapping[int, int]] = None) -> LaunchPlan:
+    """The alpha kernel's grid, as ``launch_plan`` with a row of
+    ``ALPHA_ROW_BYTES`` a CTA and a cluster of at most 8 CTAs (the TMA unit's
+    largest element stride), and its ring: ``ALPHA_STAGES`` stages, each a
+    box of 8 ends x ``rows`` owned begins (2 a slot of a warp; the box
+    traverses rows x C <= 256 begins).  Shared memory: the ring, the two
+    buffers of partials and the table rows as ``launch_plan``'s (each corner
+    thread merges its own partials, so there is no merged buffer), and the
+    ring's two 8-byte mbarriers a stage.  A CTA is the 8 warps of
+    ``launch_plan``'s, a corner thread a (position, lane) and a producer
+    warp."""
+    row_bytes = ALPHA_ROW_BYTES[dtype]
+    lanes = lanes_per_cta(dtype, row_bytes)
+    groups = nbp // lanes
+    if cluster is None:
+        cluster = cluster_size(tp, groups, max_clusters or model_max_clusters(n_sm),
+                               ALPHA_CLUSTER_SIZES)
+    elif cluster not in ALPHA_CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster} is not one of {ALPHA_CLUSTER_SIZES}")
+    rows = 2 * (32 // (row_bytes // 16))
+    ring = ALPHA_STAGES * BLOCK * rows * row_bytes
+    smem = (ring + 2 * cluster * BLOCK * lanes * 8 + -(-tp // cluster) * lanes * 4
+            + 2 * ALPHA_STAGES * 8)
+    return LaunchPlan(lanes, groups, cluster, smem, row_bytes, ALPHA_STAGES, rows,
+                      THREADS + BLOCK * lanes + 32)
+
+
+def card_plan(s: torch.Tensor, query, cluster: Optional[int] = None, plan=launch_plan) -> LaunchPlan:
+    """The plan a wrapper launches the CUDA scores ``s`` with: ``plan``
+    (``launch_plan`` or ``alpha_launch_plan``) with its card's SM count and
+    the card's own count of co-resident clusters (``query``: the kernel
+    library's ``<name>_max_clusters``)."""
     tp, _, nbp = s.shape
     index = s.device.index
-    return launch_plan(tp, nbp, s.dtype, sm_count(index), cluster,
+    return plan(tp, nbp, s.dtype, sm_count(index), cluster,
                 card_max_clusters(query, tp, s.dtype, index))
 
 
@@ -139,12 +197,28 @@ def lanes_of_cta(plan: LaunchPlan, cta: int) -> range:
 def others_of_thread(plan: LaunchPlan, rank: int, slot: int, k0: int) -> List[int]:
     """The earlier positions m < k0 (processing order) whose scores the
     threads of ``slot`` in CTA ``rank`` reduce for the block starting at
-    ``k0``: m = rank + C*u, u = slot, slot + 16, ... (``owned_below`` and
-    ``pieces_of_slot`` in the kernels)."""
+    ``k0``: m = rank + C*u, u = slot, slot + slots, ... (``owned_below`` and
+    ``pieces_of_slot`` in the kernels; in the alpha kernel row u of the ring
+    is row u % rows of stage u // rows, and a stage holds 2 rows a slot)."""
+    c, slots = plan.cluster, plan.slots
+    count = (owned_below(plan, rank, k0) - slot + slots - 1) // slots
+    return [rank + c * (slot + slots * t) for t in range(max(count, 0))]
+
+
+def owned_below(plan: LaunchPlan, rank: int, k0: int) -> int:
+    """How many earlier positions m < k0 CTA ``rank`` owns (m = rank mod C)."""
     c = plan.cluster
-    u_hi = (k0 - rank + c - 1) // c if k0 > rank else 0
-    count = (u_hi - slot + SLOTS - 1) // SLOTS if u_hi > slot else 0
-    return [rank + c * (slot + SLOTS * t) for t in range(count)]
+    return (k0 - rank + c - 1) // c if k0 > rank else 0
+
+
+def boxes_of_block(plan: LaunchPlan, rank: int, k0: int) -> List[List[int]]:
+    """The begins each TMA box of the alpha kernel loads for CTA ``rank`` and
+    the block starting at ``k0``: box j starts at begin rank + C*rows*j and
+    takes every C-th of the ``box[1]`` begins it traverses (``stages_of``
+    and ``issue`` in the kernel)."""
+    c = plan.cluster
+    first = [rank + c * plan.rows * j for j in range(-(-owned_below(plan, rank, k0) // plan.rows))]
+    return [list(range(m, m + plan.box[1], plan.element_strides[1])) for m in first]
 
 
 @functools.cache

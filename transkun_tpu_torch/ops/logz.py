@@ -15,10 +15,10 @@ logZ 0.
 
 On a CPU tensor each wrapper runs its plain version.  On a CUDA tensor it
 launches its kernel or raises; it never falls back.  Both kernels are
-bounded by their chain of Tp dependent positions (see the CUDA sources).
-The beta kernel takes them in blocks of 8 and splits each lane group's
-terms over a thread-block cluster, as planned by ``launch_plan``; the alpha
-kernel still runs the first port's one-position-at-a-time design.
+bounded by their chain of Tp dependent positions (see the CUDA sources):
+they take them in blocks of 8 and split each lane group's terms over a
+thread-block cluster, as planned by ``launch_plan`` (beta) and
+``alpha_launch_plan`` (alpha, whose far scores arrive by TMA).
 """
 
 from __future__ import annotations
@@ -82,26 +82,35 @@ def launch_plan(tp: int, nbp: int, dtype: torch.dtype, n_sm: int,
     return _cluster.launch_plan(tp, nbp, dtype, n_sm, cluster, max_clusters)
 
 
+def alpha_launch_plan(tp: int, nbp: int, dtype: torch.dtype, n_sm: int,
+                      cluster: Optional[int] = None,
+                      max_clusters: Optional[Mapping[int, int]] = None) -> _cluster.LaunchPlan:
+    """The alpha kernel's grid and TMA ring for ``s_pad [tp, tp, nbp]``
+    (``_cluster.alpha_launch_plan``): as the beta kernel's, with a cluster of
+    at most 8 CTAs."""
+    return _cluster.alpha_launch_plan(tp, nbp, dtype, n_sm, cluster, max_clusters)
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    # the beta kernel also takes the cluster size
-    n_int = 4 if name == "semicrf_beta" else 3
     for suffix in _SUFFIX_OF.values():
         fn = getattr(lib, name + suffix)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    if name == "semicrf_alpha":
-        lib.semicrf_alpha_lanes_per_block.argtypes = []
-        lib.semicrf_alpha_lanes_per_block.restype = ctypes.c_int
-    else:
-        lib.semicrf_beta_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-        lib.semicrf_beta_max_clusters.restype = ctypes.c_int
-    getattr(lib, name + "_smem_bytes").argtypes = [ctypes.c_int] * (n_int - 2)
+    getattr(lib, name + "_max_clusters").argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    getattr(lib, name + "_max_clusters").restype = ctypes.c_int
+    getattr(lib, name + "_smem_bytes").argtypes = [ctypes.c_int] * 3
     getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
     getattr(lib, name + "_error_string").argtypes = [ctypes.c_int]
     getattr(lib, name + "_error_string").restype = ctypes.c_char_p
     return lib
+
+
+def alpha_card_plan(s_pad: torch.Tensor, cluster: Optional[int] = None) -> _cluster.LaunchPlan:
+    """The plan ``alpha_table_padded_cuda`` launches ``s_pad`` with."""
+    return _cluster.card_plan(s_pad, _library("semicrf_alpha").semicrf_alpha_max_clusters, cluster,
+                              _cluster.alpha_launch_plan)
 
 
 def beta_card_plan(s_pad: torch.Tensor, cluster: Optional[int] = None) -> _cluster.LaunchPlan:
@@ -109,11 +118,14 @@ def beta_card_plan(s_pad: torch.Tensor, cluster: Optional[int] = None) -> _clust
     return _cluster.card_plan(s_pad, _library("semicrf_beta").semicrf_beta_max_clusters, cluster)
 
 
+_CARD_PLAN_OF = {"semicrf_alpha": alpha_card_plan, "semicrf_beta": beta_card_plan}
+
+
 def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.Tensor,
             cluster: Optional[int] = None) -> torch.Tensor:
     """Check the inputs, allocate the table and launch ``name`` on the
-    current stream; the beta kernel with ``launch_plan``'s grid (``cluster``
-    overrides its cluster size)."""
+    current stream with its card plan's grid (``cluster`` overrides its
+    cluster size)."""
     if s_pad.dtype not in _SUFFIX_OF:
         raise TypeError(f"s_pad must be float32 or bfloat16, got {s_pad.dtype}")
     tp, tp2, nbp = s_pad.shape
@@ -131,28 +143,21 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
             f"shapes s_pad {tuple(s_pad.shape)}, noise {tuple(noise.shape)}, "
             f"spdiag {tuple(spdiag.shape)}: want [Tp,Tp,NBp], [Tp,NBp], [Tp,NBp]"
         )
-    lib = _library(name)
-    if name == "semicrf_beta":
-        lanes = _cluster.lanes_per_cta(s_pad.dtype)
-        if tp == 0 or nbp == 0 or nbp % lanes:
-            raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
-        plan = beta_card_plan(s_pad, cluster)
-        extra, smem = (plan.cluster,), plan.smem
-    else:
-        lanes = lib.semicrf_alpha_lanes_per_block()
-        if tp == 0 or nbp == 0 or nbp % lanes:
-            raise ValueError(f"Tp={tp} must be positive, NBp={nbp} a multiple of {lanes}")
-        extra = ()
-        smem = lib.semicrf_alpha_smem_bytes(tp)
-    if smem > _build.SMEM_LIMIT:
+    if tp == 0 or nbp == 0:
+        raise ValueError(f"Tp={tp} and NBp={nbp} must be positive")
+    plan = _CARD_PLAN_OF[name](s_pad, cluster)
+    if nbp % plan.lanes:
+        raise ValueError(f"NBp={nbp} must be a multiple of {plan.lanes}")
+    if plan.smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"Tp={tp} needs {smem} B of shared memory, above {_build.SMEM_LIMIT} B: "
+            f"Tp={tp} needs {plan.smem} B of shared memory, above {_build.SMEM_LIMIT} B: "
             "chunk too long for the kernel"
         )
+    lib = _library(name)
     out = torch.empty(tp, nbp, dtype=torch.float32, device=s_pad.device)
     err = getattr(lib, name + _SUFFIX_OF[s_pad.dtype])(
         s_pad.data_ptr(), noise.data_ptr(), spdiag.data_ptr(), out.data_ptr(),
-        tp, nbp, *extra, s_pad.device.index,
+        tp, nbp, plan.cluster, s_pad.device.index,
         torch.cuda.current_stream(s_pad.device).cuda_stream,
     )
     if err != 0:
@@ -163,11 +168,13 @@ def _launch(name: str, s_pad: torch.Tensor, noise: torch.Tensor, spdiag: torch.T
 
 
 def alpha_table_padded_cuda(
-    s_pad: torch.Tensor, noise_shift: torch.Tensor, spdiag: torch.Tensor
+    s_pad: torch.Tensor, noise_shift: torch.Tensor, spdiag: torch.Tensor,
+    cluster: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the alpha kernel; raises on anything it does not take."""
+    """Launch the alpha kernel with ``alpha_launch_plan``'s grid (``cluster``
+    overrides its cluster size); raises on anything it does not take."""
     global alpha_launches
-    v = _launch("semicrf_alpha", s_pad, noise_shift, spdiag)
+    v = _launch("semicrf_alpha", s_pad, noise_shift, spdiag, cluster)
     alpha_launches += 1
     return v
 
