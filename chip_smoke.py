@@ -127,9 +127,31 @@
    plain version keeps fp32: 4e-2 and 6e-2 on unit-normal inputs); the
    softmax launch counts must equal the calls made.
 
+9. The V1 model (``transkun_tpu_torch.models.ablation``, the CNN + BiGRU +
+   pairwise scorer of ``AblationConfig()``: mel 229, conv blocks of
+   48/64/92/128 channels, a 2-layer BiGRU of 256, 90 tracks) at full width,
+   fp32, random weights from a seeded ``torch.Generator`` (the scorer's last
+   bias shifted so that 0.1% of one segment's singletons fire):
+   ``TransKunAblation.transcribe`` on the piece of 4 (20 s segments every
+   10 s, the last two shorter, not padded): one Viterbi launch a segment,
+   valid notes, and on every segment length's real scores and learned skip
+   score the kernel's table equal to the plain version's bit for bit; then
+   ``V1_TRAIN_STEPS`` steps of ``make_train_step`` at ``--batchSize``
+   ``V1_TRAIN_BATCH`` on 16 s segments of the corpus of 5: every loss
+   finite, one alpha and one beta launch a step, the BatchNorm running
+   statistics moved; at the step's shape [691, 691, 180] on its real scores
+   and learned noise, the alpha and beta tables against their plain
+   versions (1e-5 * max(1, |plain|)), and logZ with its score and noise
+   cotangents through the kernels (``log_z_best``) against autograd of
+   ``log_z_slow`` (logZ 1e-5 relative, cotangents 1e-4, or the fp32
+   rounding of t chained steps at logZ's size where that is larger:
+   ``cotangent_tolerance``).  Kernels 1-3 are
+   timed at the path's shapes ([864, 864, 128] and [696, 696, 256]).
+
 Prints the card, build times, kernel times, each transcription's wall time,
-RTF and peak memory, each training step time and peak memory, then one JSON
-line with the kernels (launches on the five paths, largest error, kernel,
+RTF and peak memory, each training step time and peak memory, the V1 path's
+figures as one JSON line, then one JSON
+line with the kernels (launches on each path, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
 fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
 operations of its three TF32 ``mma`` a product over 495 TFLOP/s; under
@@ -201,6 +223,12 @@ BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
 DEVICE_LAUNCHES = 20  # launches between two events where the device's time is wanted
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
+# the V1 path: 3 steps at --batchSize 2 on 16 s segments cut every 12 s from
+# the first two training pieces; decode singletons on 0.1% of one segment's
+# (frame, pitch) entries
+V1_TRAIN_BATCH, V1_TRAIN_STEPS, V1_SEGMENT_SECONDS, V1_SEGMENT_HOP = 2, 3, 16.0, 12.0
+V1_SINGLETON_QUANTILE = 0.999
+V1_STEP_SECONDS, V1_SEGMENT_SECONDS_DECODE = 10.0, 20.0  # TransKunAblation.transcribe's defaults
 
 
 def card_line() -> str:
@@ -341,6 +369,18 @@ def check_logz_grad(logz, semicrf, dev):
     if err > 1e-4 or float(lz[nb:].abs().max()) != 0.0 or bool((s_pad.grad[:, :, nb:] != 0).any()):
         raise AssertionError(f"logZ gradient through the kernels: max |diff| {err}")
     return err
+
+
+def cotangent_tolerance(log_z, t):
+    """Bound on |exact-marginal cotangent - autograd of log_z_slow| over t
+    positions: ``check_logz_grad``'s 1e-4, or 2 * 2**-24 * sqrt(t) *
+    max |logZ| where that is larger.  The marginal exp(v[b] + q[e] + S -
+    logZ) adds table entries of logZ's size, and each entry carries the
+    fp32 roundings of its chain of up to t steps, which add as a random
+    walk: on the V1 model's scores the plain tables' route on the CPU is
+    2.4e-4 from an fp64 scan at t = 251 (logZ 387), the kernels' 1.6e-3
+    from log_z_slow at t = 691 (logZ 1048) on an H100."""
+    return max(1e-4, 2 * 2**-24 * math.sqrt(t) * float(log_z.abs().max()))
 
 
 def ptxas_registers(log):
@@ -602,6 +642,213 @@ def build_corpus(root, fs, seed):
     return out
 
 
+def v1_model(dev, audio):
+    """The V1 model at full width (``AblationConfig()``) with random weights
+    from ``SEED``, and the shift of its scorer's last bias: random weights
+    fire singletons everywhere, so the bias is lowered until 0.1% of the
+    diagonal entries of one segment of ``audio`` (the fourth) are positive.
+    Returns (model, shift)."""
+    import torch
+
+    from transkun_tpu_torch.models.ablation import AblationConfig, TransKunAblation
+    from transkun_tpu_torch.ops import frontend
+
+    conf = AblationConfig()
+    model = TransKunAblation(conf, device=dev, seed=SEED)
+    pad = math.ceil((V1_SEGMENT_SECONDS_DECODE - V1_STEP_SECONDS) * conf.fs)
+    step = math.ceil(V1_STEP_SECONDS * conf.fs / conf.hopSize) * conf.hopSize
+    x = np.pad(audio.T, ((0, 0), (pad, pad)))[:, 3 * step : 3 * step + math.ceil(V1_SEGMENT_SECONDS_DECODE * conf.fs)]
+    with torch.no_grad():
+        frames = frontend.make_frame(torch.from_numpy(np.ascontiguousarray(x)).to(dev), conf.hopSize,
+                                     conf.windowSize)[None]
+        s = model.module.process_frames(frames)[0]
+        shift = float(torch.quantile(torch.diagonal(s).flatten(), V1_SINGLETON_QUANTILE))
+        model.module.pairwiseScore.post.map[3].bias -= shift
+    return model, shift
+
+
+def v1_path(dev, card, audio, corpus, pickles, counts, reset_counts):
+    """Path 6, the V1 model at full width (``AblationConfig()``), fp32,
+    random weights from a seeded ``torch.Generator``: the 64 s piece
+    transcribed, then ``V1_TRAIN_STEPS`` steps of ``make_train_step``.
+    Returns (launches of each kernel on the path, the largest difference of
+    each kernel from its plain version at the path's shapes, the kernels'
+    times at those shapes, the path's figures)."""
+    import torch
+
+    from transkun_tpu_torch.data import dataset as D
+    from transkun_tpu_torch.data.note import validate_notes
+    from transkun_tpu_torch.ops import frontend, logz, semicrf, viterbi
+    from transkun_tpu_torch.train.optim import AdaBelief
+    from transkun_tpu_torch.train.step import TrainState, make_train_step
+
+    model, shift = v1_model(dev, audio)
+    conf = model.conf
+    step_in, seg_in = V1_STEP_SECONDS, V1_SEGMENT_SECONDS_DECODE
+    pad = math.ceil((seg_in - step_in) * conf.fs)
+    step = math.ceil(step_in * conf.fs / conf.hopSize) * conf.hopSize
+    padded = torch.from_numpy(np.pad(audio.T, ((0, 0), (pad, pad)))).to(dev)
+    starts = list(range(0, padded.shape[-1], step))
+    seg_len = sorted({min(i + math.ceil(seg_in * conf.fs), padded.shape[-1]) - i for i in starts}, reverse=True)
+
+    def scores(segment):
+        with torch.no_grad():
+            frames = frontend.make_frame(segment, conf.hopSize, conf.windowSize)[None]
+            s, s_skip, _ = model.module.process_frames(frames)
+        return s, s_skip
+
+    err = {"viterbi_bwd": 0, "semicrf_alpha": 0.0, "semicrf_beta": 0.0}
+    times, figures = {}, {"v1_bias_shift": -shift}
+
+    # (a) transcription: a warm-up, then the timed run
+    model.transcribe(audio)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    with CallCounter(semicrf, "viterbi_backward_tables_padded") as vit_calls:
+        t0 = time.perf_counter()
+        notes = model.transcribe(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = counts()
+    want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": len(starts)}
+    if launches != want or vit_calls.calls != len(starts):
+        raise AssertionError(f"V1 transcription launches {launches}, calls {vit_calls.calls}, "
+                             f"for {len(starts)} segments")
+    if not notes:
+        raise AssertionError("V1: no notes decoded")
+    validate_notes(notes)
+    seconds = audio.shape[0] / conf.fs
+    times_of_notes = np.array([[n.start, n.end] for n in notes])
+    if not (np.isfinite(times_of_notes).all() and times_of_notes.min() >= 0
+            and times_of_notes.max() <= seconds + seg_in):
+        raise AssertionError(f"V1 note times out of range: {times_of_notes.min()} .. {times_of_notes.max()}")
+    print(f"V1 transcribe {seconds:.0f} s, {len(starts)} segments of {seg_in:.0f} s every {step_in:.0f} s, "
+          f"the last {[round(n / conf.fs, 2) for n in seg_len[1:]]} s ({card}): wall {wall:.3f} s, RTF "
+          f"{seconds / wall:.1f}x, peak memory {peak_gb:.2f} GB, {len(notes)} notes, launches {launches}")
+    figures.update(v1_transcribe_wall_s=wall, v1_rtf=seconds / wall, v1_transcribe_peak_gb=peak_gb,
+                   v1_notes=len(notes), v1_segments=len(starts))
+
+    # every segment length of the piece: on its real scores and learned skip
+    # score, the kernel's table equals the plain version's bit for bit
+    checked = set()
+    for n in seg_len:
+        i = next(i for i in starts if min(i + math.ceil(seg_in * conf.fs), padded.shape[-1]) - i == n)
+        s_t, noise, gate = semicrf.decode_layout(*scores(padded[:, i : i + n]))
+        err["viterbi_bwd"] = max(err["viterbi_bwd"], check_kernel(viterbi, s_t, noise, gate))
+        checked.add(tuple(s_t.shape))
+        if n == seg_len[0]:
+            k_ms, dev_ms, p_ms = (cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(s_t, noise, gate)),
+                                  cuda_ms(lambda: viterbi.viterbi_backward_tables_cuda(s_t, noise, gate),
+                                          launches=DEVICE_LAUNCHES),
+                                  cuda_ms(lambda: viterbi.viterbi_backward_tables_plain(s_t, noise, gate), runs=3))
+            bnd = table_bound(s_t.shape[0], s_t.shape[2], 2)
+            times["viterbi_bwd"] = {"shape": list(s_t.shape), "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                                    "bound_ms": bnd[0], "bound_by": bnd[1]}
+            plan = viterbi.card_plan(s_t)
+            print(f"V1 viterbi {list(s_t.shape)} real scores ({card}): lone launch {k_ms:.4f} ms, device "
+                  f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}), share {bnd[0] / dev_ms:.1%} on device time; plan: clusters of {plan.cluster}, "
+                  f"{plan.ctas} CTAs")
+        del s_t, noise, gate
+    if checked != vit_calls.shapes:
+        raise AssertionError(f"V1 decode shapes {vit_calls.shapes}, checked {checked}")
+    print(f"V1 viterbi: kernel ptr == plain ptr bit for bit, two runs the same bits, on each segment "
+          f"length's real scores and learned skip score {sorted(checked, reverse=True)}")
+
+    # (b) training: 16 s segments of the corpus's first two pieces
+    dataset = D.DatasetMaestro(corpus, os.path.join(pickles, "train.pickle"))
+    batches = []
+    for k in range(V1_TRAIN_STEPS):
+        begin = k * V1_SEGMENT_HOP
+        got = [dataset.fetch_data(idx, begin, begin + V1_SEGMENT_SECONDS, True, False)
+               for idx in range(V1_TRAIN_BATCH)]
+        batches.append((np.stack([a for _, a, _ in got]), [nt for nt, _, _ in got]))
+    optimizer = AdaBelief(model.module.named_parameters())
+    state = TrainState(model, optimizer)
+    step_fn = make_train_step(model)
+    stats_before = {k: v.clone() for k, v in model.module.state_dict().items() if "running" in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    losses, step_s = [], []
+    for k, (x, nts) in enumerate(batches):
+        frames, labels = model.frames(x), model.labels(nts)
+        t0 = time.perf_counter()
+        metrics = step_fn(state, frames, labels, torch.Generator(device=dev).manual_seed(SEED + k))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if not bool(metrics["finite"]):
+            raise AssertionError(f"V1 step {k}: not finite {metrics}")
+    train_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    train_launches = counts()
+    want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": V1_TRAIN_STEPS, "semicrf_beta": V1_TRAIN_STEPS}
+    if train_launches != want or not np.isfinite(losses).all():
+        raise AssertionError(f"V1 training launches {train_launches}, calls made {want}; losses {losses}")
+    moved = [k for k, v in stats_before.items() if not torch.equal(v, model.module.state_dict()[k])]
+    if len(moved) != len(stats_before):
+        raise AssertionError(f"V1 BatchNorm running statistics moved: {len(moved)} of {len(stats_before)}")
+    t = frames.shape[-2]
+    print(f"V1 train --batchSize {V1_TRAIN_BATCH}, {V1_SEGMENT_SECONDS:.0f} s segments (t = {t}), "
+          f"{V1_TRAIN_STEPS} steps of make_train_step ({card}): step seconds {[round(x, 4) for x in step_s]}, "
+          f"peak memory {train_peak_gb:.2f} GB, losses {[round(x, 3) for x in losses]}, launches "
+          f"{train_launches}, BatchNorm running statistics moved ({len(moved)} buffers)")
+    figures.update(v1_step_s=step_s, v1_train_peak_gb=train_peak_gb, v1_losses=losses)
+    for name, n in train_launches.items():
+        launches[name] += n
+
+    # at the step's shape, on its scores and learned noise: the alpha and
+    # beta tables against their plain versions, and logZ with its score and
+    # noise cotangents through the kernels against autograd of log_z_slow
+    model.module.eval()
+    with torch.no_grad():
+        s, s_skip = model.module.process_frames(frames)[:2]
+    nb = s.shape[2]
+    tp, nbp = -(-t // 8) * 8, -(-nb // 128) * 128
+    s_pad = torch.full((tp, tp, nbp), NEG, device=dev)
+    s_pad[:t, :t, :nb] = s
+    noise = torch.zeros(tp, nbp, device=dev)
+    noise[: t - 1, :nb] = s_skip
+    spdiag = torch.nn.functional.softplus(torch.diagonal(s_pad).t()).contiguous()
+    shift_rows = torch.nn.functional.pad(noise[:-1], (0, 0, 1, 0)).contiguous()
+    err.update(check_tables(logz, s_pad, shift_rows, noise, spdiag))
+    for name, kernel, plain, rows in (
+            ("semicrf_alpha", logz.alpha_table_padded_cuda, logz.alpha_table_padded_plain, shift_rows),
+            ("semicrf_beta", logz.beta_table_padded_cuda, logz.beta_table_padded_plain, noise)):
+        k_ms, dev_ms, p_ms = (cuda_ms(lambda: kernel(s_pad, rows, spdiag)),
+                              cuda_ms(lambda: kernel(s_pad, rows, spdiag), launches=DEVICE_LAUNCHES),
+                              cuda_ms(lambda: plain(s_pad, rows, spdiag), runs=3))
+        bnd = table_bound(tp, nbp, 4)
+        times[name] = {"shape": [tp, tp, nbp], "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                       "bound_ms": bnd[0], "bound_by": bnd[1]}
+        print(f"V1 {name} [{tp},{tp},{nbp}] real scores ({card}): lone launch {k_ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), share {bnd[0] / dev_ms:.1%} on device time")
+    del s_pad, noise, spdiag, shift_rows
+    w = torch.linspace(0.5, 1.5, nb, device=dev)
+    grads = []
+    for fn in (semicrf.log_z_best, semicrf.log_z_slow):
+        s_g, n_g = s.clone().requires_grad_(), s_skip.clone().requires_grad_()
+        lz = fn(s_g, n_g)
+        (lz * w).sum().backward()
+        grads.append((lz.detach(), s_g.grad, n_g.grad))
+    torch.cuda.synchronize()
+    (lz, gs, gn), (lz_ref, gs_ref, gn_ref) = grads
+    lz_err = float(((lz - lz_ref).abs() / lz_ref.abs().clamp(min=1.0)).max())
+    g_err = max(float((gs - gs_ref).abs().max()), float((gn - gn_ref).abs().max()))
+    g_tol = cotangent_tolerance(lz_ref, t)
+    if lz_err > TABLE_RTOL or g_err > g_tol or float(gn_ref.abs().max()) == 0.0:
+        raise AssertionError(f"V1 logZ through the kernels vs log_z_slow at {list(s.shape)}: logZ relative "
+                             f"{lz_err}, score and noise cotangents max |diff| {g_err} (allowed {g_tol})")
+    print(f"V1 logZ via log_z_best (kernels) vs autograd of log_z_slow at {list(s.shape)} with the learned "
+          f"noise: logZ up to {float(lz_ref.abs().max()):.1f}, within {lz_err:.3g} relative (allowed "
+          f"{TABLE_RTOL}), score and noise cotangents max |diff| {g_err:.3g} (allowed {g_tol:.3g}), largest "
+          f"noise cotangent {float(gn_ref.abs().max()):.3g}")
+    return launches, err, times, figures
+
+
 def main() -> int:
     import torch
 
@@ -640,7 +887,7 @@ def main() -> int:
         attention.fwd_launches = attention.bwd_launches = mlp.launches = 0
         softmax.fwd_launches = softmax.bwd_launches = 0
 
-    by_path = {}  # launches of each kernel on paths 1 to 5
+    by_path = {}  # launches of each kernel on each path
 
     # -- build, one nvcc per source, all at once -------------------------------
     t0 = time.perf_counter()
@@ -1470,6 +1717,12 @@ def main() -> int:
                   f"{sorted(attn_calls.shapes)} bf16"
                   + (f", x at the MLP kernel {sorted(mlp_calls.shapes)} bf16" if with_mlp else ""))
 
+        # -- path 6: the V1 model at full width, serving then training -----------
+        by_path["v1"], v1_err, v1_times, v1_figures = v1_path(
+            dev, card, audio, os.path.join(tmp, "corpus"), pickles, counts, reset_counts)
+        for name, e in v1_err.items():
+            err[name] = max(err[name], e)
+
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
     reset_counts()
@@ -1541,6 +1794,7 @@ def main() -> int:
     for name in KERNELS:
         if sum(by_path[path][name] for path in by_path) == 0:
             raise AssertionError(f"no path launched {name}")
+    print(json.dumps({"v1": v1_figures}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1557,6 +1811,7 @@ def main() -> int:
         "library_ms": library_ms[name],
         "plan": plans[name],
         "bf16": bf16_entry(name),
+        "v1": v1_times.get(name),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -89,6 +89,7 @@ def test_port_imports_leave_jax_out():
         "    importlib.import_module(m.name)\n"
         "assert 'transkun_tpu_torch.data.dataset' in sys.modules\n"
         "assert 'transkun_tpu_torch.ops.attention' in sys.modules\n"
+        "assert 'transkun_tpu_torch.models.ablation' in sys.modules\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transkun_tpu')]\n"
         "assert not bad, bad\n"

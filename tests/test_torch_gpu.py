@@ -1,7 +1,8 @@
 """The port's eight CUDA kernels against their plain PyTorch versions, on the card;
 the Viterbi kernel also on tie-heavy inputs, and the Viterbi, alpha and beta
 kernels at every cluster size and at the cluster edges (one lane group; more
-lane groups than SMs; a ragged Tp).
+lane groups than SMs; a ragged Tp), and on the V1 model's routes (unpadded
+scores, a learned noise) at its shapes and tails.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from transkun_tpu_torch.ops import logz, softmax, viterbi
+from transkun_tpu_torch.ops import logz, semicrf, softmax, viterbi
 
 NEG = -1e30
 
@@ -338,6 +339,67 @@ def test_log_z_padded_through_the_kernels_equals_the_cpu_route(cuda, dtype):
         grads.append([x.detach().float().cpu() for x in (lz, s_d.grad, noise_d.grad)])
     tolerances = ((1e-5, 1e-5), (0.0 if dtype == torch.float32 else 2**-7, 1e-4), (0.0, 1e-4))
     for got, want, (rtol, atol) in zip(*grads, tolerances):
+        assert torch.allclose(got, want, rtol=rtol, atol=atol), float((got - want).abs().max())
+
+
+# -- the V1 routes: unpadded scores and a learned noise ------------------------
+
+# a V1 decode segment (20 s, t = 863) and the tails of a 64 s piece (13.9 s
+# and 3.9 s), and the shortest tail (a few samples: t = 2)
+V1_DECODE_T = [863, 602, 171, 2]
+
+
+def _v1_scores(rng, t, nb, dev):
+    """Unpadded alpha-layout scores [t, t, nb] and a nonzero noise [t-1, nb]
+    that outweighs the intervals on some steps."""
+    s = rng.normal(size=(t, t, nb)).astype(np.float32)
+    n = (rng.normal(size=(t - 1, nb)) * 0.5 + 0.3).astype(np.float32)
+    return torch.from_numpy(s).to(dev), torch.from_numpy(n).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", V1_DECODE_T)
+def test_viterbi_best_at_the_v1_shapes(cuda, t):
+    """``viterbi_backward_tables_best`` on CUDA tensors launches the kernel
+    once on the padded decode layout, and its tables equal the plain
+    version's on the same layout and the CPU route's, bit for bit."""
+    s, n = _v1_scores(np.random.default_rng(t), t, 90, cuda)
+    before = viterbi.launches
+    ptr, diag = semicrf.viterbi_backward_tables_best(s, n)
+    torch.cuda.synchronize()
+    assert viterbi.launches == before + 1 and ptr.shape == (t - 1, 90)
+    want = viterbi.viterbi_backward_tables_plain(*semicrf.decode_layout(s, n))[: t - 1, :90]
+    assert torch.equal(ptr, want)
+    ptr_cpu, diag_cpu = semicrf.viterbi_backward_tables_best(s.cpu(), n.cpu())
+    assert torch.equal(ptr.cpu(), ptr_cpu) and torch.equal(diag.cpu(), diag_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,nb", [(691, 180), (123, 90), (2, 90)])
+def test_log_z_best_through_the_kernels_equals_the_cpu_route(cuda, t, nb):
+    """``log_z_best`` on CUDA tensors (the V1 training route: the unpadded
+    ``logz.log_z``, one alpha and one beta launch) against the CPU route
+    (the scan ``log_z``) on the same tensors, at the V1 training batch of 2
+    (180 lanes) and smaller: logZ within 1e-5 relative, the score and the
+    noise cotangents within 1e-4, the bounds of
+    ``test_log_z_padded_through_the_kernels_equals_the_cpu_route``, or
+    2 * 2**-24 * sqrt(t) * max |logZ| where that is larger (the exact
+    marginals add table entries of logZ's size, each carrying the fp32
+    roundings of its chain: ``chip_smoke.py``'s ``cotangent_tolerance``;
+    at t = 691 both routes' logZ reach 1383 and they differ by 2.3e-3)."""
+    s, n = _v1_scores(np.random.default_rng(t + 1), t, nb, cuda)
+    w = torch.from_numpy(np.random.default_rng(t + 2).uniform(0.5, 1.5, nb).astype(np.float32))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        s_d, n_d = (a.detach().to(dev).requires_grad_() for a in (s, n))
+        a0, b0 = logz.alpha_launches, logz.beta_launches
+        lz = semicrf.log_z_best(s_d, n_d)
+        (lz * w.to(dev)).sum().backward()
+        launched = dev.type == "cuda"
+        assert (logz.alpha_launches, logz.beta_launches) == (a0 + launched, b0 + launched)
+        out.append([x.detach().cpu() for x in (lz, s_d.grad, n_d.grad)])
+    g_tol = max(1e-4, 2 * 2**-24 * np.sqrt(t) * float(out[1][0].abs().max()))
+    for got, want, (rtol, atol) in zip(*out, ((1e-5, 1e-5), (0.0, g_tol), (0.0, g_tol))):
         assert torch.allclose(got, want, rtol=rtol, atol=atol), float((got - want).abs().max())
 
 

@@ -9,6 +9,9 @@
   against ``jax.grad``: atol 1e-3 (sums in another order over t <= 40).
 * Path scores and route 1b of the Viterbi tables: path scores to 1e-5, the
   pointer tables exactly.
+* The unpadded ``log_z`` of the V1 route, with a nonzero noise, against the
+  JAX scan and ``jax.grad`` (1e-5), and the ``*_best`` dispatch on CPU
+  tensors.
 """
 
 import jax
@@ -162,6 +165,51 @@ def test_eval_path_matches_jax():
     np.testing.assert_allclose(crf.logProb(intervals).numpy(), np.asarray(want_lp), atol=1e-3)
 
 
+@pytest.mark.parametrize("t,nb", [(21, 5), (9, 130)])
+def test_unpadded_log_z_with_noise_matches_jax(t, nb):
+    """``logz.log_z`` (the V1 route: unpadded score and a learned, nonzero
+    noise, padded once; the alpha and beta tables' plain versions on a CPU
+    tensor) against the JAX package's ``semicrf.log_z`` and ``jax.grad``:
+    logZ within 1e-5 relative, the score and noise cotangents within
+    1e-5 * max(1, max |cotangent|); the value also against the Pallas route
+    (``semicrf_pallas.log_z``, in interpret mode)."""
+    rng = np.random.default_rng(t + 7)
+    s, n = _scores(rng, t, nb)
+    n += 0.3  # skips that outweigh the intervals on some steps
+    w = rng.uniform(0.5, 1.5, size=nb).astype(np.float32)
+    s_t = torch.from_numpy(s).requires_grad_()
+    n_t = torch.from_numpy(n).requires_grad_()
+    lz = logz.log_z(s_t, n_t)
+    (lz * torch.from_numpy(w)).sum().backward()
+    lz_j, (gs_j, gn_j) = jax.value_and_grad(
+        lambda a, b: (jsemicrf.log_z(a, b) * w).sum(), argnums=(0, 1)
+    )(jnp.asarray(s), jnp.asarray(n))
+    want = np.asarray(jsemicrf.log_z(jnp.asarray(s), jnp.asarray(n)))
+    assert lz.shape == (nb,) and s_t.grad.shape == s.shape and n_t.grad.shape == n.shape
+    np.testing.assert_allclose(lz.detach().numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(lz.detach().numpy(), np.asarray(sp.log_z(jnp.asarray(s), jnp.asarray(n))),
+                               rtol=1e-5)
+    for got, g in ((s_t.grad.numpy(), np.asarray(gs_j)), (n_t.grad.numpy(), np.asarray(gn_j))):
+        assert np.abs(got - g).max() <= 1e-5 * max(1.0, np.abs(g).max())
+    assert np.abs(n_t.grad.numpy()).max() > 0.1  # the noise cotangent is not trivial
+
+
+def test_best_routes_dispatch_by_device():
+    """``log_z_best`` and ``viterbi_backward_tables_best`` on CPU tensors are
+    the plain routes (the scan logZ, the padded DP), launch nothing, and
+    refuse a device that has neither route."""
+    rng = np.random.default_rng(11)
+    s, n = (torch.from_numpy(a) for a in _scores(rng, 17, 4))
+    launches = (logz.alpha_launches, logz.beta_launches)
+    assert torch.equal(semicrf.log_z_best(s, n), semicrf.log_z(s, n))
+    for got, want in zip(semicrf.viterbi_backward_tables_best(s, n), semicrf.viterbi_backward_tables(s, n)):
+        assert torch.equal(got, want)
+    assert (logz.alpha_launches, logz.beta_launches) == launches
+    for fn in (semicrf.log_z_best, semicrf.viterbi_backward_tables_best):
+        with pytest.raises(ValueError, match="meta"):
+            fn(s.to("meta"), n.to("meta"))
+
+
 @pytest.mark.parametrize("t,nb", [(10, 3), (40, 7)])
 def test_viterbi_route_1b_matches_jax(t, nb):
     """Unpadded alpha-layout scores through the pad-and-transpose wrapper:
@@ -178,10 +226,11 @@ def test_viterbi_route_1b_matches_jax(t, nb):
 
 
 # the training batch [696,696,384], the ragged ones (any Tp >= 1), one lane
-# group, and more lane groups than SMs
+# group, more lane groups than SMs, and the V1 training batch of 2
 @pytest.mark.parametrize("n_sm", [132, 114])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tp,nbp", [(696, 384), (128, 256), (45, 256), (1, 128), (128, None), (64, 8192)])
+@pytest.mark.parametrize("tp,nbp", [(696, 384), (128, 256), (45, 256), (1, 128), (128, None), (64, 8192),
+                                    (696, 256)])
 def test_beta_launch_plan_covers_every_lane_and_term(tp, nbp, dtype, n_sm):
     from test_torch_viterbi import check_plan
     from transkun_tpu_torch.ops import _build, _cluster
@@ -193,10 +242,10 @@ def test_beta_launch_plan_covers_every_lane_and_term(tp, nbp, dtype, n_sm):
     check_plan(plan, tp, nbp, n_sm, _build.SMEM_LIMIT)
 
 
-# the training batch [696,696,384], a small one and a ragged Tp (the last
-# block part full)
+# the training batch [696,696,384], the V1 training batch of 2 [696,696,256],
+# a small one and a ragged Tp (the last block part full)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tp,nbp", [(696, 384), (64, 256), (125, 256)])
+@pytest.mark.parametrize("tp,nbp", [(696, 384), (696, 256), (64, 256), (125, 256)])
 def test_alpha_launch_plan_covers_every_lane_and_term(tp, nbp, dtype):
     """The alpha kernel's plan on an H100's 132 SMs (``model_max_clusters``):
     every lane in one group, every m < k0 reduced once across the ranks and

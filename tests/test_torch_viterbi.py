@@ -136,8 +136,11 @@ def test_decode_equals_jax(rng, forward, ties):
 
 
 # the path's shapes (decode [696,696,128], the stats pass [696,696,384]),
-# the ragged one, one lane group, and more lane groups than SMs
-PLAN_SHAPES = [(696, 128), (696, 384), (128, 256), (128, None), (64, 8192)]
+# the ragged one, one lane group, and more lane groups than SMs; the V1
+# decode's 20 s segment [864,864,128] and the tails of a 64 s piece (13.9 s
+# and 3.9 s) and of the shortest one (a few samples: t = 2)
+PLAN_SHAPES = [(696, 128), (696, 384), (128, 256), (128, None), (64, 8192),
+               (864, 128), (608, 128), (176, 128), (8, 128)]
 
 
 def check_plan(plan, tp, nbp, n_sm, smem_limit, sizes=None):

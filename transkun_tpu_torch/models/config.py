@@ -5,7 +5,8 @@ loader.
 The JAX package's config module cannot be imported without JAX (its package
 ``__init__`` pulls in the flax model), so the port carries this copy.  Conf
 files name a model module; every name the JAX package accepts for the V2
-model maps to ``transkun_tpu_torch.models.transkun``.
+model maps to ``transkun_tpu_torch.models.transkun``, and for the V1 model
+to ``transkun_tpu_torch.models.ablation``.
 """
 
 from __future__ import annotations
@@ -76,25 +77,28 @@ class ModelConfig:
 Config = ModelConfig
 
 _PORT_MODEL = "transkun_tpu_torch.models.transkun"
+_PORT_MODEL_V1 = "transkun_tpu_torch.models.ablation"
 
 # module names in conf files (reference and JAX package) -> the port's module
 _MODULE_ALIASES = {
     "transkun.ModelTransformer": _PORT_MODEL,
     "transkun_tpu.models.transkun": _PORT_MODEL,
+    "transkun.Model_ablation": _PORT_MODEL_V1,
+    "transkun_tpu.models.ablation": _PORT_MODEL_V1,
 }
 
 
 def parse_conf_file(path: str):
-    """Parse a reference-style JSON conf.  Returns (model_module, config)
-    where model_module exposes ``TransKun``."""
+    """Parse a reference-style JSON conf.  Returns (model_module, config):
+    the V2 module exposes ``TransKun``, the V1 module ``TransKunAblation``."""
     with open(path) as f:
         conf = json.load(f)
     entry = conf["Model"]
     module_name = _MODULE_ALIASES.get(entry["module"], entry["module"])
-    if module_name != _PORT_MODEL:
+    if module_name not in (_PORT_MODEL, _PORT_MODEL_V1):
         raise NotImplementedError(
             f"model module {entry['module']!r} is not ported "
-            f"(only the V2 model, {_PORT_MODEL})"
+            f"(only the V2 model, {_PORT_MODEL}, and the V1 model, {_PORT_MODEL_V1})"
         )
     module = importlib.import_module(module_name)
     config_cls = getattr(module, entry.get("configClassName", "Config"))

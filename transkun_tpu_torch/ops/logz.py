@@ -1,7 +1,8 @@
 """The semi-CRF partition function on padded inputs: the alpha and beta
 tables (CUDA kernels ``csrc/semicrf_alpha.cu`` and ``csrc/semicrf_beta.cu``
 with their plain PyTorch versions) and ``log_z_padded``, whose backward is
-the exact-marginal pass ``semicrf._marginals``.
+the exact-marginal pass ``semicrf._marginals``, and ``log_z``, which takes
+unpadded tensors and pads them once.
 
 Port of ``transkun_tpu/ops/semicrf_pallas.py:219-502``, whose TPU kernels
 are ``_alpha_kernel`` (``:224``) and ``_beta_kernel`` (``:321``).  Inputs:
@@ -244,6 +245,43 @@ class _LogZPadded(torch.autograd.Function):
         grad_noise = torch.where(row < ctx.t_real - 1, grad_noise * g, 0.0)
         grad_noise = torch.nn.functional.pad(grad_noise, (0, 0, 0, 1))  # [Tp, NBp]
         return None, grad.to(s_pad.dtype), grad_noise.to(noise_pad.dtype)
+
+
+class _LogZ(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, score, noise):
+        t, _, nb = score.shape
+        tp, nbp = semicrf._pad_to(t, semicrf.PALLAS_KP), semicrf._pad_to(nb, semicrf.PALLAS_LN)
+        dtype = torch.bfloat16 if score.dtype == torch.bfloat16 else torch.float32
+        s_pad = torch.full((tp, tp, nbp), semicrf.NEG, dtype=dtype, device=score.device)
+        s_pad[:t, :t, :nb] = score
+        noise_pad = torch.zeros(tp, nbp, dtype=torch.float32, device=score.device)
+        noise_pad[: t - 1, :nb] = noise
+        logz, v, q = _fb_padded(s_pad, noise_pad)
+        del s_pad
+        v, q, logz = v[:t, :nb], q[:t, :nb], logz[:nb]
+        ctx.save_for_backward(score, noise, v, q, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, g):
+        score, noise, v, q, logz = ctx.saved_tensors
+        grad, grad_noise = semicrf._marginals(score, noise, v, q, logz)
+        grad *= g
+        return grad.to(score.dtype), (grad_noise * g).to(noise.dtype)
+
+
+def log_z(score: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """logZ [N] of unpadded ``score [T, T, N]`` (alpha layout: end, begin)
+    and ``noise [T-1, N]``, the counterpart of the JAX package's
+    ``semicrf_pallas.log_z``: padded once to the decode layout (positions to
+    a multiple of ``PALLAS_KP``, lanes of ``PALLAS_LN``; NEG scores, zero
+    noise), then one alpha and one beta pass (``_fb_padded``: the kernels on
+    a CUDA tensor, their plain versions on a CPU tensor).  The backward is
+    the exact marginals times the cotangent, for the score and for the
+    noise, on the unpadded tensors; the padded copy is dropped after the
+    forward."""
+    return _LogZ.apply(score, noise)
 
 
 def log_z_padded(t_real: int, s_pad: torch.Tensor, noise_pad: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@ Everything here is plain PyTorch and is the test oracle.  The padded tables
 that the CUDA kernels compute live in ``ops/logz.py`` (alpha and beta, for
 training) and ``ops/viterbi.py`` (decode); ``viterbi_backward_tables`` pads
 and transposes onto the latter, so on a CUDA tensor it runs the kernel.
+``log_z_best`` and ``viterbi_backward_tables_best`` (the V1 model's routes,
+with a learned noise) pick by the tensor's device: the kernels on the card,
+the plain routes on the CPU.
 """
 
 from __future__ import annotations
@@ -256,6 +259,20 @@ def viterbi_backward_tables(
     other dtype goes through fp32.
     """
     t, _, n = score.shape
+    s_t, noise_pad, gate = decode_layout(score, noise)
+    ptr = viterbi_backward_tables_padded(s_t, noise_pad, gate)
+    return ptr[: t - 1, :n], gate[:t, :n] > 0
+
+
+def decode_layout(
+    score: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unpadded ``score [T, T, N]`` (end, begin) and ``noise [T-1, N]`` ->
+    the inputs of ``viterbi_backward_tables_padded``: (s_t [Tp, Tp, NBp]
+    in [begin, end, lane] layout, NEG-padded, bf16 kept and any other dtype
+    as fp32; noise [Tp, NBp] with zero rows from T-1; the gated diagonal
+    [Tp, NBp] fp32)."""
+    t, _, n = score.shape
     tp, nbp = _pad_to(t, PALLAS_KP), _pad_to(n, PALLAS_LN)
     if score.dtype != torch.bfloat16:
         score = score.float()
@@ -266,8 +283,38 @@ def viterbi_backward_tables(
     noise_pad[: t - 1, :n] = noise
     gate = torch.zeros(tp, nbp, dtype=torch.float32, device=score.device)
     gate[:t, :n] = diag * (diag > 0)
-    ptr = viterbi_backward_tables_padded(s_t, noise_pad, gate)
-    return ptr[: t - 1, :n], diag > 0
+    return s_t, noise_pad, gate
+
+
+def _check_kernel_device(score: torch.Tensor) -> None:
+    if score.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no semi-CRF route for device {score.device}")
+
+
+def viterbi_backward_tables_best(
+    score: torch.Tensor, noise: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``viterbi_backward_tables`` by the tensor's device (the JAX
+    package's name for its kernel route): the CUDA kernel on a CUDA tensor,
+    the plain padded DP on a CPU tensor; any other device raises.  A kernel
+    that fails to build or launch raises: there is no fallback."""
+    _check_kernel_device(score)
+    return viterbi_backward_tables(score, noise)
+
+
+def log_z_best(score: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """logZ [N] of unpadded ``score [T, T, N]`` and ``noise [T-1, N]`` by
+    the tensor's device: on a CUDA tensor ``ops.logz.log_z`` (the alpha and
+    beta kernels, the JAX package's ``semicrf_pallas.log_z``), on a CPU
+    tensor the scan ``log_z``; any other device raises.  Both backwards are
+    the exact marginals, for the score and the noise.  A kernel that fails to
+    build or launch raises: there is no fallback."""
+    _check_kernel_device(score)
+    if score.device.type == "cuda":
+        from . import logz
+
+        return logz.log_z(score, noise)
+    return log_z(score, noise)
 
 
 def viterbi_forward_tables(

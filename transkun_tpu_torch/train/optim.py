@@ -19,9 +19,11 @@ from typing import Callable, Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
-# no decay: biases, the DownConv GroupNorms (indices 2, 6, 10, 14) and the
-# three position-embedding builders
-_NO_DECAY = re.compile(r"\.bias$|^backbone\.downConv\.(2|6|10|14)\.|^backbone\.posEmbedBuilder")
+# no decay: biases (the V1 GRU's ``bias_ih_l0``, ``bias_hh_l1_reverse``, ...
+# too: flax names every GRU bias ``bias``), the DownConv GroupNorms (indices
+# 2, 6, 10, 14) and the three position-embedding builders
+_NO_DECAY = re.compile(
+    r"\.bias$|\.bias_(ih|hh)_l\d+(_reverse)?$|^backbone\.downConv\.(2|6|10|14)\.|^backbone\.posEmbedBuilder")
 
 
 def weight_decay_mask(named_parameters: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bool]:

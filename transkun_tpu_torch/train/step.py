@@ -6,14 +6,16 @@ clip -> rectified AdaBelief.  The loss is ``-logp.sum(-1).mean()`` and the
 gradient is taken on ``loss / 50`` (ref ``train.py:134-254``).
 
 Non-finite guard, on the device: when the loss or the global gradient norm
-is NaN or Inf, the parameters, the optimizer moments and count and the clip
-state stay as they were; the step counter still advances.  The metrics stay
+is NaN or Inf, the parameters, the optimizer moments and count, the clip
+state and the module's saved buffers (the V1 model's BatchNorm running
+statistics, which its train-mode forward updates) stay as they were; the
+step counter still advances.  The metrics stay
 on the device until the caller fetches them, so a step needs no host sync.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -31,10 +33,19 @@ class TrainState:
         self.step = step
 
 
+def saved_buffers(module: torch.nn.Module) -> List[torch.Tensor]:
+    """The buffers of ``module`` that its state_dict saves (BatchNorm
+    running statistics; the V2 model has none), as the live tensors."""
+    params = {name for name, _ in module.named_parameters()}
+    return [t for name, t in module.state_dict(keep_vars=True).items() if name not in params]
+
+
 def make_train_step(model, clip_quantile: float = 0.8, loss_scale: float = 1.0 / 50.0):
     """step_fn(state, frames [N, C, T, W], labels, generator) -> metrics
     {"loss", "grad_norm", "clip_value", "finite"} as device tensors.  Every
-    dropout mask of the step is drawn from ``generator``."""
+    dropout mask of the step is drawn from ``generator``, except the V1
+    model's GRU's between its layers (``nn.GRU``'s own, from torch's global
+    generator)."""
     loss_fn = model.make_train_loss()
 
     def step_fn(state: TrainState, frames: torch.Tensor, labels: Tuple[torch.Tensor, ...],
@@ -42,6 +53,8 @@ def make_train_step(model, clip_quantile: float = 0.8, loss_scale: float = 1.0 /
         params = [p for _, p in state.optimizer.named]
         for p in params:
             p.grad = None
+        buffers = saved_buffers(state.model.module)
+        before = [b.clone() for b in buffers]
         logp = loss_fn(frames, labels, generator)
         loss = -logp.sum(-1).mean()
         (loss * loss_scale).backward()
@@ -51,6 +64,9 @@ def make_train_step(model, clip_quantile: float = 0.8, loss_scale: float = 1.0 /
         finite = torch.isfinite(loss) & torch.isfinite(norm)
         state.optimizer.step(clipped, finite)
         state.clip.push(norm, finite)
+        with torch.no_grad():
+            for b, old in zip(buffers, before):
+                b.copy_(torch.where(finite, b, old))
         for p in params:
             p.grad = None
         state.step += 1

@@ -1,4 +1,5 @@
-"""The JAX package's flax params -> the port's state_dict.
+"""The JAX package's flax params -> the port's state_dict (the V2 model:
+``state_dict_from_flax``; the V1 model: ``state_dict_from_flax_ablation``).
 
 Exact inverse of ``transkun_tpu.utils.torch_convert.convert_state_dict``:
 the port's module names are the reference PyTorch model's, so a reference
@@ -91,6 +92,77 @@ def state_dict_from_flax(params: Dict[str, Any], conf=None) -> "OrderedDict[str,
     linear("scorer.map.0", p["scorer"]["map"])
     mlp("velocityPredictor", p["velocityPredictor"])
     mlp("refinedOFPredictor", p["refinedOFPredictor"])
+    return sd
+
+
+def state_dict_from_flax_ablation(variables: Dict[str, Any]) -> "OrderedDict[str, torch.Tensor]":
+    """flax V1 variables ``{"params": ..., "batch_stats": ...}`` -> the
+    state_dict of ``models.ablation.TransKunAblationModule``: the inverse of
+    ``transkun_tpu.utils.torch_convert.convert_state_dict_ablation``, with
+    the reference V1 model's key names.
+
+    flax's GRUCell has one bias for each of the r and z gates where
+    ``nn.GRU`` has two that add: the merged value goes into ``bias_ih`` and
+    ``bias_hh`` is zero for r and z.  The n gate's biases stay apart,
+    because r multiplies ``bias_hh``'s n part.  BatchNorm's
+    ``num_batches_tracked``, which flax does not keep, is 0."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def linear(prefix, d):
+        sd[prefix + ".weight"] = _t(np.asarray(d["kernel"]).T)
+        sd[prefix + ".bias"] = _t(d["bias"])
+
+    def conv2d(prefix, d):
+        sd[prefix + ".weight"] = _t(np.transpose(np.asarray(d["kernel"]), (3, 2, 0, 1)))
+        sd[prefix + ".bias"] = _t(d["bias"])
+
+    def mlp3(prefix, d, names):
+        for idx, name in zip((0, 3, 6), names):
+            linear(f"{prefix}.{idx}", d[name])
+
+    win = "framewiseFeatureExtractor.spectrogramExtractor.winGen"
+    sd[win + ".sigma"] = _t(p["frontend"]["win_sigma"])
+    sd[win + ".center"] = _t(p["frontend"]["win_center"])
+    i = 0
+    while f"preLayer_{i}" in p:
+        block, base = p[f"preLayer_{i}"], f"preLayer.layers.{i}"
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2")):
+            conv2d(f"{base}.{conv}", block[conv])
+            sd[f"{base}.{bn}.weight"] = _t(block[bn]["scale"])
+            sd[f"{base}.{bn}.bias"] = _t(block[bn]["bias"])
+            sd[f"{base}.{bn}.running_mean"] = _t(stats[f"preLayer_{i}"][bn]["mean"])
+            sd[f"{base}.{bn}.running_var"] = _t(stats[f"preLayer_{i}"][bn]["var"])
+            sd[f"{base}.{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        i += 1
+    linear("inputProj.0", p["inputProj"])
+
+    ctx = p["contextModel"]
+    layer = 0
+    while f"gru{layer}_fwd" in ctx:
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            cell = ctx[f"gru{layer}_{direction}"]
+            key = f"contextModel.grus.{{}}_l{layer}{suffix}"
+            sd[key.format("weight_ih")] = _t(np.concatenate(
+                [np.asarray(cell[g]["kernel"]).T for g in ("ir", "iz", "in")]))
+            sd[key.format("weight_hh")] = _t(np.concatenate(
+                [np.asarray(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")]))
+            sd[key.format("bias_ih")] = _t(np.concatenate(
+                [np.asarray(cell[g]["bias"]) for g in ("ir", "iz", "in")]))
+            hn = np.asarray(cell["hn"]["bias"])
+            sd[key.format("bias_hh")] = _t(np.concatenate([np.zeros(2 * hn.shape[0]), hn]))
+        layer += 1
+    linear("contextModel.outProj", ctx["outProj"])
+
+    pw = p["pairwiseScore"]
+    for name in ("scoreMap", "scoreMapSkip"):
+        mlp3(f"pairwiseScore.{name}", pw, [f"{name}_{j}" for j in range(3)])
+    if "post" in pw:
+        conv2d("pairwiseScore.post.map.0", pw["post"]["conv1"])
+        conv2d("pairwiseScore.post.map.3", pw["post"]["conv2"])
+    sd["pitchEmbedding.weight"] = _t(p["pitchEmbedding"]["embedding"])
+    for head in ("velocityPredictor", "refinedOFPredictor"):
+        mlp3(head, p[head], ("lin1", "lin2", "lin3"))
     return sd
 
 
