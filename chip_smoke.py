@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eight CUDA kernels from the seven sources of
+1. Builds the nine CUDA kernels from the eight sources of
    ``transkun_tpu_torch/csrc`` (nvcc, sm_90a), one ``nvcc`` per source, all
    at once.
 2. Holds the Viterbi kernel (kernel 1, a blocked recurrence over a
@@ -72,11 +72,34 @@
    work.
 4. Transcription: a 64 s synthetic piece with the flagship V2
    configuration (``transkun_tpu_torch/pretrained/2.0.conf``) and random weights
-   from a seeded ``torch.Generator``.  Checks that the Viterbi kernel ran
-   once per segment, that the notes are valid, and that on one segment's
-   real scores the kernel's table equals the plain version's.  Then the same
-   piece nine times over (9.6 minutes) with the default ``segment_batch``:
-   its peak device memory must be within 10% of the 64 s piece's.
+   from a seeded ``torch.Generator``, on the default route (each group's
+   pointer walk and stitching chain on the card, the walk kernel
+   ``decode_walk``).  The piece and the long one below first run at the
+   default event budget; if either overflows it (the host-walk route taken
+   from a group on), the timed runs set ``decode_k_budget`` to the next power
+   of two above the largest group count, and say so.  The timed run must not
+   fall back; it launches the Viterbi kernel once per segment and the walk
+   kernel once per group.  The same piece on the host-walk route
+   (``decode_k_budget = 1``): the same notes (pitch, velocity, flags, times
+   within 1e-6 s).  Then the same piece nine times over (9.6 minutes) with
+   the default ``segment_batch``: its peak device memory must be within 10%
+   of the 64 s piece's.  The mid-piece fallback, at the default budget if it
+   overflowed, else at a budget that the first group fits and a later one
+   does not (on the first piece whose counts allow one): the notes of the
+   route without it.  A dispatch under
+   ``torch.cuda.set_sync_debug_mode("warn")`` must make no synchronizing
+   call, and ``transcribe_many`` over 4 copies of the piece must give the
+   notes of 4 ``transcribe`` calls, in order (walls printed in turns).  The
+   walk kernel against ``walk_group_plain`` (on the CPU), every output equal
+   as integers and two launches the same bits, on every group of the piece's
+   real tables (the last group of 2 segments) with the starts carried group
+   to group, from random forced starts, with an onset bound and with a k_max
+   of 2 that overflows; the next starts also against the host walk's.  It is
+   timed on the first group (4 segments, t = 691) beside the plain version
+   on the card and the CPU and the host walk; its bound is the bytes the
+   visited positions need, and the ns a chain step is printed.  Then on one
+   segment's real scores the Viterbi kernel's table equals the plain
+   version's.
 5. Training through the entry point ``transkun_tpu_torch.cli.train.main``
    at flagship width and depth, ``--batchSize 4``: a synthetic
    MAESTRO-layout corpus of 40 s pieces (MIDI from the port's
@@ -181,9 +204,11 @@ PIECE_SECONDS = 64.0
 LONG_PIECE_TILES = 9  # the long piece is the 64 s piece this many times over: 9.6 minutes
 PEAK_RTOL = 0.10  # the long piece's peak memory against the short one's
 KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
-           "attention_fwd", "attention_bwd", "fused_mlp", "softmax_fwd", "softmax_bwd")
+           "attention_fwd", "attention_bwd", "fused_mlp", "softmax_fwd", "softmax_bwd",
+           "decode_walk")
 # the sources to build: softmax_rows.cu holds both softmax kernels
-SOURCES = KERNELS[:6] + ("softmax_rows",)
+SOURCES = KERNELS[:6] + ("softmax_rows", "decode_walk")
+WALK_SMALL_K = 2  # a per-track event capacity that the real tables overflow
 TABLE_RTOL = 1e-5  # |kernel - plain| <= TABLE_RTOL * max(1, |plain|)
 FWD_ATOL = 2e-5  # attention forward and MLP: |kernel - plain|, unit-normal inputs
 BWD_ATOL = 1e-4  # attention dq, dk, dv
@@ -579,6 +604,37 @@ class CallCounter:
         setattr(self.module, self.name, self.fn)
 
 
+def walk_visits(ptr, diag, start):
+    """Positions the pointer walk visits on each track of one segment (one
+    load of ptr and diag each): ptr [t-1, P], diag [t, P], start [P]."""
+    t = diag.shape[0]
+    visits = np.zeros(ptr.shape[1], np.int64)
+    for b in range(ptr.shape[1]):
+        j = int(start[b])
+        while j < t - 1:
+            visits[b] += 1
+            sel = int(ptr[j, b])
+            j = j + 1 if sel < 0 else j + 1 + sel
+        visits[b] += j == t - 1  # the last position's singleton bit
+    return visits
+
+
+def same_notes(got, want):
+    """(equal, largest time difference): pitch, velocity and flags equal
+    and times within 1e-6 s, pitch by pitch in time order (the two routes'
+    heads run on batches of other shapes, so their refined times may differ
+    in the last bits)."""
+    if len(got) != len(want):
+        return False, float("inf")
+    key = lambda n: (n.pitch, n.start)
+    worst = 0.0
+    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+        if (a.pitch, a.velocity, a.hasOnset, a.hasOffset) != (b.pitch, b.velocity, b.hasOnset, b.hasOffset):
+            return False, float("inf")
+        worst = max(worst, abs(a.start - b.start), abs(a.end - b.end))
+    return worst <= 1e-6, worst
+
+
 def synth_piece(fs, seconds, seed):
     """Sine notes at ~8 notes/s over low noise, int16-exact like decoded
     audio; [nSample, 1] float32."""
@@ -863,7 +919,7 @@ def main() -> int:
     from transkun_tpu_torch.models.transkun import TransKun
     import transkun_tpu_torch.models.transkun as transkun_module
     from transkun_tpu_torch.ops import (
-        _build, attention, frontend, logz, mlp, semicrf, softmax, viterbi,
+        _build, attention, frontend, logz, mlp, semicrf, softmax, viterbi, walk,
     )
     from transkun_tpu_torch.utils.convert import load_reference_checkpoint
 
@@ -880,12 +936,13 @@ def main() -> int:
         return {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
                 "semicrf_beta": logz.beta_launches, "attention_fwd": attention.fwd_launches,
                 "attention_bwd": attention.bwd_launches, "fused_mlp": mlp.launches,
-                "softmax_fwd": softmax.fwd_launches, "softmax_bwd": softmax.bwd_launches}
+                "softmax_fwd": softmax.fwd_launches, "softmax_bwd": softmax.bwd_launches,
+                "decode_walk": walk.launches}
 
     def reset_counts():
         viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
         attention.fwd_launches = attention.bwd_launches = mlp.launches = 0
-        softmax.fwd_launches = softmax.bwd_launches = 0
+        softmax.fwd_launches = softmax.bwd_launches = walk.launches = 0
 
     by_path = {}  # launches of each kernel on each path
 
@@ -1286,9 +1343,28 @@ def main() -> int:
     pad = math.ceil((conf.segmentSizeInSecond - conf.segmentHopSizeInSecond) * conf.fs)
     step = math.ceil(conf.segmentHopSizeInSecond * conf.fs / conf.hopSize) * conf.hopSize
     seg_size = math.ceil(conf.segmentSizeInSecond * conf.fs)
+    group = transkun_module.DEFAULT_SEGMENT_BATCH
+    default_budget = transkun_module.DECODE_EVENTS_PER_SEGMENT * group
 
     def n_segments(n_samples):
         return math.ceil((n_samples + 2 * pad) / step)
+
+    def want_launches(model, n_seg):
+        """One transcription's launches: a Viterbi launch a segment and a walk
+        launch a group on the default route, and a Viterbi launch more for
+        each segment that the host-walk route redid, from the group it
+        resumed from."""
+        fallback = model.last_transcribe_fallback_from
+        redone = 0 if fallback is None else n_seg - fallback * group
+        return {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg + redone,
+                "decode_walk": -(-n_seg // group)}
+
+    def route_line(model):
+        fallback = model.last_transcribe_fallback_from
+        budget = model.decode_k_budget or default_budget
+        return (f"group counts {model.last_transcribe_group_counts} against the budget {budget}, "
+                + ("no fallback" if fallback is None else
+                   f"the host-walk route taken from group {fallback} on (overflow flag)"))
 
     def timed_transcription(model):
         """(notes, wall seconds, peak GB, launches) of one transcription of
@@ -1318,19 +1394,62 @@ def main() -> int:
         if not (np.isfinite(times).all() and times.min() >= 0 and times.max() <= last_end):
             raise AssertionError(f"note times out of range: {times.min()} .. {times.max()}")
 
-    n_seg = n_segments(audio.shape[0])
-    notes, wall, peak_gb, by_path["transcribe"] = timed_transcription(model)
-    if by_path["transcribe"] != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}:
-        raise AssertionError(f"transcription launches {by_path['transcribe']} for {n_seg} segments")
-    check_notes(notes, n_seg)
-    print(f"transcribe {PIECE_SECONDS:.0f} s, {n_seg} segments ({card}): wall {wall:.3f} s, "
-          f"RTF {PIECE_SECONDS / wall:.1f}x, peak memory {peak_gb:.2f} GB, "
-          f"{len(notes)} notes, launches {by_path['transcribe']}")
+    def check_same_notes(got, want, what):
+        equal, worst = same_notes(got, want)
+        if not equal:
+            raise AssertionError(f"{what}: {len(got)} notes against {len(want)}, largest time "
+                                 f"difference {worst} s")
+        return worst
 
-    # the same piece several times over, with the default segment_batch: device
-    # memory must not grow with the piece (both pieces are longer than two groups)
+    n_seg = n_segments(audio.shape[0])
     long_audio = np.tile(audio, (LONG_PIECE_TILES, 1))
     long_seconds, n_long = LONG_PIECE_TILES * PIECE_SECONDS, n_segments(long_audio.shape[0])
+
+    # the default budget first: the dense synthetic piece may overflow it; the
+    # timed runs then take the next power of two above the largest group count
+    # of both pieces
+    model.transcribe(audio)
+    default_from, short_counts = model.last_transcribe_fallback_from, model.last_transcribe_group_counts
+    model.transcribe(long_audio)
+    long_counts = model.last_transcribe_group_counts
+    top = max(short_counts + long_counts)
+    if default_from is not None or model.last_transcribe_fallback_from is not None:
+        model.decode_k_budget = 1 << top.bit_length()
+        print(f"default budget {default_budget} ({transkun_module.DECODE_EVENTS_PER_SEGMENT} a "
+              f"segment x {group}): group counts {short_counts} ({PIECE_SECONDS:.0f} s), largest "
+              f"{max(long_counts)} ({long_seconds:.0f} s); the host-walk route was taken from group "
+              f"{default_from} ({PIECE_SECONDS:.0f} s) and {model.last_transcribe_fallback_from} "
+              f"({long_seconds:.0f} s): the timed runs set decode_k_budget = {model.decode_k_budget}, "
+              f"the next power of two above the largest count")
+    budget = model.decode_k_budget
+
+    # the default route, timed: it must not fall back
+    notes, wall, peak_gb, by_path["transcribe"] = timed_transcription(model)
+    if model.last_transcribe_fallback_from is not None \
+            or by_path["transcribe"] != want_launches(model, n_seg):
+        raise AssertionError(f"transcription launches {by_path['transcribe']} for {n_seg} segments; "
+                             + route_line(model))
+    check_notes(notes, n_seg)
+    print(f"transcribe {PIECE_SECONDS:.0f} s, {n_seg} segments in groups of {group}, default route "
+          f"({card}): wall {wall:.3f} s, RTF {PIECE_SECONDS / wall:.1f}x, peak memory {peak_gb:.2f} GB, "
+          f"{len(notes)} notes, launches {by_path['transcribe']}; {route_line(model)}")
+
+    # the host-walk route from the first group (a budget of 1): the same notes
+    model.decode_k_budget = 1
+    host_notes, host_wall, host_peak_gb, host_launches = timed_transcription(model)
+    if model.last_transcribe_fallback_from != 0 or host_launches != want_launches(model, n_seg):
+        raise AssertionError(f"host-walk route launches {host_launches}; " + route_line(model))
+    worst = check_same_notes(notes, host_notes, "default route against the host-walk route")
+    for name in KERNELS:
+        by_path["transcribe"][name] += host_launches[name]
+    print(f"transcribe {PIECE_SECONDS:.0f} s, host-walk route (decode_k_budget = 1) ({card}): wall "
+          f"{host_wall:.3f} s, RTF {PIECE_SECONDS / host_wall:.1f}x, peak memory {host_peak_gb:.2f} GB "
+          f"(default route {wall:.3f} s, {peak_gb:.2f} GB); notes equal the default route's "
+          f"(largest time difference {worst:.3g} s); launches {host_launches}")
+    model.decode_k_budget = budget
+
+    # the same piece several times over: device memory must not grow with the
+    # piece (both pieces are longer than two groups)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -1338,18 +1457,185 @@ def main() -> int:
     long_notes = model.transcribe(long_audio)
     torch.cuda.synchronize()
     long_wall, long_peak_gb = time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev) / 1e9
-    if counts() != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_long}:
-        raise AssertionError(f"long transcription launches {counts()} for {n_long} segments")
-    by_path["transcribe"]["viterbi_bwd"] += n_long
+    long_launches = counts()
+    if model.last_transcribe_fallback_from is not None or long_launches != want_launches(model, n_long):
+        raise AssertionError(f"long transcription launches {long_launches} for {n_long} segments; "
+                             + route_line(model))
+    for name in KERNELS:
+        by_path["transcribe"][name] += long_launches[name]
     check_notes(long_notes, n_long)
-    group = transkun_module.DEFAULT_SEGMENT_BATCH
     print(f"transcribe {long_seconds:.0f} s, {n_long} segments in groups of {group} ({card}): wall "
           f"{long_wall:.3f} s, RTF {long_seconds / long_wall:.1f}x, peak memory {long_peak_gb:.3f} GB "
           f"against {peak_gb:.3f} GB for {PIECE_SECONDS:.0f} s ({n_seg} segments), {len(long_notes)} notes")
     if min(n_seg, n_long) <= 2 * group or abs(long_peak_gb - peak_gb) > PEAK_RTOL * peak_gb:
         raise AssertionError(f"peak memory {long_peak_gb} GB for {n_long} segments against {peak_gb} GB "
                              f"for {n_seg}: it grows with the piece (groups of {group})")
+
+    # the mid-piece fallback: the default budget again if it overflowed, else
+    # a budget that the first group fits and a later one does not, on the first
+    # piece whose counts allow one; the notes must equal the route's above
+    for label, x, n, counts_, ref in ((f"{PIECE_SECONDS:.0f} s", audio, n_seg, short_counts, notes),
+                                      (f"{long_seconds:.0f} s", long_audio, n_long, long_counts, long_notes)):
+        if default_from is None and max(counts_[1:]) <= counts_[0]:
+            continue
+        model.decode_k_budget = None if default_from is not None else max(counts_[1:]) - 1
+        reset_counts()
+        mid_notes = model.transcribe(x)
+        torch.cuda.synchronize()
+        mid_launches = counts()
+        fallback = model.last_transcribe_fallback_from
+        if fallback is None or mid_launches != want_launches(model, n):
+            raise AssertionError(f"mid-piece fallback launches {mid_launches}; " + route_line(model))
+        worst = check_same_notes(mid_notes, ref, "mid-piece fallback against the route without one")
+        for name in KERNELS:
+            by_path["transcribe"][name] += mid_launches[name]
+        how = "the default budget" if default_from is not None else "a budget the first group fits"
+        print(f"transcribe {label}, mid-piece fallback ({how}): {route_line(model)}; notes equal those without the fallback (largest time difference "
+              f"{worst:.3g} s); launches {mid_launches}")
+        break
+    else:
+        print("no piece's group counts allow a mid-piece fallback: not shown on the card")
+    model.decode_k_budget = budget
     del long_audio, long_notes
+
+    # the dispatch waits for nothing: no synchronizing call while a piece is enqueued
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            plan = model._transcribe_dispatch(audio, None, None, False, "hamming", None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"the dispatch synchronized {len(syncs)} times: {syncs[:3]}")
+    model._transcribe_finish(plan)
+    del plan
+    print("dispatch of the piece under torch.cuda.set_sync_debug_mode('warn'): no synchronizing call")
+
+    # transcribe_many over copies of the piece against as many transcribe calls,
+    # in turns: the same notes in order
+    n_many = 4
+    walls = {"sequential": [], "transcribe_many": []}
+    for kind in ("sequential", "transcribe_many", "transcribe_many", "sequential"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if kind == "sequential":
+            results = [model.transcribe(audio) for _ in range(n_many)]
+        else:
+            results = list(model.transcribe_many(audio for _ in range(n_many)))
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        if len(results) != n_many or counts() != {k: n_many * v for k, v in want_launches(model, n_seg).items()}:
+            raise AssertionError(f"{kind}: {len(results)} results, launches {counts()}")
+        for got in results:
+            check_same_notes(got, notes, f"{kind} against transcribe")
+        if kind == "transcribe_many":
+            for name in KERNELS:
+                by_path["transcribe"][name] += counts()[name]
+    print(f"transcribe_many over {n_many} copies of the {PIECE_SECONDS:.0f} s piece ({card}): wall "
+          f"{[round(x, 4) for x in walls['transcribe_many']]} s against {n_many} transcribe calls "
+          f"{[round(x, 4) for x in walls['sequential']]} s (in turns: sequential, many, many, "
+          f"sequential); every piece's notes equal transcribe's, in order")
+
+    # -- the walk kernel against its plain version: path 1's real tables ------
+    lfi = round(seg_size / conf.hopSize)
+    step_frames = step // conf.hopSize
+    start0 = math.floor((conf.segmentSizeInSecond - conf.segmentHopSizeInSecond) * conf.fs / conf.hopSize)
+    audio_dev = torch.from_numpy(np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))).to(dev)
+    seg_starts = list(range(0, audio.shape[0] + 2 * pad, step))
+    groups = [seg_starts[g : g + group] for g in range(0, len(seg_starts), group)]
+    err["decode_walk"] = 0
+    walk_cases, overflowed, plain_cpu_s, host_walk_s = 0, False, [], []
+
+    def check_walk(tables, start, k_max, onset_bound=-1):
+        """Kernel (twice) against the plain version on the CPU: every output
+        equal as integers.  Returns the kernel's outputs."""
+        nonlocal walk_cases
+        geometry = (k_max, lfi, step_frames, onset_bound)
+        before = walk.launches
+        got, again = (walk.walk_group_cuda(*tables, start, *geometry) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = walk.walk_group_plain(*(a.cpu() for a in tables), start.cpu(), *geometry)
+        plain_cpu_s.append(time.perf_counter() - t0)
+        for g, a, w in zip(got, again, want):
+            if walk.launches != before + 2 or g.dtype != w.dtype or not torch.equal(g, a) \
+                    or not torch.equal(g.cpu(), w):
+                raise AssertionError(f"decode_walk != plain at n={tables[0].shape[0]}, k_max {k_max}, "
+                                     f"onset_bound {onset_bound}: max |diff| "
+                                     f"{int((g.cpu().long() - w.long()).abs().max())}, two runs equal "
+                                     f"{torch.equal(g, a)}")
+        walk_cases += 1
+        return got
+
+    real_tables, carried = [], torch.full((90,), start0, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for g, grp in enumerate(groups):
+            ptr, diag, bpres, ctx = model._group_tables(audio_dev, grp, seg_size, lfi)
+            del ctx
+            tables = (ptr, diag, bpres)
+            if g == 0:
+                real_tables = tables
+            start_in = carried
+            carried = check_walk(tables, start_in, model.decode_k_max)[4]
+            # random forced starts, an onset bound, and a capacity the tables overflow
+            t = diag.shape[1]
+            rand = torch.from_numpy(rng.integers(0, t, size=90).astype(np.int32)).to(dev)
+            check_walk(tables, rand, model.decode_k_max)
+            check_walk(tables, start_in, model.decode_k_max, onset_bound=step_frames)
+            overflowed |= bool(check_walk(tables, start_in, WALK_SMALL_K)[3].any())
+            # the host route's chain from the same start ends where the kernel's does
+            t0 = time.perf_counter()
+            np_tables = [a.cpu().numpy() for a in tables]
+            _, host_next = transkun_module.host_chain(*np_tables, start_in.tolist(), lfi, step_frames)
+            host_walk_s.append(time.perf_counter() - t0)
+            if host_next != carried.tolist():
+                raise AssertionError(f"group {g}: the kernel's next start differs from the host walk's")
+    if not overflowed:
+        raise AssertionError(f"k_max {WALK_SMALL_K} did not overflow on the real tables")
+    del audio_dev
+
+    # time the kernel on group 0's real tables (4 segments, t = 691) from the piece's start
+    start_dev = torch.full((90,), start0, dtype=torch.int32, device=dev)
+    walk_args = (*real_tables, start_dev, model.decode_k_max, lfi, step_frames)
+    ms["decode_walk"], device_ms["decode_walk"], plain_ms["decode_walk"] = lone_device_plain(
+        lambda: walk.walk_group_cuda(*walk_args), lambda: walk.walk_group_plain(*walk_args))
+    out = walk.walk_group_cuda(*walk_args)
+    np_tables = [a.cpu().numpy() for a in real_tables]
+    cur, visits = [start0] * 90, np.zeros(90, np.int64)
+    for gi in range(np_tables[0].shape[0]):  # each segment's start, from the host chain
+        visits += walk_visits(np_tables[0][gi], np_tables[1][gi], cur)
+        cur = transkun_module.host_chain(*(a[gi : gi + 1] for a in np_tables), cur, lfi, step_frames)[1]
+    n_g, t = real_tables[1].shape[:2]
+    edge_events = int(((out[1] >= lfi) & (torch.arange(model.decode_k_max, device=dev) < out[2][..., None]))
+                      .sum())
+    # bytes this run's data needs: a ptr and a diag load at each visited
+    # position, a presence byte for each edge event, the starts; every output written once
+    walk_bytes = (int(visits.sum()) * 5 + edge_events + 90 * 4
+                  + sum(a.numel() * a.element_size() for a in out))
+    bounds["decode_walk"] = bound(walk_bytes, 0)
+    ns_per_step = device_ms["decode_walk"] * 1e6 / int(visits.max())
+    walk_extras = {"device_ms": device_ms["decode_walk"],
+                   "plain_cpu_ms": float(np.median(plain_cpu_s)) * 1e3,
+                   "host_walk_ms": float(np.median(host_walk_s)) * 1e3,
+                   "visited_positions": int(visits.sum()), "longest_chain": int(visits.max()),
+                   "ns_per_chain_step": ns_per_step, "cases": walk_cases}
+    print(f"decode_walk: equal to walk_group_plain as integers, two runs the same bits, in {walk_cases} "
+          f"cases on path 1's real tables (groups of {[len(g) for g in groups]} segments, t = {t}, the "
+          f"starts carried group to group; random forced starts; onset bound {step_frames}; k_max "
+          f"{WALK_SMALL_K}, which overflowed); the next starts equal the host walk's")
+    print(f"decode_walk [{n_g},{t - 1},90] ({card}): lone launch {ms['decode_walk']:.4f} ms, device "
+          f"{device_ms['decode_walk']:.4f} ms over {DEVICE_LAUNCHES} launches, plain on the card "
+          f"{plain_ms['decode_walk']:.1f} ms, plain on the CPU {walk_extras['plain_cpu_ms']:.1f} ms, host "
+          f"walk {walk_extras['host_walk_ms']:.1f} ms; bound {bounds['decode_walk'][0]:.5f} ms "
+          f"({walk_bytes} bytes), share {bounds['decode_walk'][0] / device_ms['decode_walk']:.2%}; "
+          f"{int(visits.sum())} visited positions, longest chain {int(visits.max())}: "
+          f"{ns_per_step:.0f} ns a chain step")
 
     # one segment's real scores: kernel table == plain table
     padded = np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))
@@ -1425,11 +1711,14 @@ def main() -> int:
         trained_notes = trained.transcribe(x)
         torch.cuda.synchronize()
         validate_notes(trained_notes)
-        if counts() != {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_segments(x.shape[0])}:
-            raise AssertionError(f"launches {counts()} for {n_segments(x.shape[0])} segments")
+        if counts() != want_launches(trained, n_segments(x.shape[0])):
+            raise AssertionError(f"launches {counts()} for {n_segments(x.shape[0])} segments; "
+                                 + route_line(trained))
         by_path["train"]["viterbi_bwd"] += viterbi.launches
+        by_path["train"]["decode_walk"] += walk.launches
         print(f"trained best_state_dict transcribes {CORPUS_PIECE_SECONDS:.0f} s: "
-              f"{len(trained_notes)} notes, {viterbi.launches} Viterbi launches")
+              f"{len(trained_notes)} notes, {viterbi.launches} Viterbi and {walk.launches} walk "
+              f"launches; {route_line(trained)}")
         del trained
 
         # -- path 3: the fused-backbone configuration, serving then training -----
@@ -1443,9 +1732,10 @@ def main() -> int:
             # the timed run only: the warm-up one made as many calls again
             calls = {"attention_fwd": attn_calls.calls // 2, "attention_bwd": 0,
                      "fused_mlp": mlp_calls.calls // 2}
-            want = {**dict.fromkeys(KERNELS, 0), **calls, "viterbi_bwd": n_seg}
-            if by_path["fused"] != want or calls["attention_fwd"] != n_seg * n_attn \
-                    or calls["fused_mlp"] != n_seg * n_ffn:
+            want = {**want_launches(model, n_seg), **calls}
+            n_run = want["viterbi_bwd"]  # segments run, the host-walk route's included
+            if by_path["fused"] != want or calls["attention_fwd"] != n_run * n_attn \
+                    or calls["fused_mlp"] != n_run * n_ffn:
                 raise AssertionError(
                     f"fused transcription launches {by_path['fused']}, calls made {want} "
                     f"({n_seg} segments, {n_attn} attention and {n_ffn} FFN blocks)")
@@ -1466,7 +1756,8 @@ def main() -> int:
                   f"(default route {wall:.3f} s), RTF {PIECE_SECONDS / fused_wall:.1f}x "
                   f"({PIECE_SECONDS / wall:.1f}x), peak memory {fused_peak_gb:.2f} GB "
                   f"({peak_gb:.2f} GB), {len(fused_notes)} notes ({len(notes)}), "
-                  f"{differing} notes differ between the routes; launches {by_path['fused']}")
+                  f"{differing} notes differ between the routes; launches {by_path['fused']}; "
+                  f"{route_line(model)}")
             print(f"segment 3 ctx {tuple(ctx.shape)}: fused vs default max |diff| {ctx_err:.3g} "
                   f"(max |ctx| {ctx_max:.3g}, allowed {CTX_RTOL} * max(1, max |ctx|))")
             del model, ctx_fused
@@ -1549,16 +1840,18 @@ def main() -> int:
 
         # -- path 4: the bf16 configuration, serving then training ------------------
         model_b = TransKun(conf, device=dev, seed=SEED, compute_dtype=torch.bfloat16)
+        model_b.decode_k_budget = budget  # path 1's
         with torch.no_grad():
             model_b.module.scorer.map[0].bias[-1] = -8.0
         with CallCounter(transkun_module, "viterbi_backward_tables_padded") as vit_calls, \
                 CallCounter(logz, "alpha_table_padded") as alpha_calls, \
                 CallCounter(logz, "beta_table_padded") as beta_calls:
             bf16_notes, bf16_wall, bf16_peak_gb, by_path["bf16"] = timed_transcription(model_b)
-            want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg}
-            if by_path["bf16"] != want or vit_calls.calls != 2 * n_seg:  # warm-up + timed run
+            want = want_launches(model_b, n_seg)
+            if by_path["bf16"] != want or vit_calls.calls != 2 * want["viterbi_bwd"]:  # warm-up + timed run
                 raise AssertionError(f"bf16 transcription launches {by_path['bf16']}, calls made "
-                                     f"{vit_calls.calls} over two runs of {n_seg} segments")
+                                     f"{vit_calls.calls} over two runs of {n_seg} segments; "
+                                     + route_line(model_b))
             if vit_calls.shapes != {(696, 696, 128)} or vit_calls.dtypes != {torch.bfloat16}:
                 raise AssertionError(f"the Viterbi kernel was held against its plain version at "
                                      f"[696,696,128] bf16; the path gave {vit_calls.shapes} {vit_calls.dtypes}")
@@ -1575,7 +1868,8 @@ def main() -> int:
                   f"(fp32 route {wall:.3f} s), RTF {PIECE_SECONDS / bf16_wall:.1f}x "
                   f"({PIECE_SECONDS / wall:.1f}x), peak memory {bf16_peak_gb:.2f} GB "
                   f"({peak_gb:.2f} GB), {len(bf16_notes)} notes ({len(notes)}), "
-                  f"{differing} notes differ from the fp32 route's; launches {by_path['bf16']}")
+                  f"{differing} notes differ from the fp32 route's; launches {by_path['bf16']}; "
+                  f"{route_line(model_b)}")
             print(f"segment 3 ctx {tuple(ctx.shape)}: bf16 vs fp32 max |diff| {ctx_err:.3g} "
                   f"(max |ctx| {ctx_max:.3g}, allowed {BF16_CTX_RTOL} * max |ctx|)")
 
@@ -1594,10 +1888,11 @@ def main() -> int:
                 for flag in flags:
                     del os.environ[flag]
                 # the warm-up run, the timed run, and one segment more for ctx
-                want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": n_seg,
-                        "attention_fwd": n_seg * n_attn, "fused_mlp": n_seg * n_ffn * with_mlp}
-                if fa_launches != want or attn_calls.calls != (2 * n_seg + 1) * n_attn \
-                        or mlp_calls.calls != (2 * n_seg + 1) * n_ffn * with_mlp:
+                want = want_launches(model_b, n_seg)
+                n_run = want["viterbi_bwd"]  # segments run, the host-walk route's included
+                want.update(attention_fwd=n_run * n_attn, fused_mlp=n_run * n_ffn * with_mlp)
+                if fa_launches != want or attn_calls.calls != (2 * n_run + 1) * n_attn \
+                        or mlp_calls.calls != (2 * n_run + 1) * n_ffn * with_mlp:
                     raise AssertionError(f"bf16 {label} transcription launches {fa_launches}, calls "
                                          f"made {attn_calls.calls} and {mlp_calls.calls} over two runs "
                                          f"of {n_seg} segments and one segment, {n_attn} attention and "
@@ -1623,7 +1918,8 @@ def main() -> int:
                       f"{fa_wall:.3f} s (bf16 default route {bf16_wall:.3f} s, fp32 {wall:.3f} s), peak "
                       f"memory {fa_peak_gb:.2f} GB ({bf16_peak_gb:.2f} GB, {peak_gb:.2f} GB), "
                       f"{len(fa_notes)} notes, {differing} differ from the fp32 route's; launches "
-                      f"{fa_launches}; q at the attention kernel {sorted(attn_calls.shapes)} bf16"
+                      f"{fa_launches}; {route_line(model_b)}; q at the attention kernel "
+                      f"{sorted(attn_calls.shapes)} bf16"
                       + (f", x at the MLP kernel {sorted(mlp_calls.shapes)} bf16" if with_mlp else "")
                       + f"; segment 3 ctx vs fp32 max |diff| {ctx_err:.3g} (allowed {BF16_CTX_RTOL} * "
                       f"max |ctx| {ctx_max:.3g})")
@@ -1780,7 +2076,9 @@ def main() -> int:
                "attention_bwd": ("attention_bwd.cu", pallas + "attention_pallas.py:127"),
                "fused_mlp": ("fused_mlp.cu", pallas + "mlp_pallas.py:86"),
                "softmax_fwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:54"),
-               "softmax_bwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:62")}
+               "softmax_bwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:62"),
+               # not a TPU kernel: the XLA scan of the decode's walk and its chain
+               "decode_walk": ("decode_walk.cu", pallas + "semicrf.py:450")}
 
     def bf16_entry(name):
         """The same numbers with bf16 input (kernels 1-5, 7 and 8)."""
@@ -1812,6 +2110,7 @@ def main() -> int:
         "plan": plans[name],
         "bf16": bf16_entry(name),
         "v1": v1_times.get(name),
+        **({"chain": walk_extras} if name == "decode_walk" else {}),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

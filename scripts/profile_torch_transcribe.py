@@ -1,12 +1,17 @@
 """Where the time of one flagship transcription goes, in the PyTorch port.
 
     python scripts/profile_torch_transcribe.py [--seconds 64] [--seed 0] [--bf16]
+        [--budget N]
 
 Needs a CUDA device.  Random flagship weights from ``--seed`` (scorer
 diagonal bias -8), a synthetic piece from ``chip_smoke.synth_piece``.  After
 one warm-up run it times one run with host-clock spans around the stages of
-``TransKun.transcribe`` and, in a second run under ``torch.profiler``, sums
+``TransKun.transcribe`` (the dispatch, and in it the segments' enqueue; the
+finish, and in it the wait for the piece's event, the assembly, the merge
+and any host-walk route) and, in a second run under ``torch.profiler``, sums
 the device time of every CUDA kernel.  Prints one JSON object.
+``--budget`` sets ``decode_k_budget`` (1: the host-walk route from the first
+group).
 
 With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
 environment it profiles the fused-backbone route; the breakdown names the
@@ -30,6 +35,7 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float, default=64.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--budget", type=int, default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -42,13 +48,14 @@ def main(argv=None):
     import chip_smoke
     import transkun_tpu_torch.models.transkun as tk
     from transkun_tpu_torch.models.config import load_default_conf
-    from transkun_tpu_torch.ops import attention, mlp, semicrf
+    from transkun_tpu_torch.ops import attention, mlp, semicrf, walk
 
     _, conf = load_default_conf()
     model = tk.TransKun(conf, device="cuda", seed=args.seed,
                         compute_dtype=torch.bfloat16 if args.bf16 else None)
     with torch.no_grad():
         model.module.scorer.map[0].bias[-1] = -8.0
+    model.decode_k_budget = args.budget
     audio = chip_smoke.synth_piece(conf.fs, args.seconds, args.seed)
     model.transcribe(audio)
     torch.cuda.synchronize()
@@ -65,11 +72,17 @@ def main(argv=None):
                 spans[name] += time.perf_counter() - t0
         return wrapper
 
+    # "a.b" spans lie inside span "a"
     stages = [
-        (tk.TransKun, "_segment_tables", "enqueue_device_work"),
-        (semicrf, "backtrack_backward", "host_walk"),
-        (tk.TransKun, "_attr_and_assemble", "attributes_and_assembly"),
-        (tk, "_merge_segments", "merge"),
+        (tk.TransKun, "_transcribe_dispatch", "dispatch"),
+        (tk.TransKun, "_segment_tables", "dispatch.enqueue_segments"),
+        (walk, "walk_group", "dispatch.enqueue_walk"),
+        (tk.TransKun, "_transcribe_finish", "finish"),
+        (torch.cuda.Event, "synchronize", "finish.wait_for_device"),
+        (tk.TransKun, "_assemble_from_arrays", "finish.assembly"),
+        (tk.TransKun, "_transcribe_host_walk", "finish.host_walk_route"),
+        (semicrf, "backtrack_backward", "finish.host_walk_route.walk"),
+        (tk, "_merge_segments", "finish.merge"),
     ]
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for obj, attr, name in stages:
@@ -82,8 +95,7 @@ def main(argv=None):
     finally:
         for obj, attr, fn in saved:
             setattr(obj, attr, fn)
-    # what is left is mostly the wait for the device inside the fetch
-    spans["fetch_and_rest"] = wall - sum(spans.values())
+    spans["rest"] = wall - spans["dispatch"] - spans["finish"]
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -111,6 +123,9 @@ def main(argv=None):
         "bf16": args.bf16,
         "seconds": args.seconds,
         "notes": len(notes),
+        "decode_k_budget": args.budget,
+        "fallback_from": model.last_transcribe_fallback_from,
+        "group_counts": model.last_transcribe_group_counts,
         "wall_s": wall,
         "rtf": args.seconds / wall,
         "spans_s": dict(spans),
@@ -119,7 +134,7 @@ def main(argv=None):
         "device_busy_share_profiled_run": device_ms / 1e3 / profiled_wall,
         # attention_fwd_mma or attention_fwd_general, whichever the shape took
         "own_kernels_ms": {name: ms_of(name + ("_" if name == "attention_fwd" else "_kernel"))
-                           for name in ("viterbi_bwd", "attention_fwd", "fused_mlp")},
+                           for name in ("viterbi_bwd", "decode_walk", "attention_fwd", "fused_mlp")},
         "gemm_ms": ms_of("gemm", "sm90_xmma", "cutlass"),
         "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:12]],
     }, indent=1))

@@ -1,8 +1,9 @@
-"""The port's eight CUDA kernels against their plain PyTorch versions, on the card;
+"""The port's nine CUDA kernels against their plain PyTorch versions, on the card;
 the Viterbi kernel also on tie-heavy inputs, and the Viterbi, alpha and beta
 kernels at every cluster size and at the cluster edges (one lane group; more
 lane groups than SMs; a ragged Tp), and on the V1 model's routes (unpadded
-scores, a learned noise) at its shapes and tails.
+scores, a learned noise) at its shapes and tails; the walk kernel (the
+decode's stitching chain) against ``walk_group_plain``, as integers.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from transkun_tpu_torch.ops import logz, semicrf, softmax, viterbi
+from transkun_tpu_torch.ops import logz, semicrf, softmax, viterbi, walk
 
 NEG = -1e30
 
@@ -770,3 +771,67 @@ def test_softmax_kernels_reject_what_they_do_not_take(cuda):
         softmax.softmax_fwd_cuda(l[:0])
     with pytest.raises(ValueError):  # another device
         softmax.softmax_bwd_cuda(l, l.cpu())
+
+
+def _walk_inputs(rng, n, t, p=90, n_edge=2):
+    """A group's chain inputs on the CPU: Viterbi tables of random scores
+    (shifted down, so that a walk has a few events and many skips, as a
+    decode does), random presence bits."""
+    ptrs, diags = [], []
+    for _ in range(n):
+        score = torch.from_numpy((rng.normal(size=(t, t, p)) - 2.5).astype(np.float32))
+        noise = torch.from_numpy((rng.normal(size=(t - 1, p)) * 0.5).astype(np.float32))
+        ptr, diag = semicrf.viterbi_backward_tables(score, noise)
+        ptrs.append(ptr)
+        diags.append(diag)
+    bpres = torch.from_numpy(rng.random((n, p, t, n_edge)) < 0.5)
+    return torch.stack(ptrs).int(), torch.stack(diags), bpres
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["chain", "forced_starts", "overflow", "onset_bound", "one_segment"])
+def test_walk_kernel_equals_plain(cuda, case):
+    """The walk kernel against ``walk_group_plain`` on the same inputs, every
+    output equal, two launches the same bits: a chain of 4 segments from
+    zero starts, random forced starts, a k_max of 2 that overflows, an
+    onset bound, and a group of one segment at another t."""
+    rng = np.random.default_rng(11)
+    n, t, k_max, onset_bound = 4, 123, 128, -1
+    if case == "one_segment":
+        n, t = 1, 61
+    ptr, diag, bpres = _walk_inputs(rng, n, t)
+    start = torch.zeros(90, dtype=torch.int32)
+    if case in ("forced_starts", "onset_bound"):
+        start = torch.from_numpy(rng.integers(0, t, size=90).astype(np.int32))
+    if case == "overflow":
+        k_max = 2
+    if case == "onset_bound":
+        onset_bound = t // 2
+    geometry = (k_max, t - 2, t // 3, onset_bound)
+    want = walk.walk_group_plain(ptr, diag, bpres, start, *geometry)
+    before = walk.launches
+    args = [a.to(cuda) for a in (ptr, diag, bpres, start)]
+    got, again = (walk.walk_group(*args, *geometry) for _ in range(2))
+    torch.cuda.synchronize()
+    assert walk.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, a) and torch.equal(g.cpu(), w)
+    assert bool(want[3].any()) == (case == "overflow")
+    assert int(want[2].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_walk_kernel_rejects_what_it_does_not_take(cuda):
+    ptr, diag, bpres = (a.to(cuda) for a in _walk_inputs(np.random.default_rng(0), 2, 20))
+    start = torch.zeros(90, dtype=torch.int32, device=cuda)
+    geometry = (16, 18, 9)
+    with pytest.raises(TypeError):  # int32 pointers
+        walk.walk_group(ptr.long(), diag, bpres, start, *geometry)
+    with pytest.raises(TypeError):  # bool tables
+        walk.walk_group(ptr, diag.int(), bpres, start, *geometry)
+    with pytest.raises(ValueError):  # non-contiguous
+        walk.walk_group(ptr.transpose(0, 1).contiguous().transpose(0, 1), diag, bpres, start, *geometry)
+    with pytest.raises(ValueError):  # mismatched shapes
+        walk.walk_group(ptr[:, :-1], diag, bpres, start, *geometry)
+    with pytest.raises(ValueError):  # another device
+        walk.walk_group(ptr, diag, bpres, start.cpu(), *geometry)

@@ -19,7 +19,7 @@ from transkun_tpu.models.config import ModelConfig as JaxModelConfig
 from transkun_tpu.models.transkun import TransKunModule as JaxModule
 from transkun_tpu_torch.models.config import ModelConfig
 from transkun_tpu_torch.models.transkun import TransKun
-from transkun_tpu_torch.ops import semicrf
+from transkun_tpu_torch.ops import semicrf, walk
 from transkun_tpu_torch.utils.convert import state_dict_from_flax
 
 FS = 4000
@@ -29,6 +29,18 @@ TINY = {
     "scoringExpansionFactor": 2, "segmentSizeInSecond": 2.0,
     "segmentHopSizeInSecond": 1.0,
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU work here is many small operations: one intra-op
+    thread a test process, since parallel test workers share the cores
+    (six concurrent runs of ``test_torch_walk.py`` on an 8-core host: 1063 s
+    at eight threads each, 51 s at one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _piece(dur=7.0, seed=3):
@@ -92,10 +104,11 @@ def test_transcribe_matches_jax(monkeypatch):
 
     model = TransKun(ModelConfig.from_dict(TINY), device="cpu")
     model.load_state_dict(state_dict_from_flax(params))
-    frames_seen, tables, starts = [], [], []
+    frames_seen, tables, starts, walks = [], [], [], []
     decode = model.module.process_frames_decode
     viterbi = port_transkun.viterbi_backward_tables_padded
-    walk = semicrf.backtrack_backward
+    walk_host = semicrf.backtrack_backward
+    walk_group = walk.walk_group
 
     def record_frames(frames, t_pad, p_pad):
         frames_seen.append(frames.numpy())
@@ -108,34 +121,53 @@ def test_transcribe_matches_jax(monkeypatch):
 
     def record_walk(ptr, diag_pos, forced_start=None):
         starts.append(list(forced_start))
-        return walk(ptr, diag_pos, forced_start)
+        return walk_host(ptr, diag_pos, forced_start)
+
+    def record_group_walk(ptr, *args):
+        walks.append(ptr.shape[0])
+        return walk_group(ptr, *args)
 
     monkeypatch.setattr(model.module, "process_frames_decode", record_frames)
     monkeypatch.setattr(port_transkun, "viterbi_backward_tables_padded", record_tables)
     monkeypatch.setattr(semicrf, "backtrack_backward", record_walk)
-    got = model.transcribe(audio)
+    monkeypatch.setattr(walk, "walk_group", record_group_walk)
 
-    assert len(tables) == len(starts) == 6  # a multi-segment piece
+    def check(got):
+        assert len(got) == len(want)
+        # times differ by ~1e-7 s, which may reorder notes of different pitch
+        # that start together; per pitch the order is by time in both
+        key = lambda n: (n.pitch, n.start)
+        for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+            assert (a.pitch, a.velocity, a.hasOnset, a.hasOffset) == (
+                b.pitch, b.velocity, b.hasOnset, b.hasOffset
+            )
+            assert abs(a.start - b.start) < 1e-6 and abs(a.end - b.end) < 1e-6
+
+    # the default route: the walk and the chain in one call a group of 4
+    got = model.transcribe(audio)
     assert len(want) > 100
-    assert len(got) == len(want)
-    # times differ by ~1e-7 s, which may reorder notes of different pitch
-    # that start together; per pitch the order is by time in both
-    key = lambda n: (n.pitch, n.start)
-    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
-        assert (a.pitch, a.velocity, a.hasOnset, a.hasOffset) == (
-            b.pitch, b.velocity, b.hasOnset, b.hasOffset
-        )
-        assert abs(a.start - b.start) < 1e-6 and abs(a.end - b.end) < 1e-6
+    assert len(tables) == 6 and walks == [4, 2] and starts == []  # a multi-segment piece
+    assert model.last_transcribe_fallback_from is None
+    check(got)
+
+    # the host-walk route from the first group: the dispatch's 6 segments,
+    # then the host route's 6, each walked on the host
+    frames_seen.clear(), tables.clear()
+    model.decode_k_budget = 1
+    got = model.transcribe(audio)
+    assert model.last_transcribe_fallback_from == 0
+    assert len(tables) == 12 and len(starts) == 6
+    check(got)
 
     # the decisions behind the notes are far from ties, and far above the
     # score difference between the two frameworks
     t = 126
     margin = min(
         _decision_margins(s_t, noise, torch.diagonal(s_t).transpose(0, 1), ptr, t, 90, forced)
-        for (s_t, noise, ptr), forced in zip(tables, starts)
+        for (s_t, noise, ptr), forced in zip(tables[6:], starts)
     )
     diff = 0.0
-    for frames, (s_t, _, _) in zip(frames_seen, tables):
+    for frames, (s_t, _, _) in zip(frames_seen[6:], tables[6:]):
         s_j = JaxModule(conf_j).apply(
             params, frames, 128, 128, True, method=JaxModule.process_frames_decode
         )[0]
@@ -177,15 +209,16 @@ def test_segment_batch_changes_no_note(grouped, segment_batch):
 
 @pytest.mark.parametrize("segment_batch", [1, 2, None])
 def test_at_most_two_groups_of_ctx_alive(grouped, monkeypatch, segment_batch):
-    """Whenever a group's device work is enqueued or its attributes are read,
-    no ctx but its own and one neighbour's exists: memory does not grow with
-    the piece."""
+    """Whenever a group's device work is enqueued, no ctx but its own
+    exists (the default route drops a group's ctx once its heads are
+    enqueued, before the next group's work): memory does not grow with the
+    piece, and the whole piece is enqueued before anything is fetched."""
     import gc
     import weakref
 
     model, audio, _ = grouped
     made, alive_seen, sizes = [], [], []
-    group_tables, assemble = model._group_tables, model._attr_and_assemble
+    group_tables = model._group_tables
 
     def alive():
         gc.collect()
@@ -199,17 +232,60 @@ def test_at_most_two_groups_of_ctx_alive(grouped, monkeypatch, segment_batch):
         alive_seen.append(alive())
         return out
 
+    monkeypatch.setattr(model, "_group_tables", counted_tables)
+    model.transcribe(audio, segment_batch=segment_batch)
+    assert model.last_transcribe_fallback_from is None
+    per_group = segment_batch or port_transkun.DEFAULT_SEGMENT_BATCH
+    assert sum(sizes) == 9 and max(sizes) == per_group and len(sizes) == -(-9 // per_group) >= 3
+    assert len(alive_seen) == len(sizes) and max(alive_seen) == 1
+    assert alive() == 0  # nothing of the piece stays on the device
+
+
+def test_host_route_holds_at_most_two_groups_of_ctx(grouped, monkeypatch):
+    """On the host-walk route (here from the first group), whenever a
+    group's device work is enqueued or its attributes are read, no ctx but
+    its own and one neighbour's exists."""
+    import gc
+    import weakref
+
+    model, audio, want = grouped
+    made, alive_seen = [], []
+    group_tables, assemble = model._group_tables, model._attr_and_assemble
+
+    def alive():
+        gc.collect()
+        return sum(r() is not None for r in made)
+
+    def counted_tables(*args):
+        out = group_tables(*args)
+        made.append(weakref.ref(out[3]))
+        alive_seen.append(alive())
+        return out
+
     def counted_assemble(ctx, *args, **kwargs):
         alive_seen.append(alive())
         return assemble(ctx, *args, **kwargs)
 
     monkeypatch.setattr(model, "_group_tables", counted_tables)
     monkeypatch.setattr(model, "_attr_and_assemble", counted_assemble)
-    model.transcribe(audio, segment_batch=segment_batch)
-    per_group = segment_batch or port_transkun.DEFAULT_SEGMENT_BATCH
-    assert sum(sizes) == 9 and max(sizes) == per_group and len(sizes) == -(-9 // per_group) >= 3
-    assert len(alive_seen) == 2 * len(sizes) and max(alive_seen) == 2
-    assert alive() == 0  # nothing of the piece stays on the device
+    monkeypatch.setattr(model, "decode_k_budget", 1)
+    got = model.transcribe(audio, segment_batch=2)
+    assert model.last_transcribe_fallback_from == 0
+    # 5 groups dispatched, then the same 5 on the host route, each assembled
+    assert len(alive_seen) == 15 and max(alive_seen[:5]) == 1 and max(alive_seen) == 2
+    assert alive() == 0
+    _assert_same_notes(got, want)
+
+
+def _assert_same_notes(got, want):
+    """Pitch, velocity and flags equal, times within 1e-6 s, pitch by pitch
+    (times that differ in their last bits may reorder notes of different
+    pitch that start together)."""
+    assert len(got) == len(want)
+    key = lambda n: (n.pitch, n.start)
+    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+        assert (a.pitch, a.velocity, a.hasOnset, a.hasOffset) == (b.pitch, b.velocity, b.hasOnset, b.hasOffset)
+        assert abs(a.start - b.start) < 1e-6 and abs(a.end - b.end) < 1e-6
 
 
 def test_segment_batch_matches_jax():
@@ -303,3 +379,54 @@ def test_transkun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         TransKun(conf, device="cuda")
     assert TransKun(conf, device="cpu").device == torch.device("cpu")
+
+
+def test_transcribe_many_pipelines_pieces_in_order(grouped):
+    """``transcribe_many`` yields each piece's notes in input order, equal to
+    ``transcribe`` of the piece, and reads (and dispatches) piece i+1 before
+    it yields piece i; with depth 0 it reads one piece at a time."""
+    model, _, _ = grouped
+    pieces = [_piece(dur=d, seed=s) for d, s in ((2.0, 21), (1.5, 22), (2.5, 23))]
+    want = [model.transcribe(x) for x in pieces]
+    assert all(len(w) > 5 for w in want)
+    for depth in (1, 0):
+        read = []
+
+        def reader():
+            for i, x in enumerate(pieces):
+                read.append(i)
+                yield (f"piece{i}", x)
+
+        got = []
+        for notes in model.transcribe_many(reader(), depth=depth):
+            got.append(notes)
+            assert len(read) == min(len(got) + depth, len(pieces))
+        assert [[_note_key(n) for n in g] for g in got] == [[_note_key(n) for n in w] for w in want]
+
+
+def test_cli_directory_mode_goes_through_transcribe_many(tmp_path, monkeypatch):
+    """A directory input is read lazily into ``transcribe_many``: one call
+    for the whole tree, every file written, in sorted order."""
+    import json
+
+    from scipy.io import wavfile
+
+    from transkun_tpu_torch.cli.transcribe import main
+
+    conf_path = tmp_path / "tiny.conf"
+    conf_path.write_text(json.dumps({"Model": {"module": "transkun_tpu.models.transkun", "config": TINY}}))
+    src = tmp_path / "in"
+    (src / "sub").mkdir(parents=True)
+    for name, seed in (("a.wav", 31), ("sub/b.wav", 32)):
+        wavfile.write(src / name, FS, (_piece(dur=2.5, seed=seed)[:, 0] * 32768).astype(np.int16))
+    calls = []
+    many = TransKun.transcribe_many
+
+    def counted(self, pieces, *args, **kwargs):
+        calls.append(pieces)
+        return many(self, pieces, *args, **kwargs)
+
+    monkeypatch.setattr(TransKun, "transcribe_many", counted)
+    main([str(src), str(tmp_path / "out"), "--conf", str(conf_path), "--device", "cpu"])
+    assert len(calls) == 1 and not isinstance(calls[0], (list, tuple))
+    assert (tmp_path / "out" / "a.midi").exists() and (tmp_path / "out" / "sub" / "b.midi").exists()

@@ -5,7 +5,9 @@
 
 The default device is ``cuda``, and the command fails when CUDA is absent;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.  A
-directory input transcribes every audio file in it, mirroring the tree.
+directory input transcribes every audio file in it, mirroring the tree,
+through ``TransKun.transcribe_many``: the next file is read and dispatched
+before the current one's notes are assembled.
 """
 
 from __future__ import annotations
@@ -55,34 +57,48 @@ def main(argv=None):
         print("warning: no --weight given, using random weights (seed 0)")
         model = TransKun(conf, device=args.device, seed=0, compute_dtype=compute_dtype)
 
-    def transcribe_one(audio_path: str, out_path: str) -> float:
+    def read(audio_path: str):
         fs, audio = read_audio(audio_path)
         if fs != model.fs:
             audio = resample(audio, fs, model.fs)
+        return audio
+
+    if not os.path.isdir(args.audioPath):
         notes = model.transcribe(
-            audio,
+            read(args.audioPath),
             step_in_second=args.segmentHopSize,
             segment_size_in_second=args.segmentSize,
         )
-        write_midi(notes, out_path)
-        print(f"wrote {len(notes)} events to {out_path}")
-        return audio.shape[0] / model.fs
-
-    if not os.path.isdir(args.audioPath):
-        transcribe_one(args.audioPath, args.outPath)
+        write_midi(notes, args.outPath)
+        print(f"wrote {len(notes)} events to {args.outPath}")
         return
     root = pathlib.Path(args.audioPath)
     files = sorted(p for ext in ("*.wav", "*.mp3", "*.flac") for p in root.rglob(ext))
     print(f"{len(files)} audio files")
     t0 = time.perf_counter()
-    total_audio = 0.0
-    for p in files:
+    durations = []
+
+    def read_all():
+        # lazy: piece i+1 is read and resampled on the host while piece i's
+        # groups run on the card (transcribe_many dispatches it first)
+        for p in files:
+            audio = read(str(p))
+            durations.append(audio.shape[0] / model.fs)
+            yield audio
+
+    results = model.transcribe_many(
+        read_all(),
+        step_in_second=args.segmentHopSize,
+        segment_size_in_second=args.segmentSize,
+    )
+    for p, notes in zip(files, results):
         out = pathlib.Path(args.outPath) / p.relative_to(root).with_suffix(".midi")
         out.parent.mkdir(parents=True, exist_ok=True)
-        total_audio += transcribe_one(str(p), str(out))
+        write_midi(notes, str(out))
+        print(f"wrote {len(notes)} events to {out}")
     dt = time.perf_counter() - t0
+    total_audio = sum(durations)
     print(f"RTF: {total_audio / max(dt, 1e-9):.1f}x ({total_audio:.0f}s audio in {dt:.0f}s)")
-
 
 if __name__ == "__main__":
     main()

@@ -2,17 +2,21 @@
 in PyTorch: the training objective and the decode.
 
 Port of ``transkun_tpu/models/transkun.py``.  Transcription follows the JAX
-package's host-walk decode route (``_transcribe_segment_group`` ->
-``_process_group`` -> ``_attr_and_assemble`` -> ``_assemble_from_arrays``),
-which gives the same notes as its default route.  A segment's device work
-is independent of the stitching state, so the segments run in groups
-(``segment_batch``): a group's work is enqueued one group ahead of the
-pointer walk and the forcedStartPos chain, which run on the host over one
-fetch a group, and a group's device tensors are dropped once its notes are
-assembled, so device memory does not grow with the piece.  Training runs
-``log_prob_padded`` on the fused route: the scorer writes the padded
-alpha-layout score tensor once, and ``ops/logz`` takes logZ from it with the
-alpha and beta kernels.
+package's default route: ``transcribe`` is ``_transcribe_dispatch`` followed
+by ``_transcribe_finish``.  The dispatch enqueues every group of
+``segment_batch`` segments (``_fused_group``): the Viterbi tables, the
+pointer walk and the stitching chain (``ops/walk.py``, one kernel launch a
+group on the card), the compaction of the events into a ``k_budget`` buffer
+and the attribute heads on the real events, with the next group's forced
+start passed device to device, and the outputs copied to pinned host
+buffers; it waits for nothing.  The finish waits for the piece's event,
+assembles every group's events at once and, from the first group whose
+walk or budget overflowed, redoes the rest on the host-walk route
+(``_transcribe_host_walk`` -> ``_process_group``), which gives the same
+notes.  ``transcribe_many`` dispatches piece i+1 before it finishes piece i.
+Training runs ``log_prob_padded`` on the fused route: the scorer writes the
+padded alpha-layout score tensor once, and ``ops/logz`` takes logZ from it
+with the alpha and beta kernels.
 
 Train and eval modes are explicit: each entry point sets the mode it needs
 (``make_train_loss`` train; ``log_prob``, the stats and the decode eval).
@@ -21,8 +25,8 @@ Train and eval modes are explicit: each entry point sets the mode it needs
 from __future__ import annotations
 
 import math
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from collections import defaultdict, deque
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +34,7 @@ from torch import nn
 
 from ..data.note import Note, resolve_overlapping
 from ..ops import distributions as dist
-from ..ops import frontend, logz, semicrf
+from ..ops import frontend, logz, semicrf, walk
 from ..ops.viterbi import viterbi_backward_tables_padded
 from .backbone import Backbone, UpConvSkip
 from .config import ModelConfig
@@ -45,9 +49,16 @@ from .layers import (
 Config = ModelConfig
 
 # Segments a group of ``TransKun.transcribe`` holds when the caller names no
-# ``segment_batch``: two groups' ctx (2 x 4 x 64 MB at flagship width) are the
-# most that is alive, at any piece length.
+# ``segment_batch``: one group's ctx (4 x 64 MB at flagship width) is the most
+# that is alive on the default route, two on the host-walk route, at any piece
+# length.  (The JAX package's default of 1 was measured on a TPU's link.)
 DEFAULT_SEGMENT_BATCH = 4
+
+# Events a segment's track keeps on the default route, and events a group
+# keeps a segment when ``decode_k_budget`` is None (~5x the densest real
+# piano); past either the piece resumes on the host-walk route.
+DECODE_K_MAX = 128
+DECODE_EVENTS_PER_SEGMENT = 2048
 
 
 def target_midi_pitches(_conf: ModelConfig = None) -> List[int]:
@@ -336,6 +347,16 @@ class TransKun:
         if seed is not None:
             module.reset_parameters(torch.Generator().manual_seed(seed))
         self.module = module.to(self.device).eval()
+        # the default route's capacities: events a track keeps a segment, and
+        # the group's compact buffer (None: DECODE_EVENTS_PER_SEGMENT a
+        # segment of the group).  Past either, the piece resumes on the
+        # host-walk route from the group that overflowed, with the same notes.
+        self.decode_k_max = DECODE_K_MAX
+        self.decode_k_budget: Optional[int] = None
+        # what the last transcription did: the group the host-walk route
+        # resumed from (None: it did not), and each group's compact count
+        self.last_transcribe_fallback_from: Optional[int] = None
+        self.last_transcribe_group_counts: List[int] = []
 
     def load_state_dict(self, state_dict) -> None:
         self.module.load_state_dict(state_dict, strict=True)
@@ -487,9 +508,12 @@ class TransKun:
     ):
         """Endpoint contexts -> heads -> (velocity, refined onset/offset in
         frames, offset presence), with the velocity criterion applied."""
-        vel_logits, of_value, of_presence = self.module.attributes(
-            _gather_ctx(ctx, begins), _gather_ctx(ctx, ends)
-        )
+        return self._attr_from_pairs(_gather_ctx(ctx, begins), _gather_ctx(ctx, ends), criterion)
+
+    def _attr_from_pairs(self, ctx_a: torch.Tensor, ctx_b: torch.Tensor, criterion: str):
+        """The heads and the velocity criterion on gathered endpoint context
+        pairs of any batch shape."""
+        vel_logits, of_value, of_presence = self.module.attributes(ctx_a, ctx_b)
         p_velocity = torch.softmax(vel_logits, dim=-1)
         w = torch.arange(128, dtype=p_velocity.dtype, device=p_velocity.device)
         if criterion == "mse":
@@ -648,6 +672,58 @@ class TransKun:
             bpress.append(bpres)
         return torch.stack(ptrs), torch.stack(diags), torch.stack(bpress), ctx_group
 
+    def _fused_group(
+        self,
+        audio: torch.Tensor,
+        starts: Sequence[int],
+        start_pos: torch.Tensor,
+        criterion: str,
+        onset_bound: int,
+        segment_size: int,
+        last_frame_idx: int,
+        step_frames: int,
+        k_max: int,
+        k_budget: int,
+    ) -> Tuple[torch.Tensor, ...]:
+        """The group program (the JAX package's ``_fused_group_traced``,
+        ``:988-1115``): the segments of ``audio`` beginning at ``starts`` and
+        the group's forced starts [P] -> (src, cb, ce [k_budget + 1] int32,
+        velocity, of [k_budget + 1, 2] fp32, pres [k_budget + 1, 2] bool,
+        count, the next group's forced starts [P] int32, overflow), all on
+        the device and nothing waited for.
+
+        The walk and the chain run in ``walk.walk_group``.  The events are
+        compacted by a cumsum into a ``k_budget`` buffer whose row
+        ``k_budget`` is scratch: src is an event's flat (segment, track, k)
+        index, -1 past the count.  The attribute heads run on the compact
+        rows only.  ``overflow`` is any track's walk overflow, or more events
+        than the budget.  The group's ctx is dropped when this returns."""
+        ptr, diag, bpres, ctx = self._group_tables(audio, starts, segment_size, last_frame_idx)
+        begins, ends, cnt, ovf, start_next = walk.walk_group(
+            ptr, diag, bpres, start_pos, k_max, last_frame_idx, step_frames, onset_bound)
+        del ptr, diag, bpres
+        dev = ctx.device
+        valid = torch.arange(k_max, device=dev) < cnt[..., None]
+        if onset_bound >= 0:
+            valid &= begins < onset_bound
+        flatv = valid.reshape(-1)
+        count = flatv.sum(dtype=torch.int32)
+        # an invalid event, and every slot at or past the budget, goes to the
+        # scratch row: a torch scatter faults on a slot out of range where
+        # the JAX package's drops it
+        slot = torch.where(flatv, torch.cumsum(flatv, 0) - 1, k_budget).clamp_(max=k_budget)
+        src = torch.full((k_budget + 1,), -1, dtype=torch.int32, device=dev).index_put_(
+            (slot,), torch.arange(flatv.numel(), dtype=torch.int32, device=dev))
+        cb = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
+            (slot,), begins.reshape(-1))
+        ce = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
+            (slot,), ends.reshape(-1))
+        row = torch.clamp(src, min=0) // k_max  # flat (segment, track)
+        ctx_flat = ctx.reshape(-1, ctx.shape[2], ctx.shape[3])
+        velocity, of, pres = self._attr_from_pairs(ctx_flat[row, cb], ctx_flat[row, ce], criterion)
+        overflow = ovf.any() | (count > k_budget)
+        return src, cb, ce, velocity, of, pres, count, start_next, overflow
+
     @torch.no_grad()
     def transcribe(
         self,
@@ -665,15 +741,66 @@ class TransKun:
         x: [nSample, nChannel] float waveform at conf.fs (int16 is read as
         x / 32768).
 
-        The segments go through the device in groups of ``segment_batch``
-        (``None``: DEFAULT_SEGMENT_BATCH, whatever the piece's length).  A
-        segment's device work does not depend on the stitching state, so
-        group g+1 is enqueued before group g's tables are fetched and the
-        card works while the host walks.  Group g's pointers are then
-        walked, its attributes read from its ctx and its device tensors
-        dropped: at most two groups' ctx are alive at any time, so device
-        memory does not grow with the piece.  The notes do not depend on
-        ``segment_batch``."""
+        ``_transcribe_dispatch`` then ``_transcribe_finish``.  The segments
+        go through the device in groups of ``segment_batch`` (``None``:
+        DEFAULT_SEGMENT_BATCH), each group's stitching chain on the device
+        and its start handed to the next group there, so the whole piece is
+        enqueued before anything is fetched, and a group's ctx is dropped
+        once its heads are enqueued: device memory does not grow with the
+        piece.  The notes do not depend on ``segment_batch``, nor on the
+        route (``decode_k_max``, ``decode_k_budget``)."""
+        plan = self._transcribe_dispatch(
+            x, step_in_second, segment_size_in_second, discard_second_half,
+            velocity_criterion, segment_batch)
+        return self._transcribe_finish(plan, merge_incomplete_event)
+
+    def transcribe_many(
+        self,
+        pieces: Iterable[Any],
+        step_in_second: Optional[float] = None,
+        segment_size_in_second: Optional[float] = None,
+        discard_second_half: bool = False,
+        merge_incomplete_event: bool = True,
+        velocity_criterion: str = "hamming",
+        segment_batch: Optional[int] = None,
+        depth: int = 1,
+    ) -> Iterator[List[Note]]:
+        """Pipelined transcription of many pieces: a generator of one note
+        list a piece, in input order (the JAX package's
+        ``transcribe_many``, ``:1237-1310``, on one card).
+
+        ``pieces`` is an iterable of waveforms, or of (anything, waveform)
+        pairs, read lazily.  ``depth`` pieces stay in flight: piece i+1 is
+        read and dispatched before piece i is finished, so the card works
+        on it while the host assembles piece i's notes."""
+        if depth < 0:
+            raise ValueError(f"depth must be at least 0, got {depth}")
+        queue = deque()
+        for item in pieces:
+            x = item[1] if isinstance(item, tuple) else item
+            queue.append(self._transcribe_dispatch(
+                x, step_in_second, segment_size_in_second, discard_second_half,
+                velocity_criterion, segment_batch))
+            if len(queue) > depth:
+                yield self._transcribe_finish(queue.popleft(), merge_incomplete_event)
+        while queue:
+            yield self._transcribe_finish(queue.popleft(), merge_incomplete_event)
+
+    @torch.no_grad()
+    def _transcribe_dispatch(
+        self,
+        x: np.ndarray,
+        step_in_second: Optional[float],
+        segment_size_in_second: Optional[float],
+        discard_second_half: bool,
+        velocity_criterion: str,
+        segment_batch: Optional[int],
+    ) -> Dict[str, Any]:
+        """Phase 1 of a piece: upload the padded waveform once, enqueue every
+        group's program with the forced starts chained device to device, and
+        enqueue the copies of each group's outputs into pinned host buffers.
+        Returns the plan ``_transcribe_finish`` takes; waits for nothing (on
+        the card: the upload is from pinned memory, and no value is read)."""
         self.module.eval()
         if step_in_second is None and segment_size_in_second is None:
             step_in_second = self.segmentHopSizeInSecond
@@ -699,48 +826,178 @@ class TransKun:
         step_frames = int(step_size / self.hopSize)
         n_sym = len(self.targetMIDIPitch)
         groups = [starts[g0 : g0 + segment_batch] for g0 in range(0, len(starts), segment_batch)]
+        k_max = self.decode_k_max
+        k_budget = self.decode_k_budget
+        if k_budget is None:
+            k_budget = DECODE_EVENTS_PER_SEGMENT * segment_batch
 
-        # the padded waveform goes to the device once; the extra segment of
-        # zeros keeps every window in bounds
-        audio = torch.from_numpy(np.pad(x, ((0, 0), (pad, pad + segment_size))))
-        audio = audio.to(self.device)
+        # the padded waveform goes to the device once, from pinned memory; the
+        # extra segment of zeros keeps every window in bounds
+        host = torch.from_numpy(np.pad(x, ((0, 0), (pad, pad + segment_size))))
+        start = torch.full((n_sym,), start_frame_idx, dtype=torch.int32)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            host, start = host.pin_memory(), start.pin_memory()
+        audio = host.to(self.device, non_blocking=True)
+        start_dev = start.to(self.device, non_blocking=True)
+
+        outs = []
+        for group in groups:
+            out = self._fused_group(
+                audio, group, start_dev, velocity_criterion,
+                -1 if onset_bound is None else onset_bound,
+                segment_size, last_frame_idx, step_frames, k_max, k_budget)
+            start_dev = out[7]
+            outs.append(tuple(_to_host(a) for a in out))
+        done = None
+        if on_card:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return dict(
+            audio=audio, host=host, outs=outs, done=done, groups=groups, start=start.tolist(),
+            segment_batch=segment_batch, n_sym=n_sym, k_max=k_max, segment_size=segment_size,
+            last_frame_idx=last_frame_idx, step_frames=step_frames, pad_time_begin=pad_time_begin,
+            velocity_criterion=velocity_criterion, onset_bound=onset_bound,
+        )
+
+    @torch.no_grad()
+    def _transcribe_finish(self, plan: Dict[str, Any], merge_incomplete_event: bool = True) -> List[Note]:
+        """Phase 2 of a piece: wait for the piece's event (and nothing
+        enqueued after it), scatter every group's compact events into
+        [segments, P, k_max] arrays, assemble them at once, resume on the
+        host-walk route from the first group that overflowed, with the forced
+        starts the device chain carried to it, and merge."""
+        if plan["done"] is not None:
+            plan["done"].synchronize()
+        outs = [[a.numpy() for a in out] for out in plan["outs"]]
+        groups, segment_batch = plan["groups"], plan["segment_batch"]
+        n_sym, k_max = plan["n_sym"], plan["k_max"]
+        counts = [int(out[6]) for out in outs]
+        fallback_from = next((g for g, out in enumerate(outs) if bool(out[8])), None)
+        self.last_transcribe_fallback_from = fallback_from
+        self.last_transcribe_group_counts = counts
+        n_ok = len(groups) if fallback_from is None else fallback_from
 
         seg_notes: List[List[Note]] = []
-        cur_start = [start_frame_idx] * n_sym
-        enqueued = self._group_tables(audio, groups[0], segment_size, last_frame_idx)
-        for g, group in enumerate(groups):
-            ptr, diag, bpres, ctx = enqueued
-            # the next group's device work before this group's first fetch
-            enqueued = None
-            if g + 1 < len(groups):
-                enqueued = self._group_tables(audio, groups[g + 1], segment_size, last_frame_idx)
-            ptr_np, diag_np, bpres_np = ptr.cpu().numpy(), diag.cpu().numpy(), bpres.cpu().numpy()
-            del ptr, diag, bpres
+        if n_ok:
+            def cat(i):
+                return np.concatenate([outs[g][i][: counts[g]] for g in range(n_ok)])
 
-            # the sequential stitching chain on the host
-            paths = []
-            for gi in range(len(group)):
-                path = semicrf.backtrack_backward(ptr_np[gi], diag_np[gi], cur_start)
-                if onset_bound is not None:
-                    path = [[e for e in p if e[0] < onset_bound] for p in path]
-                paths.append(path)
-                # lastP: end of the last decoded interval whose offset is real;
-                # edge-touching intervals consult the presence bits
-                last_p = []
-                for j in range(n_sym):
-                    cur_last = 0
-                    for b, e in path[j]:
-                        if e < last_frame_idx or bpres_np[gi, j, b, e - last_frame_idx]:
-                            cur_last = e
-                    last_p.append(cur_last)
-                cur_start = [max(k - step_frames, 0) for k in last_p]
-
-            begin_times = np.array([s / self.fs - pad_time_begin for s in group], np.float64)
-            notes, _ = self._attr_and_assemble(
-                ctx, paths, velocity_criterion, last_frame_idx, begin_times)
+            src = np.concatenate([
+                outs[g][0][: counts[g]].astype(np.int64) + g * segment_batch * n_sym * k_max
+                for g in range(n_ok)
+            ])
+            gi, gj, gk = src // (n_sym * k_max), (src // k_max) % n_sym, src % k_max
+            n_seg = sum(len(g) for g in groups[:n_ok])
+            begins = np.zeros((n_seg, n_sym, k_max), np.int32)
+            ends = np.zeros((n_seg, n_sym, k_max), np.int32)
+            mask = np.zeros((n_seg, n_sym, k_max), bool)
+            velocity = cat(3)
+            vel_d = np.zeros((n_seg, n_sym, k_max), velocity.dtype)
+            of_d = np.zeros((n_seg, n_sym, k_max, 2), np.float64)
+            pres_d = np.zeros((n_seg, n_sym, k_max, 2), bool)
+            begins[gi, gj, gk] = cat(1)
+            ends[gi, gj, gk] = cat(2)
+            mask[gi, gj, gk] = True
+            vel_d[gi, gj, gk] = velocity
+            of_d[gi, gj, gk] = cat(4)
+            pres_d[gi, gj, gk] = cat(5)
+            begin_times = np.array(
+                [s / self.fs - plan["pad_time_begin"] for g in groups[:n_ok] for s in g], np.float64)
+            notes, _ = self._assemble_from_arrays(
+                begins, ends, mask, vel_d, of_d, pres_d, plan["last_frame_idx"], begin_times)
             seg_notes.extend(notes)
-            del ctx
+        if fallback_from is not None:
+            start_pos = plan["start"] if fallback_from == 0 else outs[fallback_from - 1][7].tolist()
+            seg_notes.extend(self._transcribe_host_walk(plan, fallback_from, start_pos))
         return _merge_segments(seg_notes, merge_incomplete_event)
+
+    def _transcribe_host_walk(self, plan: Dict[str, Any], g0: int, start_pos: List[int]) -> List[List[Note]]:
+        """The host-walk route from group ``g0`` on, from ``start_pos``: each
+        group's tables are enqueued one group ahead of its walk
+        (``_process_group``), so at most two groups' ctx are alive."""
+        groups = plan["groups"]
+
+        def tables(g):
+            return self._group_tables(plan["audio"], groups[g], plan["segment_size"], plan["last_frame_idx"])
+
+        seg_notes: List[List[Note]] = []
+        enqueued = tables(g0)
+        for g in range(g0, len(groups)):
+            handles, enqueued = enqueued, None
+            if g + 1 < len(groups):
+                enqueued = tables(g + 1)  # the next group's device work before this one's fetch
+            begin_times = np.array([s / self.fs - plan["pad_time_begin"] for s in groups[g]], np.float64)
+            notes, start_pos = self._process_group(
+                handles, start_pos, plan["velocity_criterion"], plan["onset_bound"],
+                plan["last_frame_idx"], plan["step_frames"], begin_times)
+            seg_notes.extend(notes)
+        return seg_notes
+
+    def _process_group(
+        self,
+        handles: Tuple[torch.Tensor, ...],
+        start_pos: List[int],
+        velocity_criterion: str,
+        onset_bound: Optional[int],
+        last_frame_idx: int,
+        step_frames: int,
+        begin_times: np.ndarray,
+    ) -> Tuple[List[List[Note]], List[int]]:
+        """One group on the host-walk route (the JAX package's
+        ``_process_group``, ``:1156-1206``): one fetch of its tables, the
+        pointer walk and the stitching chain on the host, one attribute call
+        for the group.  Returns (notes per segment in piece time, the next
+        group's forced starts)."""
+        ptr, diag, bpres, ctx = handles
+        paths, next_start = host_chain(
+            ptr.cpu().numpy(), diag.cpu().numpy(), bpres.cpu().numpy(), start_pos,
+            last_frame_idx, step_frames, onset_bound)
+        del ptr, diag, bpres
+        notes, _ = self._attr_and_assemble(ctx, paths, velocity_criterion, last_frame_idx, begin_times)
+        return notes, next_start
+
+
+def _to_host(a: torch.Tensor) -> torch.Tensor:
+    """``a`` on the host: from the card a copy into a pinned buffer, enqueued
+    and not waited for; on the CPU ``a`` itself."""
+    if a.device.type == "cpu":
+        return a
+    return torch.empty(a.shape, dtype=a.dtype, pin_memory=True).copy_(a, non_blocking=True)
+
+
+def host_chain(
+    ptr: np.ndarray,
+    diag: np.ndarray,
+    bpres: np.ndarray,
+    start: Sequence[int],
+    last_frame_idx: int,
+    step_frames: int,
+    onset_bound: Optional[int] = None,
+) -> Tuple[List[List[List[Tuple[int, int]]]], List[int]]:
+    """The host-walk route's stitching chain over a group's segments: ptr
+    [n, t-1, P], diag [n, t, P], bpres [n, P, t, n_edge] and the group's
+    forced starts -> (each segment's intervals per track, the next group's
+    forced starts).  Each segment starts where the previous one's lastP
+    (the end of its last interval whose offset is real: interior, or
+    confirmed by the presence bits at the edge) less ``step_frames`` puts
+    it."""
+    paths = []
+    cur_start = list(start)
+    for gi in range(ptr.shape[0]):
+        path = semicrf.backtrack_backward(ptr[gi], diag[gi], cur_start)
+        if onset_bound is not None:
+            path = [[e for e in p if e[0] < onset_bound] for p in path]
+        paths.append(path)
+        last_p = []
+        for j, events in enumerate(path):
+            cur_last = 0
+            for b, e in events:
+                if e < last_frame_idx or bpres[gi, j, b, e - last_frame_idx]:
+                    cur_last = e
+            last_p.append(cur_last)
+        cur_start = [max(k - step_frames, 0) for k in last_p]
+    return paths, cur_start
 
 
 def _merge_segments(seg_notes: List[List[Note]], merge_incomplete_event: bool) -> List[Note]:

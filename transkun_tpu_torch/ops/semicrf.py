@@ -414,6 +414,55 @@ def backtrack_forward(
     return results
 
 
+def walk_backward_device(
+    ptr: torch.Tensor,
+    diag_pos: torch.Tensor,
+    forced_start: torch.Tensor,
+    k_max: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``backtrack_backward`` for every track at once, in tensors: the same
+    events in the same order (port of the JAX package's
+    ``walk_backward_device``, ``ops/semicrf.py:450``).
+
+    ptr [T-1, NB] int (-1 = skip to t+1, s >= 0 = interval (t, t+1+s)),
+    diag_pos [T, NB] bool, forced_start [NB] int -> (begins [NB, K] int32,
+    ends [NB, K] int32, zeros past the count; count [NB] int32 clamped to
+    K = ``k_max``; overflow [NB] bool, where a track emitted more than K).
+
+    Two phases, as the JAX package writes them: a sweep over the positions
+    that moves each track's cursor when the sweep reaches it and records the
+    visited positions, then an exclusive cumsum of the emission flags and a
+    one-hot [2T, NB, K] compaction.  The plain version of the walk kernel
+    (``ops/walk.py``); on the card the kernel walks instead."""
+    t, nb = diag_pos.shape
+    dev = diag_pos.device
+    ptr_pad = torch.cat([ptr.to(torch.int32), torch.full((1, nb), -1, dtype=torch.int32, device=dev)])
+    t_col = torch.arange(t, dtype=torch.int32, device=dev)[:, None]
+    # where a cursor at each position moves: two operations a position below
+    nxt = torch.where(ptr_pad < 0, t_col + 1, t_col + 1 + ptr_pad)
+    j = forced_start.to(torch.int32)
+    visited = torch.empty(t, nb, dtype=torch.bool, device=dev)
+    for p in range(t - 1):
+        torch.eq(j, p, out=visited[p])
+        j = torch.where(visited[p], nxt[p], j)
+    torch.eq(j, t - 1, out=visited[t - 1])
+
+    s_do = visited & diag_pos
+    i_do = visited & (ptr_pad >= 0) & (t_col < t - 1)
+    t_b = t_col.expand(t, nb)
+    # singleton before interval at the same position, as the host walk emits
+    do = torch.stack([s_do, i_do], dim=1).reshape(2 * t, nb)
+    b_val = torch.stack([t_b, t_b], dim=1).reshape(2 * t, nb)
+    e_val = torch.stack([t_b, t_b + 1 + ptr_pad], dim=1).reshape(2 * t, nb)
+    doi = do.to(torch.int32)
+    k_of = torch.cumsum(doi, dim=0, dtype=torch.int32) - doi  # exclusive: each event's slot
+    count = k_of[-1] + doi[-1]
+    oh = (k_of[..., None] == torch.arange(k_max, dtype=torch.int32, device=dev)) & do[..., None]
+    begins = torch.where(oh, b_val[..., None], 0).sum(dim=0, dtype=torch.int32)
+    ends = torch.where(oh, e_val[..., None], 0).sum(dim=0, dtype=torch.int32)
+    return begins, ends, torch.clamp(count, max=k_max), count > k_max
+
+
 class NeuralSemiCRFInterval:
     """Stateless wrapper bundling a score pair with the CRF operations (ref
     ``NeuralSemiCRFInterval``)."""
