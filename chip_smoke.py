@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``transkun_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 1. Builds the nine CUDA kernels from the eight sources of
    ``transkun_tpu_torch/csrc`` (nvcc, sm_90a), one ``nvcc`` per source, all
@@ -91,15 +91,23 @@
    call, and ``transcribe_many`` over 4 copies of the piece must give the
    notes of 4 ``transcribe`` calls, in order (walls printed in turns).  The
    walk kernel against ``walk_group_plain`` (on the CPU), every output equal
-   as integers and two launches the same bits, on every group of the piece's
-   real tables (the last group of 2 segments) with the starts carried group
-   to group, from random forced starts, with an onset bound and with a k_max
-   of 2 that overflows; the next starts also against the host walk's.  It is
-   timed on the first group (4 segments, t = 691) beside the plain version
-   on the card and the CPU and the host walk; its bound is the bytes the
-   visited positions need, and the ns a chain step is printed.  Then on one
-   segment's real scores the Viterbi kernel's table equals the plain
-   version's.
+   as integers and two launches the same bits, each launch's begins and ends
+   on memory that held a sentinel (the kernel writes every slot), on every
+   group of the piece's real tables (the last group of 2 segments) with the
+   starts carried group to group, from random forced starts, with an onset
+   bound and with a k_max of 2 that overflows; the next starts also against
+   the host walk's; then on the first group's tables cut to 89 tracks and
+   to one segment, and at a k_max whose buffer does not fit (events to
+   global memory; the plain version on the card), each case's launch plan
+   printed.  One call runs one operation on the card (``torch.profiler``):
+   the kernel, no memset.  It is timed on the first group (4 segments, t = 691) beside the
+   plain version on the card and the CPU and the host walk; its bound is the
+   bytes the visited positions need, and the ns a chain step is printed.
+   With ``--parent DIR`` (a checkout of an earlier commit whose walk kernel
+   is the first version: one thread a track, no launch plan in its C
+   interface) that checkout's walk kernel is built and timed on the same
+   tables, in turns (parent, this, this, parent).  Then on one segment's real scores the Viterbi
+   kernel's table equals the plain version's.
 5. Training through the entry point ``transkun_tpu_torch.cli.train.main``
    at flagship width and depth, ``--batchSize 4``: a synthetic
    MAESTRO-layout corpus of 40 s pieces (MIDI from the port's
@@ -209,6 +217,7 @@ KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
 # the sources to build: softmax_rows.cu holds both softmax kernels
 SOURCES = KERNELS[:6] + ("softmax_rows", "decode_walk")
 WALK_SMALL_K = 2  # a per-track event capacity that the real tables overflow
+WALK_GLOBAL_K = 16384  # past the walk kernel's shared-memory buffer: events to global memory
 TABLE_RTOL = 1e-5  # |kernel - plain| <= TABLE_RTOL * max(1, |plain|)
 FWD_ATOL = 2e-5  # attention forward and MLP: |kernel - plain|, unit-normal inputs
 BWD_ATOL = 1e-4  # attention dq, dk, dv
@@ -619,6 +628,91 @@ def walk_visits(ptr, diag, start):
     return visits
 
 
+def profiled_ms(fn, calls=DEVICE_LAUNCHES):
+    """Device milliseconds a call of ``fn``: every operation it ran on the
+    card (kernels and memsets) under ``torch.profiler`` over ``calls``
+    calls, summed and divided by ``calls``.  Unlike CUDA events around calls
+    made back to back, this leaves out the host's enqueue where it is the
+    slower."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / calls
+
+
+def walk_on_sentinel(walk, ptr, diag, bpres, start, k_max, *geometry):
+    """``walk.walk_group`` (the dispatcher, which takes CUDA tensors to the
+    kernel) with begins and ends on memory that held -7 in every slot: the
+    caching allocator hands the outputs the blocks of two freed tensors of
+    their size, so a slot the kernel does not write shows."""
+    import torch
+
+    n, _, p = diag.shape
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sentinel = [torch.full((n, p, k_max), -7, dtype=torch.int32, device=ptr.device) for _ in range(2)]
+    where = {a.data_ptr() for a in sentinel}
+    del sentinel
+    got = walk.walk_group(ptr, diag, bpres, start, k_max, *geometry)
+    if {got[0].data_ptr(), got[1].data_ptr()} != where:
+        raise AssertionError("the walk's outputs did not land on the sentinel's memory")
+    return got
+
+
+def parent_walk(source, tmp, dev):
+    """The first version of the walk kernel (one thread a track; its C
+    interface takes no plan and its wrapper zero-fills begins and ends),
+    from ``source`` (another checkout's ``csrc/decode_walk.cu``), built into
+    ``tmp``; returns the library and a function with ``walk_group_cuda``'s
+    first arguments that does what that wrapper did.  Raises for a later
+    version, whose C interface differs."""
+    import ctypes
+
+    import torch
+
+    from transkun_tpu_torch.ops import _build
+
+    lib_path = os.path.join(tmp, "libdecode_walk_parent.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, source],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the parent's walk kernel:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    if hasattr(lib, "decode_walk_smem_bytes"):
+        raise RuntimeError(f"{source} is not the walk kernel's first version: its C interface takes a "
+                           f"launch plan")
+    lib.decode_walk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.decode_walk.restype = ctypes.c_int
+
+    def call(ptr, diag, bpres, start, k_max, last_frame_idx, step_frames, onset_bound=-1):
+        n, t, p = diag.shape
+        begins = torch.zeros(n, p, k_max, dtype=torch.int32, device=dev)
+        ends = torch.zeros_like(begins)
+        count = torch.empty(n, p, dtype=torch.int32, device=dev)
+        overflow = torch.empty(n, p, dtype=torch.bool, device=dev)
+        start_out = torch.empty(p, dtype=torch.int32, device=dev)
+        err = lib.decode_walk(
+            ptr.data_ptr(), diag.data_ptr(), bpres.data_ptr(), start.data_ptr(), begins.data_ptr(),
+            ends.data_ptr(), count.data_ptr(), overflow.data_ptr(), start_out.data_ptr(), n, t, p,
+            bpres.shape[-1], k_max, last_frame_idx, step_frames, onset_bound, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's decode_walk launch failed ({err})")
+        return begins, ends, count, overflow, start_out
+
+    return lib, call
+
+
 def same_notes(got, want):
     """(equal, largest time difference): pitch, velocity and flags equal
     and times within 1e-6 s, pitch by pitch in time order (the two routes'
@@ -906,6 +1000,13 @@ def v1_path(dev, card, audio, corpus, pickles, counts, reset_counts):
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of an earlier commit whose walk kernel is the first "
+                                     "version (one thread a track, no launch plan in its C interface), "
+                                     "timed beside this one in turns; any other checkout is refused")
+    parent = ap.parse_args().parent
     import torch
 
     if not torch.cuda.is_available():
@@ -1550,25 +1651,41 @@ def main() -> int:
     seg_starts = list(range(0, audio.shape[0] + 2 * pad, step))
     groups = [seg_starts[g : g + group] for g in range(0, len(seg_starts), group)]
     err["decode_walk"] = 0
-    walk_cases, overflowed, plain_cpu_s, host_walk_s = 0, False, [], []
+    walk_cases, overflowed, plain_cpu_s, host_walk_s, walk_plans = 0, False, [], [], {}
 
-    def check_walk(tables, start, k_max, onset_bound=-1):
-        """Kernel (twice) against the plain version on the CPU: every output
-        equal as integers.  Returns the kernel's outputs."""
+    def check_walk(tables, start, k_max, onset_bound=-1, plain_on_card=False, timed=True):
+        """Kernel (twice, begins and ends each time on memory that held a
+        sentinel in every slot) against the plain version on the CPU (on
+        the card where its one-hot is too large for the host; ``timed``
+        keeps the CPU's time): every output equal as integers.  Returns the
+        kernel's outputs."""
         nonlocal walk_cases
         geometry = (k_max, lfi, step_frames, onset_bound)
+        n_w, t_w, p_w = tables[1].shape
+        n_edge = tables[2].shape[-1]
+        plan = walk.launch_plan(n_w, t_w, p_w, k_max, n_edge)
+        if walk._library().decode_walk_smem_bytes(t_w, plan.tile, plan.slots, plan.buffered, k_max,
+                                                  n_edge) != plan.smem:
+            raise AssertionError(f"decode_walk shared memory: the kernel's count differs from {plan}")
+        walk_plans[f"n={n_w} t={t_w} P={p_w} k_max={k_max}"] = (
+            f"{plan.blocks} CTAs of {plan.tile} tracks, {plan.slots} segments staged, events "
+            f"{'buffered' if plan.buffered else 'to global memory'}, {plan.smem} bytes")
         before = walk.launches
-        got, again = (walk.walk_group_cuda(*tables, start, *geometry) for _ in range(2))
+        got, again = (walk_on_sentinel(walk, *tables, start, *geometry) for _ in range(2))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = walk.walk_group_plain(*(a.cpu() for a in tables), start.cpu(), *geometry)
-        plain_cpu_s.append(time.perf_counter() - t0)
+        if plain_on_card:
+            want = walk.walk_group_plain(*tables, start, *geometry)
+        else:
+            want = walk.walk_group_plain(*(a.cpu() for a in tables), start.cpu(), *geometry)
+            if timed:
+                plain_cpu_s.append(time.perf_counter() - t0)
         for g, a, w in zip(got, again, want):
             if walk.launches != before + 2 or g.dtype != w.dtype or not torch.equal(g, a) \
-                    or not torch.equal(g.cpu(), w):
-                raise AssertionError(f"decode_walk != plain at n={tables[0].shape[0]}, k_max {k_max}, "
+                    or not torch.equal(g.cpu(), w.cpu()):
+                raise AssertionError(f"decode_walk != plain at n={n_w}, P={p_w}, k_max {k_max}, "
                                      f"onset_bound {onset_bound}: max |diff| "
-                                     f"{int((g.cpu().long() - w.long()).abs().max())}, two runs equal "
+                                     f"{int((g.cpu().long() - w.cpu().long()).abs().max())}, two runs equal "
                                      f"{torch.equal(g, a)}")
         walk_cases += 1
         return got
@@ -1599,12 +1716,42 @@ def main() -> int:
     if not overflowed:
         raise AssertionError(f"k_max {WALK_SMALL_K} did not overflow on the real tables")
     del audio_dev
+    # group 0's real tables cut to the plan's edges: 89 tracks (the last tile
+    # holds one); one segment; and a k_max whose buffer does not fit (events
+    # to global memory)
+    start_dev = torch.full((90,), start0, dtype=torch.int32, device=dev)
+    ptr0, diag0, bpres0 = real_tables
+    ragged = (ptr0[..., :89].contiguous(), diag0[..., :89].contiguous(), bpres0[:, :89].contiguous())
+    check_walk(ragged, start_dev[:89].contiguous(), model.decode_k_max, timed=False)
+    check_walk(tuple(a[:1] for a in real_tables), start_dev, model.decode_k_max, timed=False)
+    check_walk(real_tables, start_dev, WALK_GLOBAL_K, plain_on_card=True, timed=False)
+    n_g, t_g = diag0.shape[:2]
+    routes = [walk.launch_plan(n_g, t_g, p_r, k_r, bpres0.shape[-1])
+              for p_r, k_r in ((89, model.decode_k_max), (90, WALK_GLOBAL_K))]
+    if [(r.blocks, r.slots, r.buffered) for r in routes] != [(-(-89 // walk.TILE), n_g, True),
+                                                            (-(-90 // walk.TILE), n_g, False)]:
+        raise AssertionError(f"the walk's edge cases did not reach the plan's routes: {routes}")
+
+    # one launch a group and nothing beside it: no memset, no other kernel
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = walk.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        walk.walk_group(*real_tables, start_dev, model.decode_k_max, lfi, step_frames)
+        torch.cuda.synchronize()
+    launches_a_group = walk.launches - before
+    device_ops = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    if launches_a_group != 1 or len(device_ops) != 1 or "decode_walk_kernel" not in device_ops[0]:
+        raise AssertionError(f"a walk_group call made {launches_a_group} launches and ran {device_ops} on "
+                             f"the card, not one walk launch")
+    print(f"decode_walk: one call, {launches_a_group} launch, {len(device_ops)} operation on the card "
+          f"({device_ops[0][:60]}); no memset")
 
     # time the kernel on group 0's real tables (4 segments, t = 691) from the piece's start
-    start_dev = torch.full((90,), start0, dtype=torch.int32, device=dev)
     walk_args = (*real_tables, start_dev, model.decode_k_max, lfi, step_frames)
-    ms["decode_walk"], device_ms["decode_walk"], plain_ms["decode_walk"] = lone_device_plain(
+    ms["decode_walk"], back_to_back, plain_ms["decode_walk"] = lone_device_plain(
         lambda: walk.walk_group_cuda(*walk_args), lambda: walk.walk_group_plain(*walk_args))
+    device_ms["decode_walk"] = profiled_ms(lambda: walk.walk_group_cuda(*walk_args))
     out = walk.walk_group_cuda(*walk_args)
     np_tables = [a.cpu().numpy() for a in real_tables]
     cur, visits = [start0] * 90, np.zeros(90, np.int64)
@@ -1619,23 +1766,51 @@ def main() -> int:
     walk_bytes = (int(visits.sum()) * 5 + edge_events + 90 * 4
                   + sum(a.numel() * a.element_size() for a in out))
     bounds["decode_walk"] = bound(walk_bytes, 0)
-    ns_per_step = device_ms["decode_walk"] * 1e6 / int(visits.max())
-    walk_extras = {"device_ms": device_ms["decode_walk"],
+    longest = int(visits.max())
+    walk_extras = {"device_ms": device_ms["decode_walk"], "back_to_back_ms": back_to_back,
                    "plain_cpu_ms": float(np.median(plain_cpu_s)) * 1e3,
                    "host_walk_ms": float(np.median(host_walk_s)) * 1e3,
-                   "visited_positions": int(visits.sum()), "longest_chain": int(visits.max()),
-                   "ns_per_chain_step": ns_per_step, "cases": walk_cases}
-    print(f"decode_walk: equal to walk_group_plain as integers, two runs the same bits, in {walk_cases} "
-          f"cases on path 1's real tables (groups of {[len(g) for g in groups]} segments, t = {t}, the "
-          f"starts carried group to group; random forced starts; onset bound {step_frames}; k_max "
-          f"{WALK_SMALL_K}, which overflowed); the next starts equal the host walk's")
-    print(f"decode_walk [{n_g},{t - 1},90] ({card}): lone launch {ms['decode_walk']:.4f} ms, device "
-          f"{device_ms['decode_walk']:.4f} ms over {DEVICE_LAUNCHES} launches, plain on the card "
-          f"{plain_ms['decode_walk']:.1f} ms, plain on the CPU {walk_extras['plain_cpu_ms']:.1f} ms, host "
-          f"walk {walk_extras['host_walk_ms']:.1f} ms; bound {bounds['decode_walk'][0]:.5f} ms "
-          f"({walk_bytes} bytes), share {bounds['decode_walk'][0] / device_ms['decode_walk']:.2%}; "
-          f"{int(visits.sum())} visited positions, longest chain {int(visits.max())}: "
-          f"{ns_per_step:.0f} ns a chain step")
+                   "visited_positions": int(visits.sum()), "longest_chain": longest,
+                   "ns_per_chain_step": device_ms["decode_walk"] * 1e6 / longest, "cases": walk_cases,
+                   "plans": walk_plans, "launches_a_group": launches_a_group,
+                   "device_ops_a_group": len(device_ops)}
+    print(f"decode_walk: equal to walk_group_plain as integers, two runs the same bits, every slot of "
+          f"begins and ends written, in {walk_cases} cases on path 1's real tables (groups of "
+          f"{[len(g) for g in groups]} segments, t = {t}, the starts carried group to group; random "
+          f"forced starts; onset bound {step_frames}; k_max {WALK_SMALL_K}, which overflowed; 89 tracks; "
+          f"one segment; k_max {WALK_GLOBAL_K}); the next starts equal the host walk's; plans: "
+          f"{walk_plans}")
+
+    def walk_line(label, lone, device, back):
+        return (f"{label}: lone launch {lone:.4f} ms, device {device:.4f} ms a call (profiler, "
+                f"{DEVICE_LAUNCHES} calls), {back:.4f} ms a call back to back, {device * 1e6 / longest:.0f} "
+                f"ns a chain step, bound {bounds['decode_walk'][0]:.5f} ms ({walk_bytes} bytes), share "
+                f"{bounds['decode_walk'][0] / device:.2%}")
+
+    print(f"decode_walk [{n_g},{t - 1},90] ({card}): "
+          + walk_line("this kernel", ms["decode_walk"], device_ms["decode_walk"], back_to_back)
+          + f"; plain on the card {plain_ms['decode_walk']:.1f} ms, on the CPU "
+          f"{walk_extras['plain_cpu_ms']:.1f} ms, host walk {walk_extras['host_walk_ms']:.1f} ms; "
+          f"{int(visits.sum())} visited positions, longest chain {longest}")
+    if parent is not None:
+        # the parent checkout's kernel on the same tables, in turns: parent,
+        # this, this, parent
+        with tempfile.TemporaryDirectory() as tmp:
+            _, parent_call = parent_walk(
+                os.path.join(parent, "transkun_tpu_torch", "csrc", "decode_walk.cu"), tmp, dev)
+            for g_out, p_out in zip(out, parent_call(*walk_args)):
+                if not torch.equal(g_out, p_out):
+                    raise AssertionError("the parent's walk kernel differs from this one on the real tables")
+            times = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                fn = (lambda: parent_call(*walk_args)) if who == "parent" else \
+                    (lambda: walk.walk_group_cuda(*walk_args))
+                times[who].append((cuda_ms(fn), profiled_ms(fn), cuda_ms(fn, launches=DEVICE_LAUNCHES)))
+        walk_extras["turns"] = times
+        for who, label in (("parent", "parent kernel (before)"), ("this", "this kernel (after)")):
+            lone, device, back = (float(np.median([x[i] for x in times[who]])) for i in range(3))
+            print(f"decode_walk [{n_g},{t - 1},90] in turns ({card}): " + walk_line(label, lone, device, back)
+                  + f"; runs (lone, device, back to back) {[tuple(round(v, 4) for v in x) for x in times[who]]}")
 
     # one segment's real scores: kernel table == plain table
     padded = np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))

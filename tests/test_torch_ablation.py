@@ -42,6 +42,9 @@ from transkun_tpu_torch.train.optim import AdaBelief, weight_decay_mask
 from transkun_tpu_torch.train.step import TrainState, make_train_step, saved_buffers
 from transkun_tpu_torch.utils.convert import state_dict_from_flax_ablation
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+
 TINY = dict(
     f_min=30, f_max=1900, n_mels=32, hopSize=64, windowSize=256, fs=4000,
     nExtraWins=2,
@@ -90,7 +93,6 @@ def _numpy_state_dict(module, seed):
     for head in ("velocityPredictor.6", "refinedOFPredictor.6"):
         sd[head + ".weight"] *= 10
     return sd
-
 
 @pytest.fixture(scope="module")
 def pair():
@@ -303,6 +305,55 @@ def test_transcribe_matches_jax(pair):
     got = model.transcribe(x, step_in_second=1.0, segment_size_in_second=2.0)
     assert 20 <= len(want) and len({n.pitch for n in want}) >= 3 and len({n.velocity for n in want}) >= 2
     assert len(got) == len(want)
+    key = lambda n: (n.pitch, n.start)  # noqa: E731
+    for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
+        assert (a.pitch, a.velocity) == (b.pitch, b.velocity)
+        assert abs(a.start - b.start) <= 1e-6 and abs(a.end - b.end) <= 1e-6
+
+
+def test_bf16_frontend_scores_and_notes_match_jax_bf16(pair):
+    """Both packages' V1 at bf16 compute (the port's
+    ``compute_dtype=torch.bfloat16``, the JAX package's ``jnp.bfloat16``),
+    which rounds the mel frontend's windowed frames and DFT matrices to
+    bf16 and leaves the rest fp32, on the weights of ``pair`` and the same
+    numpy audio.  Bounds measured here (the fp32 route's in brackets):
+    features within 5e-4 absolute, log-mel values up to 1.18 (measured
+    1.1e-4, on 90 of 12288 entries above 1e-5; fp32 2.4e-7): where the two
+    frameworks' fp32 windowed frames differ in the last bit, the rounding to
+    bf16 can land one bf16 spacing apart, which the log of a small power
+    magnifies; the bf16 rounding itself moves the features 1.3e-3 from the
+    fp32 route's, more than the bound.  s and the learned s_skip within
+    1e-4 * max(1, max |s|), the fp32 test's bound (measured 6e-7 and 2e-9).
+    The notes of a 3.5 s piece equal, as at fp32: pitch and velocity, times
+    within 1e-6 s (measured 194 notes, 9e-8 s)."""
+    model32, _, variables, sd = pair
+    conf = AblationConfig.from_dict(TINY)
+    model = TransKunAblation(conf, device="cpu", compute_dtype=torch.bfloat16)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    model.module.eval()
+    jmodel = JaxTransKunAblation(JaxAblationConfig.from_dict(TINY), compute_dtype=jnp.bfloat16)
+    audio = _audio(1)
+    frames = _jax_frames(audio)
+    want_feat = np.asarray(jax.jit(lambda v, f: jmodel.module.apply(
+        v, f, method=lambda m, x: m.frontend(x)))(variables, frames))
+    fn = jax.jit(lambda v, f: jmodel.module.apply(v, f, True, method=JaxModule.process_frames))
+    js, jskip, _ = (np.asarray(a) for a in fn(variables, frames))
+    with torch.no_grad():
+        model32.module.eval()
+        feat = model.module.framewiseFeatureExtractor(model.frames(audio)).numpy()
+        feat32 = model32.module.framewiseFeatureExtractor(model32.frames(audio)).numpy()
+        s, skip, _ = (a.numpy() for a in model.module.process_frames(model.frames(audio)))
+    assert feat.dtype == np.float32 and feat.shape == want_feat.shape
+    assert np.abs(feat - want_feat).max() <= 5e-4
+    assert np.abs(feat - feat32).max() > 5e-4  # the bf16 rounding is in force
+    bound = max(1.0, float(np.abs(js).max()))
+    _close(s / bound, js / bound, 1e-4, "s")
+    _close(skip / bound, jskip / bound, 1e-4, "s_skip")
+
+    x = (np.random.default_rng(5).normal(size=(14000, 1)) * 0.05).astype(np.float32)
+    want = jmodel.transcribe(variables, x, step_in_second=1.0, segment_size_in_second=2.0)
+    got = model.transcribe(x, step_in_second=1.0, segment_size_in_second=2.0)
+    assert len(want) >= 20 and len(got) == len(want)
     key = lambda n: (n.pitch, n.start)  # noqa: E731
     for a, b in zip(sorted(got, key=key), sorted(want, key=key)):
         assert (a.pitch, a.velocity) == (b.pitch, b.velocity)

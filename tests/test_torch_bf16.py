@@ -48,6 +48,8 @@ from transkun_tpu_torch.utils.convert import state_dict_from_flax
 
 from test_torch_train import _synth_piece  # a sine-note wav with its MIDI
 from test_torch_transcribe import _piece  # a dense int16-exact sine-note piece
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 FS = 4000
 TINY = {
@@ -62,7 +64,6 @@ NEG = -1e30
 BF = jnp.bfloat16
 BF16_SPACING = 2.0 ** -7
 SPACINGS = 2.0  # measured: 0.5-0.85 on the FFN, the backbone's ctx and the whole module's
-
 
 @pytest.fixture(autouse=True)
 def interpret_mode():

@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from scipy.io import wavfile
 
 from transkun_tpu.cli import create_dataset_maestro as jax_create
@@ -38,9 +39,11 @@ from transkun_tpu_torch.eval import evaluation as pevaluation
 from transkun_tpu_torch.models.config import default_conf_path, load_default_conf
 from transkun_tpu_torch.models.transkun import target_midi_pitches
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+
 FS = 4000
 FIELDS = ("start", "end", "pitch", "velocity", "hasOnset", "hasOffset")
-
 
 def _fields(notes):
     return [tuple(getattr(n, f) for f in FIELDS) for n in notes]

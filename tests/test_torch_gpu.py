@@ -788,35 +788,87 @@ def _walk_inputs(rng, n, t, p=90, n_edge=2):
     return torch.stack(ptrs).int(), torch.stack(diags), bpres
 
 
+def _long_walk_inputs(rng, n, t, p=90, n_edge=2):
+    """Chain inputs at a t too long for Viterbi tables of real scores: each
+    position skips, or ends an interval up to 40 positions on; singletons
+    at 2% of the positions."""
+    j = np.arange(t - 1)[None, :, None]
+    sel = rng.integers(0, 40, size=(n, t - 1, p)) % np.maximum(t - 1 - j, 1)
+    ptr = np.where(rng.random((n, t - 1, p)) < 0.7, -1, sel).astype(np.int32)
+    diag = rng.random((n, t, p)) < 0.02
+    bpres = rng.random((n, p, t, n_edge)) < 0.5
+    return torch.from_numpy(ptr), torch.from_numpy(diag), torch.from_numpy(bpres)
+
+
+def _walk_on_sentinel(args, geometry):
+    """``walk_group`` (the dispatcher, which takes CUDA tensors to the
+    kernel) with begins and ends on memory that held -7 in every slot: the
+    caching allocator hands the outputs the blocks of two freed tensors of
+    their size, so a slot the kernel does not write shows."""
+    n, _, p = args[1].shape
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sentinel = [torch.full((n, p, geometry[0]), -7, dtype=torch.int32, device=args[0].device)
+                for _ in range(2)]
+    where = {a.data_ptr() for a in sentinel}
+    del sentinel
+    got = walk.walk_group(*args, *geometry)
+    assert {got[0].data_ptr(), got[1].data_ptr()} == where
+    return got
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["chain", "forced_starts", "overflow", "onset_bound", "one_segment"])
+@pytest.mark.parametrize("case", ["chain", "forced_starts", "overflow", "onset_bound", "one_segment",
+                                  "ragged_tile", "odd_offsets", "global_events", "unstaged"])
 def test_walk_kernel_equals_plain(cuda, case):
     """The walk kernel against ``walk_group_plain`` on the same inputs, every
-    output equal, two launches the same bits: a chain of 4 segments from
-    zero starts, random forced starts, a k_max of 2 that overflows, an
-    onset bound, and a group of one segment at another t."""
+    output equal, two launches the same bits, begins and ends written in
+    every slot (each launch on memory that held a sentinel), through the
+    dispatcher ``walk_group``: a chain of 4 segments from zero starts,
+    random forced starts, a k_max of 2 that overflows, an onset bound, a
+    group of one segment at another t; P = 89, whose last tile holds one
+    track; P = 45 with diag at an odd address, so that the tracks' diag
+    bytes start at every offset in a word; a k_max of 16384, whose buffer
+    does not fit (events stored to global memory); and a segment of 30000
+    positions, whose columns do not fit (the walk reads global memory; the
+    plain version on the card)."""
     rng = np.random.default_rng(11)
-    n, t, k_max, onset_bound = 4, 123, 128, -1
+    n, t, p, k_max, onset_bound = 4, 123, 90, 128, -1
     if case == "one_segment":
         n, t = 1, 61
-    ptr, diag, bpres = _walk_inputs(rng, n, t)
-    start = torch.zeros(90, dtype=torch.int32)
+    p = {"ragged_tile": 89, "odd_offsets": 45}.get(case, p)
+    k_max = {"overflow": 2, "global_events": 16384}.get(case, k_max)
+    if case == "unstaged":
+        n, t = 1, 30000
+        ptr, diag, bpres = _long_walk_inputs(rng, n, t)
+    else:
+        ptr, diag, bpres = _walk_inputs(rng, n, t, p)
+    start = torch.zeros(p, dtype=torch.int32)
     if case in ("forced_starts", "onset_bound"):
-        start = torch.from_numpy(rng.integers(0, t, size=90).astype(np.int32))
-    if case == "overflow":
-        k_max = 2
+        start = torch.from_numpy(rng.integers(0, t, size=p).astype(np.int32))
     if case == "onset_bound":
         onset_bound = t // 2
     geometry = (k_max, t - 2, t // 3, onset_bound)
-    want = walk.walk_group_plain(ptr, diag, bpres, start, *geometry)
-    before = walk.launches
+    plan = walk.launch_plan(n, t, p, k_max, bpres.shape[-1])
+    assert (plan.slots > 0, plan.buffered) == {
+        "global_events": (True, False), "unstaged": (False, True)}.get(case, (True, True))
+    assert walk._library().decode_walk_smem_bytes(
+        t, plan.tile, plan.slots, plan.buffered, k_max, bpres.shape[-1]) == plan.smem
     args = [a.to(cuda) for a in (ptr, diag, bpres, start)]
-    got, again = (walk.walk_group(*args, *geometry) for _ in range(2))
+    if case == "odd_offsets":
+        odd = torch.empty(diag.numel() + 1, dtype=torch.bool, device=cuda)[1:].view(diag.shape)
+        args[1] = odd.copy_(args[1])
+        assert args[1].is_contiguous() and args[1].data_ptr() % 2 == 1
+    on_card = case in ("global_events", "unstaged")  # the plain version's one-hot is large
+    want = walk.walk_group_plain(*(args if on_card else (ptr, diag, bpres, start)), *geometry)
+    before = walk.launches
+    got, again = (_walk_on_sentinel(args, geometry) for _ in range(2))
     torch.cuda.synchronize()
     assert walk.launches == before + 2
     for g, a, w in zip(got, again, want):
-        assert g.dtype == w.dtype and torch.equal(g, a) and torch.equal(g.cpu(), w)
-    assert bool(want[3].any()) == (case == "overflow")
+        assert g.dtype == w.dtype and torch.equal(g, a) and torch.equal(g.cpu(), w.cpu())
+    # the long segment's tracks emit more events than k_max: overflow on that route too
+    assert bool(want[3].any()) == (case in ("overflow", "unstaged"))
     assert int(want[2].sum()) > 0
 
 

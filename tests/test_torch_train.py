@@ -40,6 +40,9 @@ from transkun_tpu_torch.train.optim import AdaBelief, QuantileClip, onecycle_wit
 from transkun_tpu_torch.train.step import TrainState, make_train_step
 from transkun_tpu_torch.utils.convert import state_dict_from_flax
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+
 FS = 4000
 TINY = {
     "f_min": 30, "f_max": 1900, "n_mels": 32, "hopSize": 64, "windowSize": 256,
@@ -51,7 +54,6 @@ PITCHES = target_midi_pitches()
 
 
 TINY1 = {**TINY, "nLayers": 1}
-
 
 @pytest.fixture(scope="module")
 def params():

@@ -22,6 +22,9 @@ from transkun_tpu_torch.models.transkun import TransKun
 from transkun_tpu_torch.ops import semicrf, walk
 from transkun_tpu_torch.utils.convert import state_dict_from_flax
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
+
 FS = 4000
 TINY = {
     "f_min": 30, "f_max": 1900, "n_mels": 32, "hopSize": 64, "windowSize": 256,
@@ -29,19 +32,6 @@ TINY = {
     "scoringExpansionFactor": 2, "segmentSizeInSecond": 2.0,
     "segmentHopSizeInSecond": 1.0,
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU work here is many small operations: one intra-op
-    thread a test process, since parallel test workers share the cores
-    (six concurrent runs of ``test_torch_walk.py`` on an 8-core host: 1063 s
-    at eight threads each, 51 s at one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 def _piece(dur=7.0, seed=3):
     """Short sine notes at ~20 notes/s, int16-exact like decoded audio."""

@@ -30,18 +30,7 @@ from transkun_tpu_torch.models.transkun import TransKun, host_chain
 from transkun_tpu_torch.ops import semicrf, walk
 
 from test_torch_transcribe import TINY, _assert_same_notes, _piece
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU work here is many small operations: one intra-op
-    thread a test process, since parallel test workers share the cores
-    (six concurrent runs of ``test_torch_walk.py`` on an 8-core host: 1063 s
-    at eight threads each, 51 s at one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tables(rng, t, n):
@@ -262,3 +251,50 @@ def test_routes_match_jax(routes, route):
     assert got_from == first_over == {"default": None, "midpiece": 1, "host": 0}[route]
     _assert_same_notes(got, want)
     _assert_same_notes(got, out["default"][1])
+
+
+@pytest.mark.parametrize("p", [1, 7, 8, 9, 89, 90, 257])
+def test_launch_plan_covers_every_track_once(p):
+    """The CTAs' tiles of tracks ``[i * tile, min(P, (i + 1) * tile))`` cover
+    every track exactly once, with no CTA left without one; a tile is a
+    power of two that one walker warp holds."""
+    for n, t, k_max in ((4, 691, 128), (1, 61, 2), (4, 691, 2048), (4, 691, 16384)):
+        plan = walk.launch_plan(n, t, p, k_max)
+        assert plan.tile & (plan.tile - 1) == 0 and 1 <= plan.tile <= 32
+        tracks = [b for i in range(plan.blocks) for b in range(i * plan.tile, min(p, (i + 1) * plan.tile))]
+        assert tracks == list(range(p))
+        assert (plan.blocks - 1) * plan.tile < p
+
+
+@pytest.mark.parametrize("k_max", [1, 4, 128, 2048])
+@pytest.mark.parametrize("t", [2, 61, 123, 691])
+def test_launch_plan_shared_memory_fits(t, k_max):
+    """Dynamic shared memory at or under the 232,448 bytes a Hopper CTA may
+    take, and the plan's own count of it, for groups of 1 to 16 segments
+    up to the 16 s segment's t = 691; at these sizes every segment's
+    columns are staged or, past the room for all of them, a ring of at
+    least two."""
+    for n in (1, 2, 4, 16):
+        plan = walk.launch_plan(n, t, 90, k_max)
+        assert plan.smem <= 232448
+        assert plan.smem == walk.smem_bytes(t, plan.tile, plan.slots, plan.buffered, k_max, 2)
+        assert plan.buffered and (plan.slots == n or 2 <= plan.slots < n)
+
+
+def test_launch_plan_routes():
+    """The event buffer where it fits; events stored to global memory where
+    one tile's buffer does not fit; the tables read from global memory only
+    where one segment of a tile's columns does not fit in shared memory."""
+    flagship = walk.launch_plan(4, 691, 90, 128)
+    assert (flagship.tile, flagship.slots, flagship.buffered) == (walk.TILE, 4, True)
+    assert flagship.blocks == -(-90 // walk.TILE)
+    # a tile's buffers of 16384 events take 256 KB: the global route
+    assert walk.smem_bytes(691, walk.TILE, 1, True, 16384) > 232448
+    wide = walk.launch_plan(4, 691, 90, 16384)
+    assert not wide.buffered and wide.slots == 4 and wide.tile == walk.TILE
+    # a segment of 30000 positions: a tile's columns take 300 KB
+    assert walk.smem_bytes(30000, walk.TILE, 1, False, 128) > 232448
+    long = walk.launch_plan(1, 30000, 90, 128)
+    assert long.slots == 0 and long.buffered
+    with pytest.raises(ValueError):
+        walk.launch_plan(4, 1, 90, 128)

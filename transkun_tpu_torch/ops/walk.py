@@ -22,11 +22,17 @@ On a CPU tensor ``walk_group`` runs the plain version; on a CUDA tensor it
 launches the kernel or raises, and never falls back.  A sequential pointer
 chase of ~700 steps a segment: in plain PyTorch on the card it would be
 thousands of tiny launches a segment, so the card has only the kernel.
+
+The kernel gives each CTA a tile of tracks, stages the tile's columns of
+ptr and diag in shared memory and walks from there, and writes every slot
+of begins and ends itself (``launch_plan``; the design is in the source's
+note).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -39,6 +45,65 @@ from . import _build, semicrf
 launches = 0
 
 Walk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+# Tracks a CTA.  A CTA's staging costs it about the same at any tile (a line
+# or two of every row), and a wider tile adds bytes and the walks of more
+# tracks to the walker warp: on the flagship's first group (an H100, 700 W;
+# scripts/study_walk.py) the kernel took 9.4 us of device time at 1 track a
+# CTA, 12.5 at 2, 13.9 at 4, 19.5 at 8, 29.5 at 16 and 54.3 at 32.  The
+# kernel takes any power of two up to 32 (one walker warp); the study sets
+# TILE to sweep them.
+TILE = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """``blocks`` CTAs (of 128 threads: warp 0 walks, the others stage and
+    write the outputs), each walking ``tile`` tracks (the last tile may be
+    ragged); ``slots`` segments of the tile's ptr, diag and bpres columns
+    staged in shared memory at once (0: the walk reads them from global
+    memory); events through a buffer in shared memory (``buffered``) or
+    stored to global memory; ``smem`` bytes of dynamic shared memory a CTA."""
+
+    tile: int
+    blocks: int
+    slots: int
+    buffered: bool
+    smem: int
+
+
+def smem_bytes(t: int, tile: int, slots: int, buffered: bool, k_max: int, n_edge: int = 2) -> int:
+    """Dynamic shared memory of a CTA (``csrc/decode_walk.cu``'s
+    ``smem_bytes``): mbarriers (slots + 4) and counts [2, tile] int32, padded
+    to 16 bytes; two parities of [tile, k_max] (begin, end) int32 pairs if
+    buffered; and for each of ``slots`` segments ptr [t-1, tile] int32, diag
+    [t, row] bytes and bpres [tile, t, n_edge] bytes, a diag row and the
+    bpres run being the aligned 4-byte words that can cover them from any
+    offset."""
+    header = -(-(8 * (slots + 4) + 8 * tile) // 16) * 16
+    diag_row = 4 * ((tile + 6) // 4)
+    bpres_run = 4 * ((tile * t * n_edge + 6) // 4)
+    return (header + (16 * tile * k_max if buffered else 0)
+            + slots * ((t - 1) * tile * 4 + t * diag_row + bpres_run))
+
+
+def launch_plan(n: int, t: int, p: int, k_max: int, n_edge: int = 2) -> LaunchPlan:
+    """The kernel's plan for a group of ``n`` segments of ``t`` positions,
+    ``p`` tracks in tiles of ``TILE``, ``k_max`` events a track, ``n_edge``
+    presence bits a position (the flagship's 2).  The first that fits in a
+    CTA's shared memory (``_build.SMEM_LIMIT``), in this order: events
+    buffered, then stored to global memory; for each, all n segments
+    staged, then fewer, down to one; and last the same with the tables read
+    from global memory."""
+    if min(n, p, k_max, n_edge) < 1 or t < 2:
+        raise ValueError(f"n={n}, t={t}, P={p}, k_max={k_max}, n_edge={n_edge}")
+    for slot_counts in (range(n, 0, -1), (0,)):
+        for buffered in (True, False):
+            for slots in slot_counts:
+                smem = smem_bytes(t, TILE, slots, buffered, k_max, n_edge)
+                if smem <= _build.SMEM_LIMIT:
+                    return LaunchPlan(TILE, -(-p // TILE), slots, buffered, smem)
+    raise ValueError(f"no launch plan fits n={n}, t={t}, P={p}, k_max={k_max}")
 
 
 def walk_group_plain(
@@ -73,8 +138,10 @@ def walk_group_plain(
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("decode_walk")
-    lib.decode_walk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.decode_walk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.decode_walk.restype = ctypes.c_int
+    lib.decode_walk_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.decode_walk_smem_bytes.restype = ctypes.c_longlong
     lib.decode_walk_error_string.argtypes = [ctypes.c_int]
     lib.decode_walk_error_string.restype = ctypes.c_char_p
     return lib
@@ -84,10 +151,9 @@ def walk_group_cuda(
     ptr: torch.Tensor, diag: torch.Tensor, bpres: torch.Tensor, start: torch.Tensor,
     k_max: int, last_frame_idx: int, step_frames: int, onset_bound: int = -1,
 ) -> Walk:
-    """Launch the kernel on the current stream: one launch for the group.
-    Raises on anything the kernel does not take; allocates only the
-    outputs (begins and ends zero-filled, one memset each: the kernel
-    writes only the events)."""
+    """Launch the kernel on the current stream with ``launch_plan``'s plan:
+    one launch for the group, nothing else.  Raises on anything the kernel does not take; allocates only the
+    outputs, uninitialised: the kernel writes every slot."""
     global launches
     if ptr.dim() != 3 or diag.dim() != 3 or bpres.dim() != 4 or start.dim() != 1:
         raise ValueError(f"ranks: ptr {ptr.dim()}, diag {diag.dim()}, bpres {bpres.dim()}, "
@@ -109,10 +175,11 @@ def walk_group_cuda(
     if n < 1 or t < 2 or p < 1 or n_edge < 1 or k_max < 1 or last_frame_idx < 0 or step_frames < 0:
         raise ValueError(f"n={n}, t={t}, P={p}, n_edge={n_edge}, k_max={k_max}, "
                          f"last_frame_idx={last_frame_idx}, step_frames={step_frames}")
+    plan = launch_plan(n, t, p, k_max, n_edge)
     lib = _library()
     dev = ptr.device
-    begins = torch.zeros(n, p, k_max, dtype=torch.int32, device=dev)
-    ends = torch.zeros_like(begins)
+    begins = torch.empty(n, p, k_max, dtype=torch.int32, device=dev)
+    ends = torch.empty_like(begins)
     count = torch.empty(n, p, dtype=torch.int32, device=dev)
     overflow = torch.empty(n, p, dtype=torch.bool, device=dev)
     start_out = torch.empty(p, dtype=torch.int32, device=dev)
@@ -120,7 +187,8 @@ def walk_group_cuda(
         ptr.data_ptr(), diag.data_ptr(), bpres.data_ptr(), start.data_ptr(),
         begins.data_ptr(), ends.data_ptr(), count.data_ptr(), overflow.data_ptr(),
         start_out.data_ptr(), n, t, p, n_edge, k_max, last_frame_idx, step_frames,
-        onset_bound, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        onset_bound, plan.tile.bit_length() - 1, plan.slots, int(plan.buffered), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"decode_walk launch failed: {lib.decode_walk_error_string(err).decode()}")
