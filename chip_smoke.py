@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-1. Builds the nine CUDA kernels from the eight sources of
+1. Builds the CUDA kernels (eleven in the kernels line, the streaming
+   attention variants apart) from the eight sources of
    ``transkun_tpu_torch/csrc`` (nvcc, sm_90a), one ``nvcc`` per source, all
    at once.
 2. Holds the Viterbi kernel (kernel 1, a blocked recurrence over a
@@ -34,9 +35,8 @@
    with fp32 and with bf16 inputs, at the flagship shapes of one segment
    ([89, 149, 256] and [149, 89, 256], 8 heads), of a training batch of 4
    ([356, 149, 256] and [596, 89, 256]), at a ragged shape (cross-attention,
-   odd lengths, 3 heads of 8) and at a long one (300 queries x 200 keys),
-   which only the general kernels take where the others run on the tensor
-   cores.  fp32: forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal
+   odd lengths, 3 heads of 8) and at a long one (100 queries x 180 keys,
+   2 heads of 80), which only the general kernels take.  fp32: forward within 2e-5, dq/dk/dv within 1e-4 on unit-normal
    inputs.  bf16: within one bf16 spacing of each output's largest value.
    The backward runs twice and must give the same bits.  The fused MLP, with
    fp32 and with bf16 tensors, at [13261, 256] -> 1024 -> 256, at the training
@@ -179,9 +179,36 @@
    ``cotangent_tolerance``).  Kernels 1-3 are
    timed at the path's shapes ([864, 864, 128] and [696, 696, 256]).
 
+10. The non-flagship V2 branches (path 7, ``branch_path``), each
+   ``2.0.conf`` with the changes of ``BRANCHES``, at full width and depth:
+   (a) the aggregation tracks (``enabledAttn`` F, T, All0, 0All) and (b) the
+   full attention (FT) transcribe the piece of 4 and train on the corpus of
+   5 (``cli.train.main --modelConf``) on the default route and with
+   ``TRANSKUN_TPU_FUSED_ATTN=1``, where the 0All and FT keys (the whole
+   89 x 149 lattice, 13261 keys) take the streaming variants of the
+   attention kernels; (b)'s default route transcribes one segment a group
+   and both its routes train at ``--batchSize 1`` (its plain logits are
+   5.6 GB a segment and layer; an out-of-memory step on the default route
+   is written down, not failed); (c) the pairwise scorer with the full
+   upsample stack and ``downsampleF=False`` transcribes the piece, through
+   ``transcribe_many`` over 2 copies too, and trains at ``--batchSize 2``.
+   Notes equal between the routes of a configuration (pitch, velocity and
+   flags, times within 1e-6 s), losses within LOSS_RTOL; launches equal to
+   the calls made (the streaming variants' to the calls whose keys are the
+   lattice), no call of the plain attention on the fused route; the
+   streaming kernels on the path's real activations against an fp64
+   evaluation within a first-order bound of their rounding
+   (``check_attention_fp64``).  Before the paths, the streaming kernels are
+   held against their plain versions (``check_attention``'s rules, the
+   library picking the variant by itself) at 0All's shapes ([1, 89, 256]
+   and [4, 89, 256] against 13261 keys) and FT's ([1, 13261, 256]), fp32
+   and bf16, and timed at [4, 89, 256] and FT's beside the plain versions
+   and SDPA; their fp32 bound is the tensor cores' (three TF32 ``mma`` a
+   product), since the kernels run their products there.
+
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, the V1 path's
-figures as one JSON line, then one JSON
+and path 7's figures as JSON lines, then one JSON
 line with the kernels (launches on each path, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
 fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
@@ -213,8 +240,9 @@ LONG_PIECE_TILES = 9  # the long piece is the 64 s piece this many times over: 9
 PEAK_RTOL = 0.10  # the long piece's peak memory against the short one's
 KERNELS = ("viterbi_bwd", "semicrf_alpha", "semicrf_beta",
            "attention_fwd", "attention_bwd", "fused_mlp", "softmax_fwd", "softmax_bwd",
-           "decode_walk")
-# the sources to build: softmax_rows.cu holds both softmax kernels
+           "decode_walk", "attention_fwd_stream", "attention_bwd_stream")
+# the sources to build: softmax_rows.cu holds both softmax kernels, the
+# attention sources their streaming variants
 SOURCES = KERNELS[:6] + ("softmax_rows", "decode_walk")
 WALK_SMALL_K = 2  # a per-track event capacity that the real tables overflow
 WALK_GLOBAL_K = 16384  # past the walk kernel's shared-memory buffer: events to global memory
@@ -233,15 +261,34 @@ SOFTMAX_ATOL = 1e-6  # softmax kernels at fp32: forward; backward * max(1, max |
 # the explicit-softmax attention core against attention_plain, by dtype:
 # (forward, backward) absolute on unit-normal inputs
 CORE_ATOL = {"float32": (FWD_ATOL, BWD_ATOL), "bfloat16": (4e-2, 6e-2)}
+# the streaming kernels on path 7's real activations, whose logits reach far
+# beyond unit-normal inputs', are held against an fp64 evaluation within a
+# first-order bound of their rounding (``attention_fp64``): every product
+# from TF32 operands split high/low has a relative error of at most
+# SPLIT_U (three `mma`, the a_lo*b_lo term dropped and each low part cut to
+# 11 bits: 3 x 2**-22, rounded up), plus REAL_PLAIN_FACTOR times the plain
+# fp32 version's own distance from fp64 for the fp32 sums, which both run
+# over 13261 keys in other orders
+SPLIT_U = 2.0 ** -20
+REAL_PLAIN_FACTOR = 4
+# ... and each output's largest distance from fp64 within REAL_PLAIN_RATIO
+# times the plain fp32 version's (or, were that below it, the fp32 rounding
+# of the output's largest value), because the first-order bound is loose for
+# dq and dk (up to 10% of |dk| on FT's training activations).  Readings on
+# the four real-activation checks of path 7 (H100): kernel / plain at most
+# 0.26 (o), 0.25 (dq), 0.47 (dk) and 1.89 (dv, 0All's training step); the
+# first build's drifting accumulator read 16 (o)
+REAL_PLAIN_RATIO = 4
 TRAIN_BATCH = 4
 # the flagship shapes of one 16 s segment: F- and T-attention [B, S, D] with
 # ATTN_HEADS heads, and the FFN's [tokens, D] -> MLP_HIDDEN -> D
 ATTN_SHAPES, ATTN_HEADS = ((89, 149, 256), (149, 89, 256)), 8
 MLP_SHAPE, MLP_HIDDEN = (13261, 256), 1024
 # cross-attention, odd lengths, 3 heads of 8: (q shape, Skv, heads); and a shape
-# with more keys than a thread's registers hold, which the general kernels take
+# with more keys than a thread's registers hold and a head_dim (80) past the
+# other variants' 64, which only the general kernels take
 RAGGED_ATTN = ((5, 37, 24), 61, 3)
-LONG_ATTN = ((2, 300, 64), 200, 2)
+LONG_ATTN = ((2, 100, 160), 180, 2)
 # the same at --batchSize TRAIN_BATCH: the batch is folded into B and the tokens
 TRAIN_ATTN_SHAPES = tuple((TRAIN_BATCH * b, s, d) for b, s, d in ATTN_SHAPES)
 TRAIN_MLP_SHAPE = (TRAIN_BATCH * MLP_SHAPE[0], MLP_SHAPE[1])
@@ -263,6 +310,24 @@ TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 V1_TRAIN_BATCH, V1_TRAIN_STEPS, V1_SEGMENT_SECONDS, V1_SEGMENT_HOP = 2, 3, 16.0, 12.0
 V1_SINGLETON_QUANTILE = 0.999
 V1_STEP_SECONDS, V1_SEGMENT_SECONDS_DECODE = 10.0, 20.0  # TransKunAblation.transcribe's defaults
+# path 7: the non-flagship V2 branches, each the flagship conf with these changes
+BRANCHES = {
+    "aggregation": {"enabledAttn": ["F", "T", "All0", "0All"]},
+    "full": {"enabledAttn": ["FT"]},
+    "pairwise": {"useInnerProductScorer": False, "upsampleProjOnly": False,
+                 "scoringExpansionFactor": 1, "downsampleF": False},
+}
+# training: steps and --batchSize of each configuration on each route
+BRANCH_TRAIN = {"aggregation": (2, TRAIN_BATCH), "full": (1, 1), "pairwise": (2, 2)}
+# the streaming kernels' shapes on path 7 ([B, Sq, D] and Skv, ATTN_HEADS
+# heads): "0All", track 0 over the whole 89 x 149 lattice of a segment, in
+# transcription (one segment at a time) and at --batchSize 4; "FT", the
+# lattice against itself, one segment (transcription and --batchSize 1)
+LATTICE = 89 * 149
+STREAM_SHAPES = {"0All": ((1, 89, 256), LATTICE), "0All, batch 4": ((TRAIN_BATCH, 89, 256), LATTICE),
+                 "FT": ((1, LATTICE, 256), LATTICE)}
+STREAM_TIMED = ("0All, batch 4", "FT")  # the kernels line carries FT's
+PAIRWISE_SINGLETON_QUANTILE = 0.999
 
 
 def card_line() -> str:
@@ -500,6 +565,97 @@ def check_attention(attention, q, k, v, do, heads, variant):
                                  f"allowed {allowed}")
         errs.append(e)
     return errs[0], max(errs[1:]), o
+
+
+def attention_fp64(q, k, v, do, heads, scale, rows=1024):
+    """(o, dq, dk, dv) of softmax((q k^T) * scale) v per head, evaluated in
+    fp64 over chunks of ``rows`` query rows (dk and dv summed over the
+    chunks), flat [B, S, D]; and for each the first-order bound, by element,
+    on the distance of a computation whose every product has a relative
+    error of SPLIT_U.  With a_i = scale * sum_d |q_id| max_j |k_jd| (a bound
+    on row i's logits' magnitude, so on their error over SPLIT_U) and
+    b_i = sum_d |do_id| max_j |v_jd| (the same for dp): p_ij is off by
+    2 a_i SPLIT_U relative, so o_i by SPLIT_U (2 a_i + 1) max|v|, dl_ij by
+    SPLIT_U p_ij b_i (4 a_i + 2), dq_i by SPLIT_U scale max|k| b_i
+    (4 a_i + 3), dk_j by SPLIT_U scale max|q| sum_i p_ij b_i (4 a_i + 3) and
+    dv_j by SPLIT_U max|do| sum_i p_ij (2 a_i + 1), max over the head."""
+    import torch
+
+    b, sq, d = q.shape
+    dh = d // heads
+
+    def split(x):
+        return x.double().reshape(b, x.shape[1], heads, dh).transpose(1, 2)
+
+    def top(x, dim):  # max |x| over ``dim``, kept
+        return x.abs().amax(dim=dim, keepdim=True)
+
+    qh, kh, vh, doh = split(q), split(k), split(v), split(do)
+    out = [torch.empty_like(qh), torch.empty_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)]
+    bounds = [torch.empty_like(qh[..., :1]), torch.empty_like(qh[..., :1]),
+              torch.zeros_like(kh[..., :1]), torch.zeros_like(vh[..., :1])]
+    k_col, v_col = top(kh, 2), top(vh, 2)  # [B, H, 1, dh]
+    for r in range(0, sq, rows):
+        qc, doc = qh[:, :, r: r + rows], doh[:, :, r: r + rows]
+        p = torch.softmax(torch.matmul(qc, kh.transpose(-1, -2)) * scale, dim=-1)
+        oc = torch.matmul(p, vh)
+        dl = p * (torch.matmul(doc, vh.transpose(-1, -2)) - (doc * oc).sum(-1, keepdim=True))
+        out[0][:, :, r: r + rows] = oc
+        out[1][:, :, r: r + rows] = torch.matmul(dl, kh) * scale
+        out[2] += torch.matmul(dl.transpose(-1, -2), qc) * scale
+        out[3] += torch.matmul(p.transpose(-1, -2), doc)
+        a = scale * (qc.abs() * k_col).sum(-1, keepdim=True)  # [B, H, rows, 1]
+        bb = (doc.abs() * v_col).sum(-1, keepdim=True)
+        bounds[0][:, :, r: r + rows] = (2 * a + 1) * top(vh, (2, 3))
+        bounds[1][:, :, r: r + rows] = scale * top(kh, (2, 3)) * bb * (4 * a + 3)
+        bounds[2] += scale * top(qh, (2, 3)) * torch.matmul(p.transpose(-1, -2), bb * (4 * a + 3))
+        bounds[3] += top(doh, (2, 3)) * torch.matmul(p.transpose(-1, -2), 2 * a + 1)
+        del p, dl
+    flat = [x.transpose(1, 2).reshape(b, -1, d) for x in out]
+    bound = [(SPLIT_U * x).expand(*x.shape[:-1], dh).transpose(1, 2).reshape(b, -1, d) for x in bounds]
+    return flat, bound
+
+
+def check_attention_fp64(attention, q, k, v, do, heads):
+    """The streaming kernels against ``attention_fp64`` on fp32 inputs that
+    the library runs as "stream", beside the plain versions: each output's
+    distance from the fp64 result within its first-order rounding bound, by
+    element, plus REAL_PLAIN_FACTOR times the plain version's largest
+    distance, and its largest distance within REAL_PLAIN_RATIO times the
+    plain version's; the backward twice the same bits.  Returns rows of (name, the
+    kernel's largest distance, the plain version's, the largest bound, the
+    largest |value|)."""
+    import torch
+
+    dh = q.shape[-1] // heads
+    scale = 1.0 / math.sqrt(dh)
+    picked = {attention.kernel_variant(name, q.shape[1], k.shape[1], dh)
+              for name in ("attention_fwd", "attention_bwd")}
+    if picked != {"stream"}:
+        raise AssertionError(f"q {tuple(q.shape)}, k {tuple(k.shape)} runs as {picked}, not as stream")
+    o = attention.attention_fwd_cuda(q, k, v, heads, scale)
+    got = [o, *attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)]
+    again = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+        raise AssertionError(f"streaming backward: two runs differ at q {tuple(q.shape)}")
+    del again
+    want = attention.attention_plain(q, k, v, heads, scale)
+    plain = [want, *attention.attention_bwd_plain(q, k, v, want, do, heads, scale)]
+    ref, bound = attention_fp64(q, k, v, do, heads, scale)
+    rows, bad = [], []
+    for name, g, p, r, bnd in zip(("o", "dq", "dk", "dv"), got, plain, ref, bound):
+        e_p = float((p.double() - r).abs().max())
+        dist = (g.double() - r).abs()
+        over = float((dist - bnd).max())
+        top = float(r.abs().max())
+        rows.append((name, float(dist.max()), e_p, float(bnd.max()), top))
+        if not bool(torch.isfinite(g).all()) or over > REAL_PLAIN_FACTOR * e_p \
+                or float(dist.max()) > REAL_PLAIN_RATIO * max(e_p, 2.0 ** -24 * top):
+            bad.append(f"{name}: {float(dist.max())} from fp64 (plain {e_p}), {over} past its bound")
+    if bad:
+        raise AssertionError(f"streaming kernels at q {tuple(q.shape)}, k {tuple(k.shape)}: {bad}; rows {rows}")
+    return rows
 
 
 def mlp_inputs(rng, m, d, hidden, dev, dtype):
@@ -999,6 +1155,303 @@ def v1_path(dev, card, audio, corpus, pickles, counts, reset_counts):
     return launches, err, times, figures
 
 
+class AttentionRecorder:
+    """While installed: the (q shape, k shape) of every ``fused_attention``
+    call, the first real q, k and v at each query shape whose keys are the
+    whole lattice (for the streaming kernels' check), and the calls of the
+    plain versions, which no CUDA tensor may reach."""
+
+    def __init__(self, attention):
+        self.attention, self.calls, self.captured, self.plain_calls = attention, [], {}, 0
+        self.saved = {name: getattr(attention, name)
+                      for name in ("fused_attention", "attention_plain", "attention_bwd_plain")}
+
+    def __enter__(self):
+        fused, plain, bwd_plain = (self.saved[n] for n in ("fused_attention", "attention_plain",
+                                                           "attention_bwd_plain"))
+
+        def recorded(q, k, v, *args):
+            self.calls.append((tuple(q.shape), tuple(k.shape)))
+            if k.shape[1] == LATTICE and tuple(q.shape) not in self.captured:
+                self.captured[tuple(q.shape)] = tuple(a.detach().clone() for a in (q, k, v))
+            return fused(q, k, v, *args)
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.plain_calls += 1
+                return fn(*args, **kwargs)
+            return call
+
+        self.attention.fused_attention = recorded
+        self.attention.attention_plain = counted(plain)
+        self.attention.attention_bwd_plain = counted(bwd_plain)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.attention, name, fn)
+
+    def stream_calls(self):
+        return sum(k[1] == LATTICE for _, k in self.calls)
+
+
+def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts):
+    """Path 7, the non-flagship V2 branches at full width and depth, each
+    the flagship conf with the changes of ``BRANCHES``, random weights from
+    ``SEED``: (a) the aggregation tracks ("F", "T", "All0", "0All") and (b)
+    the full "FT" attention, each transcribed and trained on the default
+    route and with ``TRANSKUN_TPU_FUSED_ATTN=1`` (the streaming kernels for
+    the 0All and FT keys); (c) V2 with the pairwise scorer, the full upsample
+    stack and ``downsampleF=False``, transcribed, through ``transcribe_many``
+    and trained.  Notes equal between the routes of a configuration
+    (``same_notes``: pitch, velocity and flags, times within 1e-6 s),
+    losses within LOSS_RTOL; launches
+    equal to the calls made, the streaming variants' to the calls with the
+    lattice as keys, and no call of the plain attention on the fused route;
+    the streaming kernels held against an fp64 evaluation, beside the plain
+    versions, on the real activations (``check_attention_fp64``).  Every
+    check runs before the first failure is raised.
+    Returns (launches of each kernel on the path, the path's figures)."""
+    import copy
+
+    import torch
+
+    from transkun_tpu_torch.cli import train as train_cli
+    from transkun_tpu_torch.data.note import validate_notes
+    from transkun_tpu_torch.models.config import default_conf_path, parse_conf_file
+    from transkun_tpu_torch.models.transkun import DEFAULT_SEGMENT_BATCH, TransKun
+    from transkun_tpu_torch.ops import attention, frontend
+
+    with open(default_conf_path()) as f:
+        flagship = json.load(f)
+    launches = dict.fromkeys(KERNELS, 0)
+    figures, failures = {}, []
+    attn_flag = "TRANSKUN_TPU_FUSED_ATTN"
+
+    def expect(ok, what):
+        if not ok:
+            failures.append(what)
+            print(f"path 7 FAILED: {what}")
+
+    def add(got):
+        for name in KERNELS:
+            launches[name] += got[name]
+
+    def conf_file(name):
+        d = copy.deepcopy(flagship)
+        d["Model"]["config"].update(BRANCHES[name])
+        path = os.path.join(corpus, f"{name}.conf")
+        with open(path, "w") as f:
+            json.dump(d, f)
+        return path
+
+    def key(n):
+        return (round(n.start * 1e3), round(n.end * 1e3), n.pitch, n.velocity)
+
+    def transcribed(model, segment_batch=None):
+        """(notes, wall s, peak GB, launches, recorder, busy share) of one
+        transcription of the piece after a warm-up one; the busy share is the
+        profiler's device time of another run over the wall time."""
+        model.transcribe(audio, segment_batch=segment_batch)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with AttentionRecorder(attention) as rec:
+            t0 = time.perf_counter()
+            notes = model.transcribe(audio, segment_batch=segment_batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got, peak = counts(), torch.cuda.max_memory_allocated(dev) / 1e9
+        busy = profiled_ms(lambda: model.transcribe(audio, segment_batch=segment_batch), calls=1) / 1e3 / wall
+        validate_notes(notes)
+        return notes, wall, peak, got, rec, busy
+
+    def want_transcription(model, n_seg, group):
+        fallback = model.last_transcribe_fallback_from
+        redone = 0 if fallback is None else n_seg - fallback * group
+        return {"viterbi_bwd": n_seg + redone, "decode_walk": -(-n_seg // group)}
+
+    def check_real(rec, what):
+        """The streaming kernels on the real q, k, v that reached them, with
+        a unit-normal cotangent, against an fp64 evaluation beside the plain
+        versions (``check_attention_fp64``)."""
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for shape, (q, k, v) in rec.captured.items():
+            do = torch.randn(q.shape, generator=gen, device=dev, dtype=q.dtype)
+            rows = check_attention_fp64(attention, q, k, v, do, ATTN_HEADS)
+            real = fig.setdefault("real_activations", {})
+            real[f"{what} {list(shape)}"] = {
+                n: {"kernel": e_k, "plain": e_p, "bound": bnd, "max_abs": top} for n, e_k, e_p, bnd, top in rows}
+            print(f"streaming kernels on {what}'s real activations q {list(shape)} x {k.shape[1]} keys "
+                  f"(max |q| {float(q.abs().max()):.3g}, |k| {float(k.abs().max()):.3g}): distance from fp64, "
+                  f"kernel / plain fp32 / largest bound (largest |value|): "
+                  + ", ".join(f"{n} {e_k:.3g} / {e_p:.3g} / {bnd:.3g} ({top:.3g})" for n, e_k, e_p, bnd, top in rows))
+            del do
+        rec.captured.clear()
+
+    def train(name, conf, fused, steps, batch):
+        """``cli.train.main`` for ``steps`` steps at ``batch``: (result,
+        launches, recorder)."""
+        args = [os.path.join(corpus, f"ckpt_{name}_{'fused' if fused else 'default'}.pt"),
+                "--datasetPath", corpus,
+                "--datasetMetaFile_train", os.path.join(pickles, "train.pickle"),
+                "--datasetMetaFile_val", os.path.join(pickles, "val.pickle"),
+                "--modelConf", conf, "--batchSize", str(batch), "--ckptEvery", "1000",
+                "--logEvery", "1", "--seed", str(SEED), "--device", "cuda", "--statsEvery", "0",
+                "--maxEpoch", "1", "--stopAtStep", str(steps)]
+        if fused:
+            os.environ[attn_flag] = "1"
+        reset_counts()
+        try:
+            with AttentionRecorder(attention) as rec:
+                result = train_cli.main(args)
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop(attn_flag, None)
+        return result, counts(), rec
+
+    for name in ("aggregation", "full", "pairwise"):
+        conf_path = conf_file(name)
+        _, conf = parse_conf_file(conf_path)
+        pad = math.ceil((conf.segmentSizeInSecond - conf.segmentHopSizeInSecond) * conf.fs)
+        step = math.ceil(conf.segmentHopSizeInSecond * conf.fs / conf.hopSize) * conf.hopSize
+        n_seg = math.ceil((audio.shape[0] + 2 * pad) / step)
+        model = TransKun(conf, device=dev, seed=SEED)
+        model.decode_k_budget = budget  # path 1's
+        with torch.no_grad():
+            if conf.useInnerProductScorer:
+                model.module.scorer.map[0].bias[-1] = -8.0
+            else:  # as the V1 path: 0.1% of the fourth segment's singletons fire
+                seg = torch.from_numpy(np.ascontiguousarray(
+                    np.pad(audio.T, ((0, 0), (pad, pad)))[:, 3 * step: 3 * step + math.ceil(
+                        conf.segmentSizeInSecond * conf.fs)])).to(dev)
+                s = model.module.process_frames(frontend.make_frame(seg, conf.hopSize, conf.windowSize)[None])[0]
+                shift = float(torch.quantile(torch.diagonal(s).flatten(), PAIRWISE_SINGLETON_QUANTILE))
+                model.module.scorer.post.map[3].bias -= shift
+                del s, seg
+        fig = figures[name] = {"changes": BRANCHES[name], "segments": n_seg}
+        steps, batch = BRANCH_TRAIN[name]
+        routes = [("default", False, None)]
+        if name == "full":  # the plain route's logits: 5.6 GB a segment and layer
+            routes = [("fused", True, None), ("default", False, 1)]
+        elif name == "aggregation":
+            routes.append(("fused", True, None))
+        notes_by_route = {}
+        for route, fused, segment_batch in routes:
+            if fused:
+                os.environ[attn_flag] = "1"
+            try:
+                notes, wall, peak, got, rec, busy = transcribed(model, segment_batch)
+            finally:
+                os.environ.pop(attn_flag, None)
+            group = segment_batch or DEFAULT_SEGMENT_BATCH
+            want = {**dict.fromkeys(KERNELS, 0), **want_transcription(model, n_seg, group)}
+            if fused:
+                n_stream = rec.stream_calls()
+                want.update(attention_fwd=len(rec.calls) - n_stream, attention_fwd_stream=n_stream)
+                expect(n_stream == conf.nLayers * want["viterbi_bwd"] and rec.plain_calls == 0,
+                       f"{name} fused transcription: {n_stream} calls with the lattice's keys for "
+                       f"{want['viterbi_bwd']} segments of {conf.nLayers} layers, {rec.plain_calls} "
+                       f"calls of the plain attention")
+            expect(got == want, f"{name} {route} transcription launches {got}, calls made {want}")
+            add(got)
+            notes_by_route[route] = notes
+            fig[f"transcribe_{route}"] = {"wall_s": wall, "rtf": PIECE_SECONDS / wall, "peak_gb": peak,
+                                          "busy": busy, "notes": len(notes), "segment_batch": group,
+                                          "fallback_from": model.last_transcribe_fallback_from}
+            print(f"path 7 {name} transcribe {PIECE_SECONDS:.0f} s, {route} route, segment_batch {group} "
+                  f"({card}): wall {wall:.3f} s, RTF {PIECE_SECONDS / wall:.1f}x, peak memory "
+                  f"{peak:.2f} GB, device busy {busy:.1%}, {len(notes)} notes, launches "
+                  f"{ {k: v for k, v in got.items() if v} }; fallback from "
+                  f"{model.last_transcribe_fallback_from}; attention shapes "
+                  f"{sorted(set(rec.calls))}")
+            if fused:
+                check_real(rec, f"{name} transcription")
+            torch.cuda.empty_cache()
+        if len(notes_by_route) == 2:  # same_notes: times within 1e-6 s (ctx differs in rounding)
+            (ra, na), (rb, nb) = notes_by_route.items()
+            equal, worst = same_notes(na, nb)
+            fig["largest_time_difference_between_routes_s"] = worst
+            a, b = {key(n) for n in na}, {key(n) for n in nb}
+            print(f"path 7 {name}: notes of the {ra} and {rb} routes equal: {equal}, largest time "
+                  f"difference {worst:.3g} s; {len(a ^ b)} differ at the millisecond: "
+                  f"{[(n.pitch, n.start, n.end, n.velocity) for n in na + nb if key(n) not in a & b][:6]}")
+            expect(equal, f"{name}: the notes differ between the routes (largest time difference {worst} s)")
+        if name == "pairwise":  # transcribe_many over two copies: the notes of transcribe
+            reset_counts()
+            t0 = time.perf_counter()
+            many = list(model.transcribe_many([audio, audio]))
+            torch.cuda.synchronize()
+            many_wall = time.perf_counter() - t0
+            got = counts()
+            add(got)
+            expect(len(many) == 2 and all(same_notes(m, notes_by_route["default"])[0] for m in many),
+                   "pairwise: transcribe_many's notes differ from transcribe's")
+            expect(got["viterbi_bwd"] >= 2 * n_seg and got["decode_walk"] == 2 * -(-n_seg // DEFAULT_SEGMENT_BATCH),
+                   f"pairwise transcribe_many launches {got}")
+            fig["transcribe_many_2_wall_s"] = many_wall
+            print(f"path 7 pairwise transcribe_many over 2 copies ({card}): wall {many_wall:.3f} s, "
+                  f"notes equal to transcribe's; launches { {k: v for k, v in got.items() if v} }")
+        del model
+        torch.cuda.empty_cache()
+
+        # training: the default route, and the fused one beside it for (a) and (b)
+        losses = {}
+        for route in (["default", "fused"] if name != "pairwise" else ["default"]):
+            fused = route == "fused"
+            try:
+                result, got, rec = train(name, conf_path, fused, steps, batch)
+            except torch.cuda.OutOfMemoryError as e:
+                # only the plain FT attention may run out: at --batchSize 1 it keeps
+                # [8, 13261, 13261] fp32 tensors for its backward ("where memory allows")
+                if (name, route) != ("full", "default"):
+                    raise
+                fig[f"train_{route}"] = {"out_of_memory": str(e).splitlines()[0]}
+                print(f"path 7 {name} train {route} route --batchSize {batch} ({card}): out of memory: "
+                      f"{str(e).splitlines()[0]}")
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            n = result["steps"]
+            recompute = 2 if conf.useGradientCheckpoint else 1
+            want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": n, "semicrf_beta": n}
+            if fused:
+                n_stream = rec.stream_calls()
+                want.update(attention_fwd=len(rec.calls) - n_stream, attention_fwd_stream=n_stream,
+                            attention_bwd=(len(rec.calls) - n_stream) // recompute,
+                            attention_bwd_stream=n_stream // recompute)
+                expect(n_stream > 0 and rec.plain_calls == 0,
+                       f"{name} fused training: {n_stream} lattice calls, {rec.plain_calls} plain calls")
+            expect(got == want and n == steps and np.isfinite(result["losses"]).all(),
+                   f"{name} {route} training: {n} steps, launches {got}, calls made {want}, "
+                   f"losses {result['losses']}")
+            add(got)
+            losses[route] = result["losses"]
+            fig[f"train_{route}"] = {"batch": batch, "steps": n, "losses": result["losses"],
+                                     "step_s": result["step_seconds"],
+                                     "peak_gb": result["step_peak_bytes"] / 1e9}
+            print(f"path 7 {name} train {route} route --batchSize {batch} ({card}): {n} steps "
+                  f"{[round(x, 4) for x in result['step_seconds']]} s, peak memory "
+                  f"{result['step_peak_bytes'] / 1e9:.2f} GB, losses {result['losses']}, launches "
+                  f"{ {k: v for k, v in got.items() if v} }")
+            if fused:
+                check_real(rec, f"{name} training")
+            del rec
+            gc.collect()
+            torch.cuda.empty_cache()
+        if len(losses) == 2:
+            rel = max(abs(f - d) / abs(d) for f, d in zip(losses["fused"], losses["default"]))
+            fig["loss_rel_diff"] = rel
+            expect(rel <= LOSS_RTOL, f"{name}: losses fused {losses['fused']} against default "
+                                     f"{losses['default']}, largest relative difference {rel}")
+            print(f"path 7 {name}: losses fused vs default, largest relative difference {rel:.3g} "
+                  f"(allowed {LOSS_RTOL})")
+    if failures:
+        raise AssertionError(f"path 7: {len(failures)} checks failed: {failures}")
+    return launches, figures
+
+
 def main() -> int:
     import argparse
 
@@ -1034,16 +1487,22 @@ def main() -> int:
         os.environ.pop(flag, None)  # paths 1 and 2 are the default route
 
     def counts():
+        """Launches since the last reset; the attention kernels' tensor-core
+        and general variants under their names, the streaming variants
+        apart."""
+        fwd, bwd = attention.fwd_launches_by_variant, attention.bwd_launches_by_variant
         return {"viterbi_bwd": viterbi.launches, "semicrf_alpha": logz.alpha_launches,
-                "semicrf_beta": logz.beta_launches, "attention_fwd": attention.fwd_launches,
-                "attention_bwd": attention.bwd_launches, "fused_mlp": mlp.launches,
+                "semicrf_beta": logz.beta_launches,
+                "attention_fwd": fwd["mma"] + fwd["general"],
+                "attention_bwd": bwd["mma"] + bwd["general"], "fused_mlp": mlp.launches,
                 "softmax_fwd": softmax.fwd_launches, "softmax_bwd": softmax.bwd_launches,
-                "decode_walk": walk.launches}
+                "decode_walk": walk.launches, "attention_fwd_stream": fwd["stream"],
+                "attention_bwd_stream": bwd["stream"]}
 
     def reset_counts():
         viterbi.launches = logz.alpha_launches = logz.beta_launches = 0
-        attention.fwd_launches = attention.bwd_launches = mlp.launches = 0
-        softmax.fwd_launches = softmax.bwd_launches = walk.launches = 0
+        mlp.launches = softmax.fwd_launches = softmax.bwd_launches = walk.launches = 0
+        attention.reset_launches()
 
     by_path = {}  # launches of each kernel on each path
 
@@ -1323,6 +1782,82 @@ def main() -> int:
           f"each output's largest value, max |diff| {bf16['attention_fwd']['max_abs_err']:.3g} and "
           f"{bf16['attention_bwd']['max_abs_err']:.3g}; the backward's two runs equal bit for bit")
     del q, k, v, do, o
+
+    # the streaming kernels (kernels 4 and 5 for the 0All and FT branches'
+    # 13261 keys, past the general kernels' shared memory) at the shapes path
+    # 7 gives them, fp32 and bf16, by check_attention's rules (the library
+    # must pick them by itself); timed at 0All's batch-4 shape and at FT's
+    # beside the plain versions and SDPA.  Bound at fp32: the products
+    # fp32-grade on the tensor cores (three TF32 `mma` a product, the fused
+    # MLP's bound), which is below the CUDA cores' (printed beside it); at
+    # bf16 as the other attention kernels'.
+    def time_stream(q, k, v, do, o, heads):
+        """For "fwd" and "bwd": (kernel ms, plain ms, SDPA ms, bound, the
+        CUDA cores' fp32 bound ms)."""
+        b, sq, d = q.shape
+        dh = d // heads
+        scale = 1.0 / math.sqrt(dh)
+        qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
+        o_lib = sdpa(qh, kh, vh, scale=scale)
+        do_h = do.view(b, sq, heads, dh).transpose(1, 2)
+        products = 2 * b * heads * sq * k.shape[1] * dh
+        fp32 = q.dtype == torch.float32
+        peak = TF32_FLOPS / 3 if fp32 else BF16_FLOPS
+        fwd_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bwd_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        timed = {
+            "fwd": (cuda_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale), runs=3),
+                    cuda_ms(lambda: attention.attention_plain(q, k, v, heads, scale), runs=3),
+                    cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale), runs=3),
+                    bound(fwd_bytes, 2 * products, peak), bound(fwd_bytes, 2 * products)[0]),
+            "bwd": (cuda_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale), runs=3),
+                    cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale), runs=3),
+                    cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h, retain_graph=True),
+                            runs=3),
+                    bound(bwd_bytes, 5 * products, peak), bound(bwd_bytes, 5 * products)[0]),
+        }
+        for side, (k_ms, _, _, bnd, _) in timed.items():
+            if bnd[0] > k_ms:
+                raise AssertionError(f"streaming attention {side} at {tuple(q.shape)} x {k.shape[1]} keys "
+                                     f"{q.dtype}: {k_ms} ms is under its bound of {bnd[0]} ms: a wrong count")
+        return timed
+
+    stream_extra = {"attention_fwd_stream": {}, "attention_bwd_stream": {}}  # times at each timed shape
+    for name in stream_extra:
+        err[name] = 0.0
+        bf16[name] = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, ((b, sq, d), skv) in STREAM_SHAPES.items():
+            q, k, v, do = attention_inputs(rng, b, sq, skv, d, dev, dtype)
+            fwd_err, bwd_err, o = check_attention(attention, q, k, v, do, ATTN_HEADS, "stream")
+            for name, e in (("attention_fwd_stream", fwd_err), ("attention_bwd_stream", bwd_err)):
+                into, at = (err, name) if dtype == torch.float32 else (bf16[name], "max_abs_err")
+                into[at] = max(into[at], e)
+            if tag in STREAM_TIMED:
+                timed = time_stream(q, k, v, do, o, ATTN_HEADS)
+                for name, side in (("attention_fwd_stream", "fwd"), ("attention_bwd_stream", "bwd")):
+                    k_ms, p_ms, lib_ms, bnd, core_ms = timed[side]
+                    stream_extra[name][f"{tag} {str(dtype)[6:]}"] = {
+                        "q": [b, sq, d], "skv": skv, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                        "bound_ms": bnd[0], "bound_by": bnd[1], "cuda_core_bound_ms": core_ms}
+                    if tag == STREAM_TIMED[-1]:  # the kernels line: FT's
+                        if dtype == torch.float32:
+                            ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side][:4]
+                        else:
+                            bf16[name].update(zip(("ms", "plain_ms", "library_ms", "bound"), timed[side][:4]))
+                    print(f"streaming attention {'forward' if side == 'fwd' else 'backward'} {tag} "
+                          f"q {[b, sq, d]} x {skv} keys, {ATTN_HEADS} heads, {str(dtype)[6:]} ({card}): "
+                          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA{'' if side == 'fwd' else ' backward'} "
+                          f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; the CUDA cores' fp32 rate "
+                          f"{core_ms:.4f} ms), share {bnd[0] / k_ms:.1%}")
+            del q, k, v, do, o
+            torch.cuda.empty_cache()
+    print(f"streaming attention vs plain at {dict(STREAM_SHAPES)} ({ATTN_HEADS} heads): fp32 max |diff| "
+          f"{err['attention_fwd_stream']:.3g} (forward, allowed {FWD_ATOL}) and "
+          f"{err['attention_bwd_stream']:.3g} (dq, dk, dv, allowed {BWD_ATOL}); bf16 "
+          f"{bf16['attention_fwd_stream']['max_abs_err']:.3g} and "
+          f"{bf16['attention_bwd_stream']['max_abs_err']:.3g} (one bf16 spacing of each output's "
+          f"largest value); the backward's two runs equal bit for bit")
 
     # fused MLP, fp32 and bf16: the segment's and the training batch's shapes
     # and a ragged one (D = 128, last row tile part full), each with row-major
@@ -2194,6 +2729,12 @@ def main() -> int:
         for name, e in v1_err.items():
             err[name] = max(err[name], e)
 
+        # -- path 7: the non-flagship V2 branches, serving then training ---------
+        t0 = time.perf_counter()
+        by_path["branches"], branch_figures = branch_path(
+            dev, card, audio, os.path.join(tmp, "corpus"), pickles, budget, counts, reset_counts)
+        print(f"path 7 wall {time.perf_counter() - t0:.1f} s")
+
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
     reset_counts()
@@ -2253,7 +2794,10 @@ def main() -> int:
                "softmax_fwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:54"),
                "softmax_bwd": ("softmax_rows.cu", pallas + "softmax_pallas.py:62"),
                # not a TPU kernel: the XLA scan of the decode's walk and its chain
-               "decode_walk": ("decode_walk.cu", pallas + "semicrf.py:450")}
+               "decode_walk": ("decode_walk.cu", pallas + "semicrf.py:450"),
+               # the streaming variants of kernels 4 and 5, in the same sources
+               "attention_fwd_stream": ("attention_fwd.cu", pallas + "attention_pallas.py:78"),
+               "attention_bwd_stream": ("attention_bwd.cu", pallas + "attention_pallas.py:127")}
 
     def bf16_entry(name):
         """The same numbers with bf16 input (kernels 1-5, 7 and 8)."""
@@ -2268,6 +2812,7 @@ def main() -> int:
         if sum(by_path[path][name] for path in by_path) == 0:
             raise AssertionError(f"no path launched {name}")
     print(json.dumps({"v1": v1_figures}))
+    print(json.dumps({"branches": branch_figures}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2286,6 +2831,7 @@ def main() -> int:
         "bf16": bf16_entry(name),
         "v1": v1_times.get(name),
         **({"chain": walk_extras} if name == "decode_walk" else {}),
+        **({"timed": stream_extra[name]} if name in stream_extra else {}),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

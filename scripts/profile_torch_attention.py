@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Check and time the port's two attention kernels on one CUDA card.
 
-    python3 scripts/profile_torch_attention.py [--runs 5] [--launches 1] [--no-times]
+    python3 scripts/profile_torch_attention.py [--runs 5] [--launches 1] [--no-times] [--only-variants]
 
 Builds ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` (printing what
 ``-Xptxas -v`` says about the flagship instances: registers, spills), then for
@@ -9,7 +9,8 @@ fp32 and bf16 inputs:
 
 * holds both kernels against ``attention_plain`` / ``attention_bwd_plain`` at
   the flagship shapes, a ragged cross-attention shape, a shape with head_dim
-  40 and a long one that only the general kernel takes; fp32 within 2e-5
+  40 and two long ones, as the library picks them and as the general and
+  (head_dim <= 64) streaming variants; fp32 within 2e-5
   (forward) and 1e-4 (dq, dk, dv), bf16 within one bf16 spacing of each
   output's largest value; the backward run twice must give the same bits;
 * times, at ``[89, 149, 256]`` and ``[356, 149, 256]`` with 8 heads, the
@@ -19,7 +20,13 @@ fp32 and bf16 inputs:
   of ``--runs``.  With ``--launches 1`` a run is one launch on an idle card,
   as ``chip_smoke.py`` times it, so it includes the wrapper's host work; with
   ``--launches 20`` a run is 20 launches between the two events, and the
-  time per launch is the device's.
+  time per launch is the device's;
+* times the general and the streaming variants against each other past
+  the tensor-core variant's 160 keys, as far as the general one's shared
+  memory goes (about 780 keys forward and 340 backward at head_dim 32):
+  ``[356, 200]``, ``[356, 320]`` (the F attention with ``downsampleF=False``,
+  4 segments) and ``[89, 700]`` (forward only), 8 heads of 32.
+  ``--only-variants`` times only these.
 
 Prints the card's name and power limit first; exits 1 without a CUDA device.
 """
@@ -37,9 +44,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SHAPES = [  # b, sq, skv, heads, head_dim
     (89, 149, 149, 8, 32), (149, 89, 89, 8, 32), (356, 149, 149, 8, 32),
     (596, 89, 89, 8, 32), (5, 37, 61, 3, 8), (3, 7, 13, 2, 40), (4, 160, 160, 2, 64),
-    (2, 300, 200, 2, 32), (2, 33, 21, 2, 80),
+    (2, 300, 200, 2, 32), (2, 33, 21, 2, 80), (2, 100, 180, 2, 80),
 ]
 TIMED = [(89, 149, 149, 8, 32), (356, 149, 149, 8, 32)]
+VARIANT_TIMED = [(356, 200, 200, 8, 32), (356, 320, 320, 8, 32), (89, 700, 700, 8, 32)]
 FWD_ATOL, BWD_ATOL = 2e-5, 1e-4
 
 
@@ -73,6 +81,7 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--launches", type=int, default=1)
     ap.add_argument("--no-times", action="store_true")
+    ap.add_argument("--only-variants", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -104,7 +113,7 @@ def main() -> int:
             want_grads = attention.attention_bwd_plain(q, k, v, want, do, heads, scale)
             picked = attention.kernel_variant("attention_fwd", sq, skv, dh)
             assert picked == attention.kernel_variant("attention_bwd", sq, skv, dh)
-            for variant in dict.fromkeys((picked, "general")):
+            for variant in dict.fromkeys((picked, "general") + (("stream",) if dh <= 64 else ())):
                 o = attention.attention_fwd_cuda(q, k, v, heads, scale, variant=variant)
                 grads = attention.attention_bwd_cuda(q, k, v, want, do, heads, scale, variant=variant)
                 again = attention.attention_bwd_cuda(q, k, v, want, do, heads, scale, variant=variant)
@@ -127,6 +136,34 @@ def main() -> int:
     if args.no_times:
         return 0
 
+    def timed(fn):
+        return cuda_ms(fn, args.runs, args.launches)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, skv, heads, dh in VARIANT_TIMED:
+            d = heads * dh
+            q, k, v, do = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev).to(dtype)
+                           for s in ((b, sq, d), (b, skv, d), (b, skv, d), (b, sq, d)))
+            scale = 1.0 / math.sqrt(dh)
+            picked = attention.kernel_variant("attention_fwd", sq, skv, dh)
+            o = attention.attention_fwd_cuda(q, k, v, heads, scale)
+            calls = {
+                "fwd": lambda variant: attention.attention_fwd_cuda(q, k, v, heads, scale, variant=variant),
+                "bwd": lambda variant: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale,
+                                                                    variant=variant)}
+            ms = {}
+            for direction, call in calls.items():
+                for variant in ("general", "stream"):
+                    smem = getattr(attention._library("attention_" + direction),
+                                   f"attention_{direction}_smem_bytes")(sq, skv, dh, attention.VARIANTS[variant])
+                    if smem <= _build.SMEM_LIMIT:  # the general kernels' k and v fit
+                        ms[f"{direction} {variant}"] = timed(lambda: call(variant))
+            print(f"{str(dtype)[6:]} [{b},{sq},{d}] x {skv} keys, {heads} heads ({card}), library "
+                  f"picks {picked}, {args.launches} launches a run, ms: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
+    if args.only_variants:
+        return 0
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, skv, heads, dh in TIMED:
@@ -138,10 +175,6 @@ def main() -> int:
             qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
             o_lib = sdpa(qh, kh, vh, scale=scale)
             do_h = do.view(b, sq, heads, dh).transpose(1, 2)
-
-            def timed(fn):
-                return cuda_ms(fn, args.runs, args.launches)
-
             ms = {
                 "fwd mma": timed(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
                 "fwd general": timed(lambda: attention.attention_fwd_cuda(

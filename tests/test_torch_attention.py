@@ -383,7 +383,7 @@ def test_wrapper_dtype_rules(wrapper, n_in, case, monkeypatch):
     else:
         dtype = torch.float16 if case == "fp16" else torch.float64
         inputs = [a.to(dtype) for a in inputs]
-    before = (ta.fwd_launches, ta.bwd_launches)
+    before = (dict(ta.fwd_launches_by_variant), dict(ta.bwd_launches_by_variant))
     with pytest.raises(TypeError):
         getattr(ta, wrapper)(*inputs, 2, 0.25)
-    assert (ta.fwd_launches, ta.bwd_launches) == before
+    assert (ta.fwd_launches_by_variant, ta.bwd_launches_by_variant) == before

@@ -1,4 +1,4 @@
-"""The port's nine CUDA kernels against their plain PyTorch versions, on the card;
+"""The port's CUDA kernels against their plain PyTorch versions, on the card;
 the Viterbi kernel also on tie-heavy inputs, and the Viterbi, alpha and beta
 kernels at every cluster size and at the cluster edges (one lane group; more
 lane groups than SMs; a ragged Tp), and on the V1 model's routes (unpadded
@@ -415,9 +415,12 @@ ATTN_SHAPES = [  # b, sq, skv, heads, head_dim
     (4, 61, 37, 2, 16),  # more queries than keys
     (3, 7, 13, 2, 40),  # head_dim above a warp, padded to 64
     (2, 300, 200, 2, 32),  # long: more keys than a thread's registers hold
-    (2, 33, 21, 2, 80),  # head_dim above the tensor-core kernel's instances
+    (2, 33, 21, 2, 80),  # head_dim above the tensor-core and streaming kernels' 64
+    (2, 100, 180, 2, 80),  # both
 ]
-ATTN_GENERAL = {(2, 300, 200, 2, 32), (2, 33, 21, 2, 80)}  # what the general kernels run
+# the variant the library picks where it is not the tensor-core one
+ATTN_PICKED = {(2, 300, 200, 2, 32): "stream", (2, 33, 21, 2, 80): "general",
+               (2, 100, 180, 2, 80): "general"}
 
 
 def _attn_inputs(rng, b, sq, skv, d, dev, dtype=torch.float32):
@@ -444,16 +447,19 @@ def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
 
     q, k, v, do = _attn_inputs(np.random.default_rng(sq), b, sq, skv, h * dh, cuda, dtype)
     scale = 1.0 / np.sqrt(dh)
-    want_variant = "general" if (b, sq, skv, h, dh) in ATTN_GENERAL else "mma"
+    want_variant = ATTN_PICKED.get((b, sq, skv, h, dh), "mma")
     assert attention.kernel_variant("attention_fwd", sq, skv, dh) == want_variant
     assert attention.kernel_variant("attention_bwd", sq, skv, dh) == want_variant
-    f0, b0 = attention.fwd_launches, attention.bwd_launches
+    f0 = dict(attention.fwd_launches_by_variant)
+    b0 = dict(attention.bwd_launches_by_variant)
     for a in (q, k, v):
         a.requires_grad_()
     o = attention.fused_attention(q, k, v, h, scale)
     o.backward(do)
     torch.cuda.synchronize()
-    assert (attention.fwd_launches, attention.bwd_launches) == (f0 + 1, b0 + 1)
+    for before, after in ((f0, attention.fwd_launches_by_variant),
+                          (b0, attention.bwd_launches_by_variant)):
+        assert after == {**before, want_variant: before[want_variant] + 1}
     qd, kd, vd = q.detach(), k.detach(), v.detach()
     want = attention.attention_plain(qd, kd, vd, h, scale)
     # the backward kernel was given the forward kernel's o; so is the plain version
@@ -467,10 +473,10 @@ def test_attention_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["mma", "general"])
+@pytest.mark.parametrize("variant", ["mma", "general", "stream"])
 def test_attention_backward_twice_gives_the_same_bits(cuda, dtype, variant):
     """No output is accumulated by more than one warp and nothing goes
-    through atomics: two runs are equal bit for bit, in both kernels."""
+    through atomics: two runs are equal bit for bit, in every kernel."""
     from transkun_tpu_torch.ops import attention
 
     q, k, v, do = _attn_inputs(np.random.default_rng(7), 40, 149, 149, 256, cuda, dtype)
@@ -501,6 +507,43 @@ def test_attention_general_kernels_equal_plain_at_the_path_shape(cuda, dtype):
         assert got.dtype == dtype and float((got.float() - ref.float()).abs().max()) <= allowed
 
 
+ATTN_STREAM_SHAPES = [  # b, sq, skv, heads, head_dim
+    (5, 37, 61, 3, 8),  # small and ragged, forced: every tile part full
+    (2, 70, 129, 2, 40),  # head_dim padded to 64, two query tiles, three key tiles
+    (2, 89, 13261, 8, 32),  # the 0All branch at flagship width (N = 2)
+    (1, 1500, 1500, 8, 32),  # past the general kernels' shared memory on both sides
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,dh", ATTN_STREAM_SHAPES)
+def test_attention_stream_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
+    """The streaming kernels (``variant="stream"``) against the plain
+    versions, within the bounds of ``test_attention_kernels_equal_plain``;
+    the library picks them by itself past the tensor-core kernels' 160 keys,
+    and each call counts one launch of the variant."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(skv), b, sq, skv, h * dh, cuda, dtype)
+    scale = 1.0 / np.sqrt(dh)
+    if skv > 160:
+        for name in ("attention_fwd", "attention_bwd"):
+            assert attention.kernel_variant(name, sq, skv, dh) == "stream"
+    f0, b0 = attention.fwd_launches_by_variant["stream"], attention.bwd_launches_by_variant["stream"]
+    o = attention.attention_fwd_cuda(q, k, v, h, scale, variant="stream")
+    grads = attention.attention_bwd_cuda(q, k, v, o, do, h, scale, variant="stream")
+    torch.cuda.synchronize()
+    assert (attention.fwd_launches_by_variant["stream"],
+            attention.bwd_launches_by_variant["stream"]) == (f0 + 1, b0 + 1)
+    want = attention.attention_plain(q, k, v, h, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, o, do, h, scale)
+    for got, ref, atol in [(o, want, 2e-5)] + [(g, w, 1e-4) for g, w in zip(grads, want_grads)]:
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
+        assert float((got.float() - ref.float()).abs().max()) <= allowed
+
+
 @pytest.mark.gpu
 def test_attention_kernels_reject_what_they_do_not_take(cuda):
     from transkun_tpu_torch.ops import attention
@@ -527,9 +570,12 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
             fn(q, k, v, *extra, 3, 0.5)
         with pytest.raises(ValueError):  # another device
             fn(q, k.cpu(), v, *extra, 2, 0.5)
-        with pytest.raises(ValueError):  # more shared memory than a block has
-            long = torch.zeros(1, 30000, 16, device=cuda)
+        with pytest.raises(ValueError):  # no variant: a long sequence at a head_dim above 64
+            long = torch.zeros(1, 30000, 160, device=cuda)
             fn(long, long, long, *[long for _ in extra], 2, 0.5)
+        with pytest.raises(ValueError):  # the streaming kernels take head_dim <= 64
+            wide = torch.zeros(1, 20, 160, device=cuda)
+            fn(wide, wide, wide, *[wide for _ in extra], 2, 0.5, variant="stream")
         with pytest.raises(ValueError):  # the tensor-core kernel, forced past its registers
             long = torch.zeros(1, 200, 16, device=cuda)
             fn(long, long, long, *[long for _ in extra], 2, 0.5, variant="mma")

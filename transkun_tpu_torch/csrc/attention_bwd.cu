@@ -58,6 +58,32 @@
 // Shapes the mma kernel does not take (Skv > 160, head_dim > 64, tiles
 // beyond a block's shared memory) go to attention_bwd_general, the first
 // version of this kernel: fp32 FMAs, a warp per query row and then per key.
+//
+// Key sequences too long for the general kernel's shared memory (the 0All
+// and FT branches: 13261 keys a segment at flagship width) go to the
+// streaming kernels, which take any Sq and Skv at head_dim <= 64 and keep
+// nothing of size [Sq, Skv] anywhere.  Two launches on the stream, no
+// atomics, so the same bits on every run:
+//   * Pass A (attention_bwd_stream_rows), a block per (b, h, tile of 64
+//     query rows), 4 warps of 16 rows with the q and do fragments in
+//     registers.  It streams the key tiles (64 keys, fp32 in shared memory)
+//     twice: first the logits alone for each row's max and sum (online, as
+//     the forward streaming kernel), then logits and dp = do v^T again for
+//     p, dl = p (dp - delta) and dq += dl k.  delta = rowsum(do o).  Each
+//     row's max, 1 / sum and delta go to a [3, B*H, Sq] fp32 scratch that
+//     the wrapper allocates.
+//   * Pass B (attention_bwd_stream_keys), a block per (b, h, tile of 64
+//     keys), 4 warps of 16 keys with the k and v fragments in registers,
+//     streams the query tiles (q, do and the rows' statistics in shared
+//     memory) and accumulates dk and dv as the mma kernel's pass B does.
+//   * Each streamed tile's products for dq (pass A) and for dk and dv (pass
+//     B) go into fresh accumulators, added to the running sums by the CUDA
+//     cores: the tensor cores' fp32 accumulation does not round to nearest
+//     (see attention_fwd.cu's streaming kernel).
+//   * Eight products for the five (the logits three times, dp twice).
+//     What bounds it: operations, as the forward; the same simple schedule
+//     (synchronous tile loads, 64 pass-A blocks at the 0All shape) is left
+//     for a redesign.
 
 #include "attention_mma.cuh"
 
@@ -412,10 +438,312 @@ __global__ void __launch_bounds__(kGeneralWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// streaming kernels: any Sq and Skv, head_dim <= 64
+// ---------------------------------------------------------------------------
+
+// four tiles of 64 rows (pass A: q, do, k, v; pass B: k, v, q, do) and
+// pass B's three statistics of 64 query rows
+__host__ __device__ constexpr size_t stream_smem_bytes(int dhp) {
+  return ((size_t)2 * (kStreamRows + kStreamKeys) * (dhp + kPitchPad) +
+          (size_t)3 * kStreamKeys) *
+         sizeof(float);
+}
+
+// Pass A: a block per (b, h, 64 query rows) -> the rows' statistics (to
+// `stats`: max of the scaled logits, 1 / sum exp, delta; each a plane of
+// [B*H, Sq]) and dq.
+template <typename T, int KD>
+__global__ void __launch_bounds__(kStreamWarps * 32, 2)
+    attention_bwd_stream_rows(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ o,
+                              const T* __restrict__ d_o, T* __restrict__ dq,
+                              float* __restrict__ stats, int sq, int skv, int heads,
+                              int dh, float scale, int vec) {
+  constexpr bool kExact = kExactInTf32<T>;
+  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [kStreamRows][kPitch]
+  float* dos = qs + kStreamRows * kPitch;  // [kStreamRows][kPitch]
+  float* ks = dos + kStreamRows * kPitch;  // [kStreamKeys][kPitch]
+  float* vs = ks + kStreamKeys * kPitch;   // [kStreamKeys][kPitch]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_tiles = (sq + kStreamRows - 1) / kStreamRows;
+  const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * kStreamRows;
+  const int b = bh / heads, h = bh % heads;
+  const size_t plane = (size_t)(gridDim.x / q_tiles) * sq;
+  const size_t ld = (size_t)heads * dh;
+  const size_t q_at = ((size_t)b * sq + q0) * ld + h * dh;  // the block's row 0
+  const size_t k_at = (size_t)b * skv * ld + h * dh;
+  const int rows = min(kStreamRows, sq - q0);
+  const int r0 = warp * 16;  // the warp's rows in the block's tile
+  const bool active = r0 < rows;
+
+  load_tile(qs, q + q_at, rows, kStreamRows, dh, kDhp, kPitch, ld, vec);
+  load_tile(dos, d_o + q_at, rows, kStreamRows, dh, kDhp, kPitch, ld, vec);
+  __syncthreads();
+  AFrag qa[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    qa[kk] = a_from_tile<kExact>(qs + r0 * kPitch, kPitch, kk * 8, g, t);
+
+  // sweep 1: each row's max and sum, online over the key tiles
+  const float neg_inf = __int_as_float(0xff800000);
+  float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
+  for (int kv0 = 0; kv0 < skv; kv0 += kStreamKeys) {
+    const int keys = min(kStreamKeys, skv - kv0);
+    __syncthreads();
+    load_tile(ks, k + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; j += kGroup) {
+      if (j * 8 >= keys) break;
+      float s[kGroup][4];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        mma_rows_as_columns<kExact, kExact, kGroup>(s, qa[kk], ks + j * 8 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+      float mt0 = neg_inf, mt1 = neg_inf;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = (j + i) * 8 + 2 * t + (c & 1) < keys ? s[i][c] * scale : neg_inf;
+          if (c < 2) mt0 = fmaxf(mt0, s[i][c]);
+          else mt1 = fmaxf(mt1, s[i][c]);
+        }
+      // every group has a key, so the new max is finite
+      const float mn0 = fmaxf(m0, quad_max(mt0)), mn1 = fmaxf(m1, quad_max(mt1));
+      l0 *= expf(m0 - mn0);
+      l1 *= expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        l0 += expf(s[i][0] - m0) + expf(s[i][1] - m0);
+        l1 += expf(s[i][2] - m1) + expf(s[i][3] - m1);
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+
+  float delta0 = 0.f, delta1 = 0.f;
+  if (active) {
+    for (int d = t; d < dh; d += 4) {
+      if (r0 + g < rows)
+        delta0 = fmaf(dos[(r0 + g) * kPitch + d],
+                      as_float(o[q_at + (size_t)(r0 + g) * ld + d]), delta0);
+      if (r0 + g + 8 < rows)
+        delta1 = fmaf(dos[(r0 + g + 8) * kPitch + d],
+                      as_float(o[q_at + (size_t)(r0 + g + 8) * ld + d]), delta1);
+    }
+  }
+  delta0 = quad_sum(delta0);
+  delta1 = quad_sum(delta1);
+  if (active && t == 0) {
+    const size_t at = (size_t)bh * sq + q0 + r0 + g;
+    if (r0 + g < rows) {
+      stats[at] = m0;
+      stats[plane + at] = inv0;
+      stats[2 * plane + at] = delta0;
+    }
+    if (r0 + g + 8 < rows) {
+      stats[at + 8] = m1;
+      stats[plane + at + 8] = inv1;
+      stats[2 * plane + at + 8] = delta1;
+    }
+  }
+
+  // sweep 2: p, dl and dq += dl k, a group of four key tiles at a time
+  AFrag doa[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    doa[kk] = a_from_tile<kExact>(dos + r0 * kPitch, kPitch, kk * 8, g, t);
+  float acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  for (int kv0 = 0; kv0 < skv; kv0 += kStreamKeys) {
+    const int keys = min(kStreamKeys, skv - kv0);
+    __syncthreads();
+    load_tile(ks, k + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    load_tile(vs, v + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    __syncthreads();
+    if (!active) continue;
+    float part[KD][4];  // this tile's dl k
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; j += kGroup) {
+      if (j * 8 >= keys) break;
+      float s[kGroup][4], dl[kGroup][4];  // dl holds dp first
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = dl[i][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mma_rows_as_columns<kExact, kExact, kGroup>(s, qa[kk], ks + j * 8 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+        mma_rows_as_columns<kExact, kExact, kGroup>(dl, doa[kk], vs + j * 8 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool there = (j + i) * 8 + 2 * t + (c & 1) < keys;
+          const float p = there ? expf(s[i][c] * scale - ((c >> 1) ? m1 : m0)) *
+                                      ((c >> 1) ? inv1 : inv0)
+                                : 0.f;
+          dl[i][c] = p * (dl[i][c] - ((c >> 1) ? delta1 : delta0));
+        }
+        const AFrag dla = a_from_acc(dl[i]);
+        mma_rows_summed<kExact, KD>(part, dla, ks + (j + i) * 8 * kPitch, kPitch, g, t);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+  }
+  if (!active) return;
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+    store_acc(dq + q_at, acc[n], scale, scale, r0, rows, n * 8, dh, ld, g, t);
+}
+
+// Pass B: a block per (b, h, 64 keys) -> dk and dv, streaming the query
+// tiles with the statistics pass A wrote.
+template <typename T, int KD>
+__global__ void __launch_bounds__(kStreamWarps * 32, 2)
+    attention_bwd_stream_keys(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ d_o,
+                              const float* __restrict__ stats, T* __restrict__ dk,
+                              T* __restrict__ dv, int sq, int skv, int heads, int dh,
+                              float scale, int vec) {
+  constexpr bool kExact = kExactInTf32<T>;
+  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                           // [kStreamRows][kPitch]
+  float* vs = ks + kStreamRows * kPitch;      // [kStreamRows][kPitch]
+  float* qs = vs + kStreamRows * kPitch;      // [kStreamKeys][kPitch]
+  float* dos = qs + kStreamKeys * kPitch;     // [kStreamKeys][kPitch]
+  float* row_max = dos + kStreamKeys * kPitch;  // [kStreamKeys]
+  float* row_inv = row_max + kStreamKeys;
+  float* row_delta = row_inv + kStreamKeys;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k_tiles = (skv + kStreamRows - 1) / kStreamRows;
+  const int bh = blockIdx.x / k_tiles, c0 = (blockIdx.x % k_tiles) * kStreamRows;
+  const int b = bh / heads, h = bh % heads;
+  const size_t plane = (size_t)(gridDim.x / k_tiles) * sq;
+  const size_t ld = (size_t)heads * dh;
+  const size_t q_at = (size_t)b * sq * ld + h * dh;
+  const size_t k_at = ((size_t)b * skv + c0) * ld + h * dh;  // the block's key 0
+  const int keys = min(kStreamRows, skv - c0);
+  const int w0 = warp * 16;  // the warp's keys in the block's tile
+  const bool active = w0 < keys;
+  const bool key0 = w0 + g < keys, key1 = w0 + g + 8 < keys;
+
+  load_tile(ks, k + k_at, keys, kStreamRows, dh, kDhp, kPitch, ld, vec);
+  load_tile(vs, v + k_at, keys, kStreamRows, dh, kDhp, kPitch, ld, vec);
+  __syncthreads();
+  AFrag ka[KD], va[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    ka[kk] = a_from_tile<kExact>(ks + w0 * kPitch, kPitch, kk * 8, g, t);
+    va[kk] = a_from_tile<kExact>(vs + w0 * kPitch, kPitch, kk * 8, g, t);
+  }
+  float acc_k[KD][4], acc_v[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
+
+  for (int i0 = 0; i0 < sq; i0 += kStreamKeys) {
+    const int rows = min(kStreamKeys, sq - i0);
+    __syncthreads();
+    load_tile(qs, q + q_at + (size_t)i0 * ld, rows, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    load_tile(dos, d_o + q_at + (size_t)i0 * ld, rows, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      const size_t at = (size_t)bh * sq + i0 + r;
+      row_max[r] = stats[at];
+      row_inv[r] = stats[plane + at];
+      row_delta[r] = stats[2 * plane + at];
+    }
+    __syncthreads();
+    if (!active) continue;
+    float part_k[KD][4], part_v[KD][4];  // this query tile's dl^T q and p^T do
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part_k[n][c] = part_v[n][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; j += kGroup) {
+      if (j * 8 >= rows) break;
+      // keys w0+g (x[0..1]) and w0+g+8 (x[2..3]); tile i: query rows
+      // 8(j+i)+2t and 8(j+i)+2t+1 of the streamed tile
+      float pt[kGroup][4], dlt[kGroup][4];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) pt[i][c] = dlt[i][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mma_rows_as_columns<kExact, kExact, kGroup>(pt, ka[kk], qs + j * 8 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+        mma_rows_as_columns<kExact, kExact, kGroup>(dlt, va[kk], dos + j * 8 * kPitch, kPitch,
+                                                    kk * 8, g, t);
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = (j + i) * 8 + 2 * t + (c & 1);
+          const bool there = r < rows && ((c >> 1) ? key1 : key0);
+          pt[i][c] = there ? expf(pt[i][c] * scale - row_max[r]) * row_inv[r] : 0.f;
+          dlt[i][c] = there ? pt[i][c] * (dlt[i][c] - row_delta[r]) : 0.f;
+        }
+        const AFrag pa = a_from_acc(pt[i]), dla = a_from_acc(dlt[i]);
+        mma_rows_summed<kExact, KD>(part_v, pa, dos + (j + i) * 8 * kPitch, kPitch, g, t);
+        mma_rows_summed<kExact, KD>(part_k, dla, qs + (j + i) * 8 * kPitch, kPitch, g, t);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc_k[n][c] += part_k[n][c];
+        acc_v[n][c] += part_v[n][c];
+      }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int n = 0; n < KD; ++n) {
+    store_acc(dk + k_at, acc_k[n], scale, scale, w0, keys, n * 8, dh, ld, g, t);
+    store_acc(dv + k_at, acc_v[n], 1.f, 1.f, w0, keys, n * 8, dh, ld, g, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-enum Variant { kAuto = -1, kMma = 0, kGeneral = 1 };
+enum Variant { kAuto = -1, kMma = 0, kGeneral = 1, kStream = 2 };
 
 constexpr int padded_head_dim(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : 64; }
 
@@ -424,19 +752,49 @@ bool mma_takes(int sq, int skv, int dh) {
          mma_smem_bytes(sq, skv, padded_head_dim(dh)) <= kSmemLimit;
 }
 
-// The variant that runs the shape: the one asked for, or the mma kernel
-// where it takes the shape and else the general one.
+// The variant that runs the shape: the one asked for; else the mma kernel
+// where it takes the shape, the streaming ones for any other head_dim up to
+// 64 (2.5-3.1x faster than the general one at fp32 at 200 and 320 keys on an H100,
+// `scripts/profile_torch_attention.py --only-variants`), and the general
+// one for a wider head_dim.  Where its tiles do not fit the general
+// kernel's shared memory, its size exceeds the limit and makes the caller
+// refuse the shape.
 int pick(int variant, int sq, int skv, int dh) {
-  if (variant == kAuto) return mma_takes(sq, skv, dh) ? kMma : kGeneral;
-  return variant;
+  if (variant != kAuto) return variant;
+  if (mma_takes(sq, skv, dh)) return kMma;
+  return stream_takes(dh) ? kStream : kGeneral;
 }
 
 struct Args {
   const void *q, *k, *v, *o, *d_o;
   void *dq, *dk, *dv;
+  float* stats;  // the streaming kernels' [3, B*H, Sq] scratch
   int b, sq, skv, heads, dh;
   float scale;
 };
+
+template <typename T, int KD>
+cudaError_t launch_stream(const Args& a, int device, cudaStream_t stream) {
+  auto rows_kernel = attention_bwd_stream_rows<T, KD>;
+  auto keys_kernel = attention_bwd_stream_keys<T, KD>;
+  cudaError_t err = allow_dynamic_smem(rows_kernel, device);
+  if (err == cudaSuccess) err = allow_dynamic_smem(keys_kernel, device);
+  if (err != cudaSuccess) return err;
+  bool vec = (a.dh * sizeof(T)) % 16 == 0;
+  for (const void* p : {a.q, a.k, a.v, a.d_o}) vec = vec && ((uintptr_t)p % 16 == 0);
+  const size_t smem = stream_smem_bytes(KD * 8);
+  const int q_tiles = (a.sq + kStreamRows - 1) / kStreamRows;
+  const int k_tiles = (a.skv + kStreamRows - 1) / kStreamRows;
+  rows_kernel<<<a.b * a.heads * q_tiles, kStreamWarps * 32, smem, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o, (const T*)a.d_o,
+      (T*)a.dq, a.stats, a.sq, a.skv, a.heads, a.dh, a.scale, (int)vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  keys_kernel<<<a.b * a.heads * k_tiles, kStreamWarps * 32, smem, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.d_o, a.stats, (T*)a.dk,
+      (T*)a.dv, a.sq, a.skv, a.heads, a.dh, a.scale, (int)vec);
+  return cudaGetLastError();
+}
 
 template <typename T, int NT, int KD>
 cudaError_t launch_mma(const Args& a, int device, cudaStream_t stream) {
@@ -454,11 +812,23 @@ cudaError_t launch_mma(const Args& a, int device, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch(const Args& a, int variant, int device, void* stream_ptr) {
+int launch(const Args& a, int variant, int device, void* stream_ptr, int* ran) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   variant = pick(variant, a.sq, a.skv, a.dh);
+  *ran = variant;
+  if (variant == kStream) {
+    if (!stream_takes(a.dh) || a.stats == nullptr) return (int)cudaErrorInvalidValue;
+    switch (padded_head_dim(a.dh)) {
+      case 16:
+        return (int)launch_stream<T, 2>(a, device, stream);
+      case 32:
+        return (int)launch_stream<T, 4>(a, device, stream);
+      default:
+        return (int)launch_stream<T, 8>(a, device, stream);
+    }
+  }
   if (variant == kGeneral) {
     auto kernel = attention_bwd_general<T>;
     err = allow_dynamic_smem(kernel, device);
@@ -489,17 +859,20 @@ int launch(const Args& a, int variant, int device, void* stream_ptr) {
 extern "C" {
 
 // Shared memory a block needs at this shape with `variant` (-1: the one the
-// launch would pick, 0: the tensor-core kernel, 1: the general kernel), or
-// -1 where that variant does not take the shape.  Above the block's limit
-// means that nothing takes it.
+// launch would pick, 0: the tensor-core kernel, 1: the general kernel, 2:
+// the streaming kernels), or -1 where that variant does not take the shape.
+// Above the block's limit means that nothing takes it.
 long long attention_bwd_smem_bytes(int sq, int skv, int dh, int variant) {
   variant = pick(variant, sq, skv, dh);
   if (variant == kGeneral) return (long long)general_smem_bytes(sq, skv, dh);
+  if (variant == kStream)
+    return stream_takes(dh) ? (long long)stream_smem_bytes(padded_head_dim(dh)) : -1;
   if (variant != kMma || !mma_takes(sq, skv, dh)) return -1;
   return (long long)mma_smem_bytes(sq, skv, padded_head_dim(dh));
 }
 
-// 0: the tensor-core kernel runs this shape, 1: the general kernel.
+// 0: the tensor-core kernel runs this shape, 1: the general kernel, 2: the
+// streaming kernels.
 int attention_bwd_variant(int sq, int skv, int dh) { return pick(kAuto, sq, skv, dh); }
 
 const char* attention_bwd_error_string(int err) {
@@ -507,22 +880,24 @@ const char* attention_bwd_error_string(int err) {
 }
 
 // Launch on `stream`; allocate nothing, do not synchronise.  Return the
-// cudaError_t of the launch (0 on success).  float and bfloat16 tensors.
+// cudaError_t of the launch (0 on success) and write the variant that ran
+// to `ran`.  float and bfloat16 tensors.  `stats`: fp32 scratch of
+// 3 * B * heads * Sq floats for the streaming kernels (unread by the others).
 int attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                  const void* d_o, void* dq, void* dk, void* dv, int b, int sq,
-                  int skv, int heads, int dh, float scale, int variant, int device,
-                  void* stream) {
-  return launch<float>({q, k, v, o, d_o, dq, dk, dv, b, sq, skv, heads, dh, scale},
-                       variant, device, stream);
+                  const void* d_o, void* dq, void* dk, void* dv, void* stats, int b,
+                  int sq, int skv, int heads, int dh, float scale, int variant, int device,
+                  void* stream, int* ran) {
+  return launch<float>({q, k, v, o, d_o, dq, dk, dv, (float*)stats, b, sq, skv, heads, dh, scale},
+                       variant, device, stream, ran);
 }
 
 int attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                       const void* d_o, void* dq, void* dk, void* dv, int b, int sq,
-                       int skv, int heads, int dh, float scale, int variant,
-                       int device, void* stream) {
+                       const void* d_o, void* dq, void* dk, void* dv, void* stats, int b,
+                       int sq, int skv, int heads, int dh, float scale, int variant,
+                       int device, void* stream, int* ran) {
   return launch<__nv_bfloat16>(
-      {q, k, v, o, d_o, dq, dk, dv, b, sq, skv, heads, dh, scale}, variant, device,
-      stream);
+      {q, k, v, o, d_o, dq, dk, dv, (float*)stats, b, sq, skv, heads, dh, scale}, variant,
+      device, stream, ran);
 }
 
 }  // extern "C"

@@ -57,6 +57,33 @@
 // attention_fwd_general, the first version of this kernel: k and v in shared
 // memory, a warp per query row, fp32 FMAs, any Skv that fits (about 880 keys
 // at head_dim 32).
+//
+// Longer key sequences (the "0All" and "FT" branches attend over the whole
+// F x T lattice: 89 x 149 = 13261 keys a segment at flagship width, 28480
+// with downsampleF=False) go to attention_fwd_stream, which takes any Skv at
+// head_dim <= 64.  The TPU kernel holds all of Skv in VMEM; a Hopper block
+// has 227 KB, so the keys are streamed:
+//   * A block per (b, h, tile of 64 query rows), 4 warps of 16 rows, the q
+//     fragments in registers as in the mma kernel.
+//   * It loops over tiles of 64 keys staged in shared memory (k and v as
+//     fp32 tiles, the same loader), one tile at a time: logits by `mma`,
+//     then an online softmax: the row's running max and sum in fp32, the
+//     running output and sum rescaled by exp(old max - new max) as the max
+//     moves.  A tile's p v goes into a fresh accumulator from the
+//     accumulator tiles of p, as in the mma kernel, and is added to the
+//     running output by an FMA: the tensor cores' fp32 accumulation does
+//     not round to nearest, and a running sum kept in an `mma` accumulator
+//     over 13261 keys (1658 `mma` deep) drifted by 1e-4 of |o| on path 7's
+//     real activations (3.7e-4 at |o| = 3.4, past the products' rounding
+//     bound).  One division a row at the end.  Nothing of size [Sq, Skv]
+//     reaches device or shared memory.
+//   * What bounds it: operations, 4 Sq Skv dh a head (0.18 TFLOP for one
+//     segment's FT layer, 2.7 ms at the CUDA cores' fp32 rate).  The simple
+//     schedule here loads each key tile synchronously (no copy overlapped
+//     with the products within a block; 4 blocks an SM overlap each other),
+//     and the 0All shape [4 x 8 heads, 89 queries, 13261 keys] gives only 64
+//     blocks: splitting the keys across blocks with a combine pass, and
+//     `wgmma`/TMA, are left for a redesign.
 
 #include "attention_mma.cuh"
 
@@ -259,10 +286,135 @@ __global__ void __launch_bounds__(kGeneralWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// streaming kernel: any Skv, head_dim <= 64
+// ---------------------------------------------------------------------------
+
+// q tile, and one tile of k and of v
+__host__ __device__ constexpr size_t stream_smem_bytes(int dhp) {
+  return (size_t)(kStreamRows + 2 * kStreamKeys) * (dhp + kPitchPad) * sizeof(float);
+}
+
+template <typename T, int KD>
+__global__ void __launch_bounds__(kStreamWarps * 32, KD > 4 ? 2 : 3)
+    attention_fwd_stream(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
+                         int heads, int dh, float scale, int vec) {
+  constexpr bool kExact = kExactInTf32<T>;
+  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // [kStreamRows][kPitch]
+  float* ks = qs + kStreamRows * kPitch;  // [kStreamKeys][kPitch]
+  float* vs = ks + kStreamKeys * kPitch;  // [kStreamKeys][kPitch]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_tiles = (sq + kStreamRows - 1) / kStreamRows;
+  const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * kStreamRows;
+  const int b = bh / heads, h = bh % heads;
+  const size_t ld = (size_t)heads * dh;
+  const size_t q_at = ((size_t)b * sq + q0) * ld + h * dh;  // the block's row 0
+  const size_t k_at = (size_t)b * skv * ld + h * dh;
+  const int rows = min(kStreamRows, sq - q0);
+  const int r0 = warp * 16;  // the warp's rows in the block's tile
+  const bool active = r0 < rows;
+
+  load_tile(qs, q + q_at, rows, kStreamRows, dh, kDhp, kPitch, ld, vec);
+  __syncthreads();
+  AFrag qa[KD];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    qa[kk] = a_from_tile<kExact>(qs + r0 * kPitch, kPitch, kk * 8, g, t);
+
+  // rows r0+g (index 0) and r0+g+8 (index 1): running max, this thread's
+  // part of the running sum, the running p v
+  const float neg_inf = __int_as_float(0xff800000);
+  float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
+  float acc[KD][4];
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kv0 = 0; kv0 < skv; kv0 += kStreamKeys) {
+    const int keys = min(kStreamKeys, skv - kv0);
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile(ks, k + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    load_tile(vs, v + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
+    __syncthreads();
+    if (!active) continue;
+
+    float s[kStreamTiles][4];
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; j += kGroup) {
+      if (j * 8 < keys) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          mma_rows_as_columns<kExact, kExact, kGroup>(&s[j], qa[kk], ks + j * 8 * kPitch,
+                                                      kPitch, kk * 8, g, t);
+      }
+    }
+    float mt0 = neg_inf, mt1 = neg_inf;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)  // keys past the tile's last get -inf, so p = 0
+        s[j][c] = j * 8 + 2 * t + (c & 1) < keys ? s[j][c] * scale : neg_inf;
+      mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
+      mt1 = fmaxf(mt1, fmaxf(s[j][2], s[j][3]));
+    }
+    // every tile has a key, so the new max is finite; on the first tile the
+    // old max is -inf and its factor 0
+    const float mn0 = fmaxf(m0, quad_max(mt0)), mn1 = fmaxf(m1, quad_max(mt1));
+    const float f0 = expf(m0 - mn0), f1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= f0;
+    l1 *= f1;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; ++j) {
+      s[j][0] = expf(s[j][0] - m0);
+      s[j][1] = expf(s[j][1] - m0);
+      s[j][2] = expf(s[j][2] - m1);
+      s[j][3] = expf(s[j][3] - m1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    float part[KD][4];  // this tile's p v
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kStreamTiles; ++j) {
+      if (j * 8 < keys) {
+        const AFrag pa = a_from_acc(s[j]);
+        mma_rows_summed<kExact, KD>(part, pa, vs + j * 8 * kPitch, kPitch, g, t);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] = fmaf(acc[n][c], c < 2 ? f0 : f1, part[n][c]);
+  }
+  if (!active) return;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+    store_acc(o + q_at, acc[n], inv0, inv1, r0, rows, n * 8, dh, ld, g, t);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-enum Variant { kAuto = -1, kMma = 0, kGeneral = 1 };
+enum Variant { kAuto = -1, kMma = 0, kGeneral = 1, kStream = 2 };
 
 constexpr int padded_head_dim(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : 64; }
 
@@ -271,11 +423,17 @@ bool mma_takes(int sq, int skv, int dh) {
          mma_smem_bytes(sq, skv, padded_head_dim(dh)) <= kSmemLimit;
 }
 
-// The variant that runs the shape: the one asked for, or the mma kernel
-// where it takes the shape and else the general one.
+// The variant that runs the shape: the one asked for; else the mma kernel
+// where it takes the shape, the streaming one for any other head_dim up to
+// 64 (2.9-4.2x faster than the general one at fp32 at 200 and 320 keys on an H100,
+// `scripts/profile_torch_attention.py --only-variants`), and the general
+// one for a wider head_dim.  Where k and v do not fit the general kernel's
+// shared memory, its size exceeds the limit and makes the caller refuse
+// the shape.
 int pick(int variant, int sq, int skv, int dh) {
-  if (variant == kAuto) return mma_takes(sq, skv, dh) ? kMma : kGeneral;
-  return variant;
+  if (variant != kAuto) return variant;
+  if (mma_takes(sq, skv, dh)) return kMma;
+  return stream_takes(dh) ? kStream : kGeneral;
 }
 
 template <typename T, int NT, int KD>
@@ -293,14 +451,41 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+template <typename T, int KD>
+cudaError_t launch_stream(const void* q, const void* k, const void* v, void* o, int b,
+                          int sq, int skv, int heads, int dh, float scale, int device,
+                          cudaStream_t stream) {
+  auto kernel = attention_fwd_stream<T, KD>;
+  cudaError_t err = allow_dynamic_smem(kernel, device);
+  if (err != cudaSuccess) return err;
+  bool vec = (dh * sizeof(T)) % 16 == 0;
+  for (const void* p : {q, k, v}) vec = vec && ((uintptr_t)p % 16 == 0);
+  const int q_tiles = (sq + kStreamRows - 1) / kStreamRows;
+  kernel<<<b * heads * q_tiles, kStreamWarps * 32, stream_smem_bytes(KD * 8), stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, skv, heads, dh, scale, (int)vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
            int skv, int heads, int dh, float scale, int variant, int device,
-           void* stream_ptr) {
+           void* stream_ptr, int* ran) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   variant = pick(variant, sq, skv, dh);
+  *ran = variant;
+  if (variant == kStream) {
+    if (!stream_takes(dh)) return (int)cudaErrorInvalidValue;
+    switch (padded_head_dim(dh)) {
+      case 16:
+        return (int)launch_stream<T, 2>(q, k, v, o, b, sq, skv, heads, dh, scale, device, stream);
+      case 32:
+        return (int)launch_stream<T, 4>(q, k, v, o, b, sq, skv, heads, dh, scale, device, stream);
+      default:
+        return (int)launch_stream<T, 8>(q, k, v, o, b, sq, skv, heads, dh, scale, device, stream);
+    }
+  }
   if (variant == kGeneral) {
     auto kernel = attention_fwd_general<T>;
     err = allow_dynamic_smem(kernel, device);
@@ -332,17 +517,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
 extern "C" {
 
 // Shared memory a block needs at this shape with `variant` (-1: the one the
-// launch would pick, 0: the tensor-core kernel, 1: the general kernel), or
-// -1 where that variant does not take the shape.  Above the block's limit
-// means that nothing takes it.
+// launch would pick, 0: the tensor-core kernel, 1: the general kernel, 2:
+// the streaming kernel), or -1 where that variant does not take the shape.
+// Above the block's limit means that nothing takes it.
 long long attention_fwd_smem_bytes(int sq, int skv, int dh, int variant) {
   variant = pick(variant, sq, skv, dh);
   if (variant == kGeneral) return (long long)general_smem_bytes(skv, dh);
+  if (variant == kStream)
+    return stream_takes(dh) ? (long long)stream_smem_bytes(padded_head_dim(dh)) : -1;
   if (variant != kMma || !mma_takes(sq, skv, dh)) return -1;
   return (long long)mma_smem_bytes(sq, skv, padded_head_dim(dh));
 }
 
-// 0: the tensor-core kernel runs this shape, 1: the general kernel.
+// 0: the tensor-core kernel runs this shape, 1: the general kernel, 2: the
+// streaming kernel.
 int attention_fwd_variant(int sq, int skv, int dh) { return pick(kAuto, sq, skv, dh); }
 
 const char* attention_fwd_error_string(int err) {
@@ -350,18 +538,20 @@ const char* attention_fwd_error_string(int err) {
 }
 
 // Launch on `stream`; allocate nothing, do not synchronise.  Return the
-// cudaError_t of the launch (0 on success).  float and bfloat16 tensors.
+// cudaError_t of the launch (0 on success) and write the variant that ran
+// to `ran`.  float and bfloat16 tensors.
 int attention_fwd(const void* q, const void* k, const void* v, void* o, int b,
                   int sq, int skv, int heads, int dh, float scale, int variant,
-                  int device, void* stream) {
-  return launch<float>(q, k, v, o, b, sq, skv, heads, dh, scale, variant, device, stream);
+                  int device, void* stream, int* ran) {
+  return launch<float>(q, k, v, o, b, sq, skv, heads, dh, scale, variant, device, stream,
+                       ran);
 }
 
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b,
                        int sq, int skv, int heads, int dh, float scale, int variant,
-                       int device, void* stream) {
+                       int device, void* stream, int* ran) {
   return launch<__nv_bfloat16>(q, k, v, o, b, sq, skv, heads, dh, scale, variant, device,
-                               stream);
+                               stream, ran);
 }
 
 }  // extern "C"

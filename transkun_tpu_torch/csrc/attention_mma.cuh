@@ -52,6 +52,18 @@ constexpr int kMaxKeyTiles = 20;  // 8-key tiles a thread keeps: Skv <= 160
 constexpr int kGroup = 4;         // tiles whose `mma`s are interleaved; 32 rows
 constexpr int kMaxHeadDim = 64;   // head_dim of the largest mma instance
 
+// The streaming kernels (any Skv): a block of kStreamWarps warps owns a tile
+// of kStreamRows rows, 16 a warp (query rows; keys in the backward's second
+// pass), and streams the other side through shared memory kStreamKeys rows
+// at a time.
+constexpr int kStreamWarps = 4;
+constexpr int kStreamRows = 16 * kStreamWarps;
+constexpr int kStreamKeys = 64;
+constexpr int kStreamTiles = kStreamKeys / 8;  // 8-row tiles of a streamed tile
+static_assert(kStreamTiles % kGroup == 0, "a streamed tile is whole groups of tiles");
+
+__host__ __device__ constexpr bool stream_takes(int dh) { return dh >= 1 && dh <= kMaxHeadDim; }
+
 // Rows g and g+8, columns k0+t and k0+t+4 of the 16-row tile at `tile`.
 template <bool kExact>
 __device__ __forceinline__ AFrag a_from_tile(const float* tile, int pitch, int k0,

@@ -1,9 +1,10 @@
 """Axial-attention backbone.
 
-Port of ``transkun_tpu/models/backbone.py`` with ``upsampleProjOnly=True``.
-The public layout is the JAX package's: mel features ``[N, T, F, C]``
-channels-last in, ``ctx [N, P, T, D]`` out.  The convolutions run in
-PyTorch's NCHW with H = time and W = frequency.
+Port of ``transkun_tpu/models/backbone.py``: ``downsample_f`` either way,
+and the full upsample stack (``upsample_proj_only=False``, ``UpConv1d``)
+beside the projection.  The public layout is the JAX package's: mel
+features ``[N, T, F, C]`` channels-last in, ``ctx [N, P, T, D]`` out.  The
+convolutions run in PyTorch's NCHW with H = time and W = frequency.
 """
 
 from __future__ import annotations
@@ -29,20 +30,36 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
     return y + conv.bias.to(dtype)[:, None, None]
 
 
+def conv1d(conv: nn.Conv1d, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``conv2d`` for an ``nn.Conv1d``."""
+    if dtype is None:
+        return conv(x)
+    y = torch.nn.functional.conv1d(
+        x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding
+    )
+    return y + conv.bias.to(dtype)[:, None]
+
+
 class DownConv(nn.Sequential):
-    """Strided conv patchifier, 8x in time and 4x in frequency, with the
-    explicit asymmetric zero padding (4, 3) in time and (2, 1) in frequency.
-    Weights sit at indices 1, 2, 5, 6, 9, 10, 13, 14 as in the reference.
+    """Strided conv patchifier, 8x in time and 4x in frequency (strides
+    (2, 1), (2, 2), (2, 2)), with the explicit asymmetric zero padding (4, 3)
+    in time and (2, 1) in frequency; with ``downsample_f=False`` 8x in time
+    only (strides (2, 1) three times) and no padding in frequency.  Weights
+    sit at indices 1, 2, 5, 6, 9, 10, 13, 14 as in the reference.
 
     With a ``dtype`` the convolutions run in it and each GroupNorm, which
     has none in the JAX package, takes its input back to fp32 and returns
     fp32: the stack alternates the two."""
 
-    def __init__(self, base_size: int, dropout: float, dtype: Optional[torch.dtype] = None):
+    def __init__(self, base_size: int, dropout: float, dtype: Optional[torch.dtype] = None,
+                 downsample_f: bool = True):
         b = base_size
-        layers = [nn.ZeroPad2d((2, 1, 4, 3))]
+        if downsample_f:
+            layers, strides = [nn.ZeroPad2d((2, 1, 4, 3))], ((2, 1), (2, 2), (2, 2))
+        else:
+            layers, strides = [nn.ZeroPad2d((0, 0, 4, 3))], ((2, 1),) * 3
         c_in = b
-        for c, s in zip((2 * b, 4 * b, 4 * b), ((2, 1), (2, 2), (2, 2))):
+        for c, s in zip((2 * b, 4 * b, 4 * b), strides):
             layers += [
                 nn.Conv2d(c_in, c, 3, stride=s, padding=1),
                 nn.GroupNorm(4, c, eps=1e-5),
@@ -66,13 +83,16 @@ class DownConv(nn.Sequential):
 
 
 class UpConvSkip(nn.Module):
-    """The 8x temporal upsample: a transposed conv with kernel == stride ==
-    8, i.e. a dense map from ``d`` inputs to 8 steps of ``out`` outputs.
+    """A temporal upsample by ``steps`` (8 for ``upConv1dSkip``, 2 in each
+    stage of ``UpConv1d``): a transposed conv with kernel == stride ==
+    steps, i.e. a dense map from ``d`` inputs to ``steps`` steps of ``out``
+    outputs.
 
-    ``weight`` keeps the reference ``ConvTranspose1d`` layout [in, out, 8].
-    ``bias`` is [8*out] in step-major order (entry s*out + o is step s,
-    channel o), one free bias per step as in the JAX package's Dense.  A
-    reference state_dict holds the tied [out] form; loading tiles it 8x."""
+    ``weight`` keeps the reference ``ConvTranspose1d`` layout [in, out,
+    steps].  ``bias`` is [steps*out] in step-major order (entry s*out + o is
+    step s, channel o), one free bias per step as in the JAX package's
+    Dense.  A reference state_dict holds the tied [out] form; loading tiles
+    it ``steps`` times."""
 
     def __init__(self, d: int, out: int, steps: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -95,6 +115,41 @@ class UpConvSkip(nn.Module):
             h, w, bias = h.to(self.dtype), w.to(self.dtype), bias.to(self.dtype)
         up = h @ w + bias
         return up.reshape(h.shape[0], h.shape[1] * self.steps, self.out)
+
+
+class UpConv1d(nn.Sequential):
+    """The full 8x upsample stack (the JAX package's ``UpConv1d``): three
+    stages of a transposed conv with kernel == stride == 2, a conv with
+    kernel 3, GroupNorm and GELU, the last stage without norm or
+    activation; channels 4b -> 4b -> 2b -> b.  The transposed convs, convs
+    and norms sit at the reference's indices 0, 1, 2 / 4, 5, 6 / 8, 9.
+    Channels-last in and out: [B, T, 4b] -> [B, 8T, b].  With a ``dtype``
+    the convolutions run in it and each GroupNorm returns fp32, as in
+    ``DownConv``."""
+
+    def __init__(self, base_size: int, dtype: Optional[torch.dtype] = None):
+        b = base_size
+        layers, c_in = [], 4 * b
+        for c, last in ((4 * b, False), (2 * b, False), (b, True)):
+            layers += [UpConvSkip(c_in, c, steps=2, dtype=dtype), nn.Conv1d(c, c, 3, padding=1)]
+            if not last:
+                layers += [nn.GroupNorm(4, c, eps=1e-5), nn.GELU()]
+            c_in = c
+        super().__init__(*layers)
+        self.dtype = dtype
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        h = h.transpose(1, 2)  # [B, C, T] for the convs and the norms
+        for layer in self:
+            if isinstance(layer, UpConvSkip):
+                h = layer(h.transpose(1, 2)).transpose(1, 2)
+            elif isinstance(layer, nn.Conv1d):
+                h = conv1d(layer, h, self.dtype)
+            elif isinstance(layer, nn.GroupNorm):
+                h = layer(h.float())
+            else:
+                h = layer(h)
+        return h.transpose(1, 2)
 
 
 def _replayed(layer: nn.Module, generator: Optional[torch.Generator]):
@@ -131,19 +186,24 @@ class Backbone(nn.Module):
     ):
         """``dtype``: the compute dtype of the convolutions, the encoder
         stack and the upsample; the norms, the position embeddings and the
-        returned ctx are fp32 (the JAX package's placement)."""
+        returned ctx are fp32 (the JAX package's placement).
+        ``upsample_proj_only=False`` adds ``UpConv1d`` to the projection,
+        which the JAX package allows only with ``expansion_factor`` 1."""
         super().__init__()
         self.dtype = dtype
-        if not downsample_f or not upsample_proj_only:
-            raise NotImplementedError(
-                "only downsampleF=True, upsampleProjOnly=True are ported"
+        if not upsample_proj_only and expansion_factor != 1:
+            # the JAX package's assertion, and its message
+            raise ValueError(
+                "upsample_proj_only=False requires expansion_factor == 1 "
+                "(upConv1d ends at baseSize channels, ref "
+                "LayersTransformer.py:533,646)"
             )
         b = base_size
         d = 4 * b
         self.out_d = b * expansion_factor
         self.posEmbedBuilder = SpatialPositionEmbedding(b, 1, dropout)
         self.inputConv = nn.Conv2d(input_size, b, 3, padding=1)
-        self.downConv = DownConv(b, dropout, dtype)
+        self.downConv = DownConv(b, dropout, dtype, downsample_f)
         self.posEmbedBuilderAttnTF = SpatialPositionEmbedding(d, 2, dropout)
         self.posEmbedBuilderAttnTE = SpatialPositionEmbedding(d, 2, dropout)
         self.encoderLayers = nn.ModuleList(
@@ -151,6 +211,7 @@ class Backbone(nn.Module):
             for _ in range(n_layers)
         )
         self.upConv1dSkip = UpConvSkip(d, self.out_d, dtype=dtype)
+        self.upConv1d = None if upsample_proj_only else UpConv1d(b, dtype)
         # recompute each encoder layer in the backward pass (training only)
         self.use_gradient_checkpoint = use_gradient_checkpoint
         self.generator: Optional[torch.Generator] = None  # see set_dropout_generator
@@ -187,5 +248,8 @@ class Backbone(nn.Module):
 
         h = h[:, 1:, fp:]  # pitch tracks, without the t=0 aggregation step
         p, d = h.shape[2], h.shape[3]
-        up = self.upConv1dSkip(h.transpose(1, 2).reshape(n * p, tp - 1, d))[:, :n_t]
-        return up.reshape(n, p, n_t, self.out_d).float()
+        ht = h.transpose(1, 2).reshape(n * p, tp - 1, d)
+        up = self.upConv1dSkip(ht)
+        if self.upConv1d is not None:
+            up = up + self.upConv1d(ht)
+        return up[:, :n_t].reshape(n, p, n_t, self.out_d).float()

@@ -2,8 +2,9 @@
 
 Port of ``transkun_tpu/models/layers.py``.  Module and parameter names follow
 the reference PyTorch model, so its state_dict keys load as they are (see
-``utils/convert.py``).  Only the "F" and "T" axial attentions of the
-flagship are ported; the other branches raise ``NotImplementedError``.
+``utils/convert.py``).  ``BasicBlock`` has every branch of the JAX
+package's: the "F" and "T" axial attentions of the flagship, the "All0" /
+"0All" aggregation-track attentions and the full "FT" attention.
 
 Dropout draws its masks from an explicit ``torch.Generator`` (set with
 ``set_dropout_generator``), so a training step's masks follow from its seed
@@ -216,9 +217,18 @@ class FFNResBlock(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """Factorized axial attention over a [N, T, F, D] lattice: "F" attends
-    along frequency/tracks within each time step, "T" along time within each
-    column; both read the block's input as keys/values."""
+    """Factorized axial attention over a [N, T, F, D] lattice (the JAX
+    package's ``BasicBlock``), in the order F, T, All0/0All, FT:
+
+    - "F" attends along frequency/tracks within each time step, "T" along
+      time within each column;
+    - "All0": tracks 1: attend to track 0's row; "0All": track 0 attends to
+      the whole flattened lattice.  Both use the one ``mhaBlockAll0``, and
+      one ``fnnBlockAll0`` runs after them;
+    - "FT" attends over the flattened F x T lattice.
+
+    Every attention reads the block's input as keys/values (directly,
+    transposed, sliced or flattened)."""
 
     def __init__(
         self,
@@ -226,16 +236,18 @@ class BasicBlock(nn.Module):
         num_heads: int,
         hidden_factor: float = 2.0,
         hidden_factor_attn: float = 1.0,
-        enabled: Sequence[str] = ("F", "T"),
+        enabled: Sequence[str] = ("F", "T", "All0", "0All"),
         dropout: float = 0.0,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        other = set(enabled) - {"F", "T"}
-        if other:
-            raise NotImplementedError(f"attention branches {sorted(other)} are not ported")
         self.enabled = tuple(enabled)
-        for tag in self.enabled:
+        tags = [tag for tag in ("F", "T") if tag in self.enabled]
+        if "All0" in self.enabled or "0All" in self.enabled:
+            tags.append("All0")  # one block for both aggregation directions
+        if "FT" in self.enabled:
+            tags.append("FT")
+        for tag in tags:
             self.add_module(
                 f"mhaBlock{tag}",
                 AttnResBlock(size, num_heads, hidden_factor_attn, dropout, dtype),
@@ -248,8 +260,22 @@ class BasicBlock(nn.Module):
         if "F" in self.enabled:
             h = self.fnnBlockF(self.mhaBlockF(h, mem))
         h = h.transpose(-3, -2)  # [N, F, T, D]
+        mem_t = mem.transpose(-3, -2)
         if "T" in self.enabled:
-            h = self.fnnBlockT(self.mhaBlockT(h, mem.transpose(-3, -2)))
+            h = self.fnnBlockT(self.mhaBlockT(h, mem_t))
+        if "All0" in self.enabled or "0All" in self.enabled:
+            h0, h1 = h[..., :1, :, :], h[..., 1:, :, :]
+            if "All0" in self.enabled:
+                h1 = self.mhaBlockAll0(h1, mem_t[..., 0:1, :, :])
+            if "0All" in self.enabled:
+                flat = mem_t.reshape(*mem_t.shape[:-3], 1, -1, mem_t.shape[-1])
+                h0 = self.mhaBlockAll0(h0, flat)
+            h = self.fnnBlockAll0(torch.cat([h0, h1], dim=-3))
+        if "FT" in self.enabled:
+            nf, nt, d = h.shape[-3:]
+            hf = h.reshape(*h.shape[:-3], nf * nt, d)
+            memf = mem_t.reshape(*mem_t.shape[:-3], nf * nt, d)
+            h = self.fnnBlockFT(self.mhaBlockFT(hf, memf)).reshape(h.shape)
         return h.transpose(-3, -2)
 
 

@@ -18,6 +18,13 @@ Training runs ``log_prob_padded`` on the fused route: the scorer writes the
 padded alpha-layout score tensor once, and ``ops/logz`` takes logZ from it
 with the alpha and beta kernels.
 
+With ``useInnerProductScorer`` false the scores come from the pairwise
+scorer of the V1 model over the projected ctx of every track, with a
+learned skip score, and take the JAX package's generic routes: the decode's
+Viterbi tables from ``semicrf.viterbi_backward_tables_best`` (everything
+downstream of the tables as on the padded route), the objective's logZ from
+``semicrf.log_z_best``.
+
 Train and eval modes are explicit: each entry point sets the mode it needs
 (``make_train_loss`` train; ``log_prob``, the stats and the decode eval).
 """
@@ -144,8 +151,6 @@ class TransKunModule(nn.Module):
         super().__init__()
         if compute_dtype not in (None, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
-        if not conf.useInnerProductScorer:
-            raise NotImplementedError("only the inner-product scorer (V2) is ported")
         self.conf = conf
         d = conf.baseSize * conf.scoringExpansionFactor
         self.framewiseFeatureExtractor = MelFrontend(conf, compute_dtype)
@@ -164,7 +169,17 @@ class TransKunModule(nn.Module):
             use_gradient_checkpoint=conf.useGradientCheckpoint,
             dtype=compute_dtype,
         )
-        self.scorer = ScaledInnerProductIntervalScorer(d, d, 1, score_dtype=compute_dtype)
+        if conf.useInnerProductScorer:
+            self.scorer = ScaledInnerProductIntervalScorer(d, d, 1, score_dtype=compute_dtype)
+        else:
+            # the V1 pairwise scorer over the projected ctx of every track
+            # (fp32, as in the JAX package); a late import, as ablation
+            # imports this module
+            from .ablation import PairwiseFeatureBatch
+
+            n_sym = len(target_midi_pitches())
+            self.scorerProj = nn.Linear(n_sym * d, 512)
+            self.scorer = PairwiseFeatureBatch(512, n_sym, dropout=conf.scoreDropoutProb)
         self.velocityPredictor = mlp(
             3 * d, conf.velocityPredictorHiddenSize, 128, conf.velocityDropoutProb
         )
@@ -190,7 +205,7 @@ class TransKunModule(nn.Module):
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, UpConvSkip)):
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, UpConvSkip)):
                 # the upsample is a dense map from its w.shape[0] inputs
                 w = mod.weight
                 lecun_normal(w, w.shape[0] if isinstance(mod, UpConvSkip) else w[0].numel())
@@ -221,9 +236,16 @@ class TransKunModule(nn.Module):
         self, frames: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """frames [N, C, T, W] -> (S [T, T, N*P] alpha layout, noise
-        [T-1, N*P], ctx [N, P, T, D])."""
+        [T-1, N*P], ctx [N, P, T, D]).  The noise is zero with the
+        inner-product scorer and the learned skip score with the pairwise
+        one."""
         ctx = self._ctx(frames)
-        s, noise = self.scorer(ctx)
+        if self.conf.useInnerProductScorer:
+            s, noise = self.scorer(ctx)
+        else:
+            # [N, P, T, D] -> [T, N, P*D], projected, scored pairwise
+            ctx_score = ctx.permute(2, 0, 1, 3).reshape(ctx.shape[2], ctx.shape[0], -1)
+            s, noise = self.scorer(self.scorerProj(ctx_score))
         t = s.shape[0]
         return s.reshape(t, t, -1), noise.reshape(t - 1, -1), ctx
 
@@ -285,24 +307,35 @@ Labels = Tuple[torch.Tensor, ...]
 
 def log_prob_padded(module: TransKunModule, frames: torch.Tensor, labels: Labels) -> torch.Tensor:
     """The training objective: per-track log-probability [N, P] (ref
-    ``log_prob``), on the fused route of the JAX package's
-    ``log_prob_padded``.  Runs in the module's current mode.
+    ``log_prob``), as the JAX package's ``log_prob_padded`` routes it.  Runs
+    in the module's current mode.  With the inner-product scorer, the fused
+    route: the padded alpha-layout scores, written once, and
+    ``logz.log_z_padded``.  With the pairwise scorer, the unfused route:
+    ``process_frames``' scores and learned noise, and ``semicrf.log_z_best``
+    (the alpha and beta kernels on the card, with the exact-marginal
+    backward and the noise cotangent).
 
     labels = (begins, ends, mask, velocity [N, P, K], refine, presence
     [N, P, K, 2]) from ``data.labels.encode_batch``, as tensors
     on the module's device."""
     begins, ends, mask, velocity, refine, presence = labels
     n, p, k = begins.shape
-    t = frames.shape[2]
-    t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(n, p)
-    s_pad, noise_pad, ctx = module.process_frames_train(frames, t_pad, p_pad)
+    if module.conf.useInnerProductScorer:
+        t = frames.shape[2]
+        t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(n, p)
+        s_pad, noise_pad, ctx = module.process_frames_train(frames, t_pad, p_pad)
 
-    def lanes(a):  # [N, P, K] -> [N * p_pad, K], padded tracks empty
-        return torch.nn.functional.pad(a, (0, 0, 0, p_pad - p)).reshape(n * p_pad, k)
+        def lanes(a):  # [N, P, K] -> [N * p_pad, K], padded tracks empty
+            return torch.nn.functional.pad(a, (0, 0, 0, p_pad - p)).reshape(n * p_pad, k)
 
-    path = semicrf.eval_path_padded(s_pad, noise_pad[:-1], lanes(begins), lanes(ends), lanes(mask))
-    log_z = logz.log_z_padded(t, s_pad, noise_pad)
-    logp = (path - log_z).reshape(n, p_pad)[:, :p]
+        path = semicrf.eval_path_padded(s_pad, noise_pad[:-1], lanes(begins), lanes(ends), lanes(mask))
+        log_z = logz.log_z_padded(t, s_pad, noise_pad)
+        logp = (path - log_z).reshape(n, p_pad)[:, :p]
+    else:
+        s, noise, ctx = module.process_frames(frames)
+        path = semicrf.eval_path_padded(
+            s, noise, begins.reshape(n * p, k), ends.reshape(n * p, k), mask.reshape(n * p, k))
+        logp = (path - semicrf.log_z_best(s, noise)).reshape(n, p)
 
     vel_logits, of_value, of_presence = module.attributes(
         _gather_ctx(ctx, begins), _gather_ctx(ctx, ends)
@@ -397,11 +430,11 @@ class TransKun:
     @torch.no_grad()
     def _decode(self, frames: torch.Tensor):
         """frames -> (ptr [T-1, N*P] int32, diag [T, N*P] bool, ctx), the
-        Viterbi tables through ``semicrf.viterbi_backward_tables`` (the
-        kernel for a CUDA tensor)."""
+        Viterbi tables through ``semicrf.viterbi_backward_tables_best`` (the
+        kernel for a CUDA tensor), from either scorer's noise."""
         self.module.eval()
         s, noise, ctx = self.module.process_frames(frames)
-        ptr, diag = semicrf.viterbi_backward_tables(s, noise)
+        ptr, diag = semicrf.viterbi_backward_tables_best(s, noise)
         return ptr, diag, ctx
 
     @torch.no_grad()
@@ -643,10 +676,18 @@ class TransKun:
         """One segment [C, S] -> (ptr [t-1, P] int32, diag [t, P] bool,
         bpres [P, t, n_edge] bool, ctx [P, t, D]), all left on the device.
         The Viterbi tables come from ``viterbi_backward_tables_padded``: the
-        CUDA kernel for a CUDA segment."""
+        CUDA kernel for a CUDA segment.  With the pairwise scorer, the JAX
+        package's generic route: the unpadded scores and learned noise
+        through ``semicrf.viterbi_backward_tables_best`` (the same kernel),
+        the same outputs."""
         n_sym = len(self.targetMIDIPitch)
         frames = frontend.make_frame(seg_audio[None], self.hopSize, self.windowSize)
         t = frames.shape[-2]
+        if not self.conf.useInnerProductScorer:
+            s, noise, ctx = self.module.process_frames(frames)
+            ptr, diag = semicrf.viterbi_backward_tables_best(s, noise)
+            bpres = self.module.boundary_offset_presence(ctx, t - last_frame_idx)
+            return ptr, diag, bpres[0], ctx[0]
         t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(1, n_sym)
         s_t, noise, diag_raw, ctx = self.module.process_frames_decode(frames, t_pad, p_pad)
         ptr = viterbi_backward_tables_padded(s_t, noise, diag_raw * (diag_raw > 0))

@@ -17,6 +17,14 @@ wrapper runs its plain version; on a CUDA tensor it launches its kernel or
 raises, and never falls back.  fp32 or bf16 tensors, all of one type; the
 outputs come in that type (the kernels, like the plain versions, take the
 inputs to fp32 first).
+
+Each source holds three variants (``VARIANTS``) and the library picks one by
+shape: the tensor-core kernel where a row of logits fits a thread's
+registers (Skv <= 160, head_dim <= 64), the streaming kernels for any other
+length at head_dim <= 64 (the "0All" and "FT" branches' 13261 keys a
+segment, ``downsampleF=False``'s 320), and the general kernel for a wider
+head_dim, where k and v fit its shared memory.  Only a shape that no
+variant takes is refused.
 """
 
 from __future__ import annotations
@@ -30,10 +38,18 @@ import torch
 
 from . import _build
 
-# Kernel launches made by attention_fwd_cuda / attention_bwd_cuda; nothing
-# else changes them except a caller resetting them to 0.
-fwd_launches = 0
-bwd_launches = 0
+# Kernel launches made by attention_fwd_cuda / attention_bwd_cuda, by the
+# variant that ran; nothing else changes them except a caller resetting them
+# to 0.
+fwd_launches_by_variant = {"mma": 0, "general": 0, "stream": 0}
+bwd_launches_by_variant = {"mma": 0, "general": 0, "stream": 0}
+
+
+def reset_launches() -> None:
+    """Every launch count to 0."""
+    for counts in (fwd_launches_by_variant, bwd_launches_by_variant):
+        for variant in counts:
+            counts[variant] = 0
 
 
 def use_fused_attention() -> bool:
@@ -97,19 +113,23 @@ def attention_bwd_plain(
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}  # exported name suffix
-# Each source holds two kernels: the tensor-core one for the shapes whose row
-# of logits fits a thread's registers (Skv <= 160, head_dim <= 64) and the
-# general one for the rest.  The library picks by shape; a caller may force one.
-VARIANTS = {None: -1, "mma": 0, "general": 1}
+# The library picks a variant by shape (None); a caller may force one.
+VARIANTS = {None: -1, "mma": 0, "general": 1, "stream": 2}
+_VARIANT_NAMES = {v: k for k, v in VARIANTS.items() if k}
+# pointer arguments: q, k, v, o / q, k, v, o, do, dq, dk, dv and the
+# streaming kernels' statistics scratch
+_N_TENSORS = {"attention_fwd": 4, "attention_bwd": 9}
 
 
 @functools.cache
-def _library(name: str, n_tensors: int) -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     for suffix in _DTYPES.values():
         fn = getattr(lib, name + suffix)
-        # tensors, then b, sq, skv, heads, head_dim, scale, variant, device, stream
-        fn.argtypes = [_PTR] * n_tensors + [_INT] * 5 + [ctypes.c_float, _INT, _INT, _PTR]
+        # tensors, then b, sq, skv, heads, head_dim, scale, variant, device,
+        # stream and where the variant that ran is written
+        fn.argtypes = [_PTR] * _N_TENSORS[name] + [_INT] * 5 + [
+            ctypes.c_float, _INT, _INT, _PTR, ctypes.POINTER(_INT)]
         fn.restype = _INT
     getattr(lib, name + "_smem_bytes").argtypes = [_INT] * 4
     getattr(lib, name + "_smem_bytes").restype = ctypes.c_longlong
@@ -122,15 +142,15 @@ def _library(name: str, n_tensors: int) -> ctypes.CDLL:
 
 def kernel_variant(name: str, sq: int, skv: int, head_dim: int) -> str:
     """Which kernel of ``name`` ("attention_fwd" or "attention_bwd") the
-    library picks at this shape: "mma" or "general"."""
-    lib = _library(name, 4 if name == "attention_fwd" else 8)
-    picked = getattr(lib, name + "_variant")(sq, skv, head_dim)
-    return next(k for k, v in VARIANTS.items() if v == picked)
+    library picks at this shape: "mma", "general" or "stream"."""
+    return _VARIANT_NAMES[getattr(_library(name), name + "_variant")(sq, skv, head_dim)]
 
 
 def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float, variant=None):
     """Check ``inputs`` (q, k, v and, for the backward, o and do), allocate
-    the outputs in their type and launch ``name`` on the current stream."""
+    the outputs in their type (and the backward's statistics scratch) and
+    launch ``name`` on the current stream.
+    Returns (the outputs, the variant that ran)."""
     q, k, v = inputs[:3]
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -153,27 +173,36 @@ def _launch(name: str, inputs, n_out: int, num_heads: int, scale: float, variant
         )
     if num_heads < 1 or d % num_heads or 0 in (b, sq, skv, d):
         raise ValueError(f"D={d} must be a positive multiple of num_heads={num_heads}, B and S positive")
-    lib = _library(name, len(inputs) + n_out)
-    smem = getattr(lib, name + "_smem_bytes")(sq, skv, d // num_heads, VARIANTS[variant])
-    if smem < 0:
-        raise ValueError(f"the {variant} kernel does not take Sq={sq}, Skv={skv}, "
-                         f"head_dim={d // num_heads}")
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {list(VARIANTS)}, got {variant!r}")
+    lib = _library(name)
+    dh = d // num_heads
+    smem = getattr(lib, name + "_smem_bytes")(sq, skv, dh, VARIANTS[variant])
+    if smem < 0:  # only a variant asked for can refuse the shape
+        raise ValueError(f"the {variant} kernel does not take Sq={sq}, Skv={skv}, head_dim={dh}")
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"Sq={sq}, Skv={skv}, head_dim={d // num_heads} need {smem} B of shared "
+            f"Sq={sq}, Skv={skv}, head_dim={dh} need {smem} B of shared "
             f"memory, above {_build.SMEM_LIMIT} B: sequence too long for the kernel"
         )
     outs = [torch.empty_like(a) for a in ((q,) if n_out == 1 else (q, k, v))]
+    pointers = [a.data_ptr() for a in (*inputs, *outs)]
+    if name == "attention_bwd":
+        # the streaming kernels' [3, B*H, Sq] row statistics (3/head_dim of
+        # dq's values), allocated whatever variant runs, so that no call has
+        # to ask which one will
+        stats = torch.empty(3 * b * num_heads * sq, dtype=torch.float32, device=q.device)
+        pointers.append(stats.data_ptr())
+    ran = _INT(-1)
     err = getattr(lib, name + _DTYPES[q.dtype])(
-        *[a.data_ptr() for a in (*inputs, *outs)],
-        b, sq, skv, num_heads, d // num_heads, float(scale), VARIANTS[variant],
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+        *pointers, b, sq, skv, num_heads, dh, float(scale), VARIANTS[variant],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream, ctypes.byref(ran),
     )
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: {getattr(lib, name + '_error_string')(err).decode()}"
         )
-    return outs
+    return outs, _VARIANT_NAMES[ran.value]
 
 
 def attention_fwd_cuda(
@@ -181,11 +210,10 @@ def attention_fwd_cuda(
     variant=None,
 ) -> torch.Tensor:
     """Launch the forward kernel (fp32 or bf16 tensors, all of one type);
-    raises on anything it does not take.  ``variant`` forces "mma" or
-    "general"; by default the library picks by shape."""
-    global fwd_launches
-    (o,) = _launch("attention_fwd", (q, k, v), 1, num_heads, scale, variant)
-    fwd_launches += 1
+    raises on anything it does not take.  ``variant`` forces "mma",
+    "general" or "stream"; by default the library picks by shape."""
+    (o,), ran = _launch("attention_fwd", (q, k, v), 1, num_heads, scale, variant)
+    fwd_launches_by_variant[ran] += 1
     return o
 
 
@@ -194,10 +222,11 @@ def attention_bwd_cuda(
     do: torch.Tensor, num_heads: int, scale: float, variant=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel (fp32 or bf16 tensors, all of one type);
-    raises on anything it does not take.  ``variant`` as in the forward."""
-    global bwd_launches
-    dq, dk, dv = _launch("attention_bwd", (q, k, v, o, do), 3, num_heads, scale, variant)
-    bwd_launches += 1
+    raises on anything it does not take.  ``variant`` as in the forward.
+    The streaming variant is two launches on the stream (its passes over
+    query rows and over keys), counted as one call of the kernel."""
+    (dq, dk, dv), ran = _launch("attention_bwd", (q, k, v, o, do), 3, num_heads, scale, variant)
+    bwd_launches_by_variant[ran] += 1
     return dq, dk, dv
 
 

@@ -12,7 +12,12 @@ function.  Layouts:
 * flax Conv kernel [kh, kw, in, out]   -> Conv2d weight [out, in, kh, kw]
 * upConv1dSkip Dense [in, 8*out]       -> weight [in, out, 8] (the
   reference ConvTranspose1d layout); its bias [8*out] stays as it is, one
-  free bias per output step (a reference [out] bias is tiled 8x on load)
+  free bias per output step (a reference [out] bias is tiled 8x on load);
+  the same for ``upConv1d``'s three Dense [in, 2*out] stages, whose convs
+  (flax Conv1d kernel [k, in, out] -> Conv1d weight [out, in, k]) and
+  norms sit at the reference's indices
+* the pairwise scorer (``useInnerProductScorer`` false): ``scorerProj``
+  and the V1 ``PairwiseFeatureBatch``'s keys under ``scorer.``
 """
 
 from __future__ import annotations
@@ -54,6 +59,11 @@ def state_dict_from_flax(params: Dict[str, Any], conf=None) -> "OrderedDict[str,
         linear(prefix + ".mlp.0", d["mlp_0"])
         linear(prefix + ".mlp.3", d["mlp_1"])
 
+    def upsample(prefix, d, steps):  # Dense [in, steps*out], step-major columns
+        kernel = np.asarray(d["kernel"])
+        sd[prefix + ".weight"] = _t(kernel.reshape(kernel.shape[0], steps, -1).transpose(0, 2, 1))
+        sd[prefix + ".bias"] = _t(d["bias"])
+
     win = "framewiseFeatureExtractor.spectrogramExtractor.winGen"
     sd[win + ".sigma"] = _t(p["frontend"]["win_sigma"])
     sd[win + ".center"] = _t(p["frontend"]["win_center"])
@@ -65,8 +75,6 @@ def state_dict_from_flax(params: Dict[str, Any], conf=None) -> "OrderedDict[str,
     for i, idx in enumerate((1, 5, 9, 13)):
         conv2d(f"backbone.downConv.{idx}", bb["downConv"][f"conv{i}"])
         groupnorm(f"backbone.downConv.{idx + 1}", bb["downConv"][f"norm{i}"])
-    if "upConv1d" in bb:
-        raise NotImplementedError("upsampleProjOnly=False (upConv1d) is not ported")
     i = 0
     while f"encoderLayers_{i}" in bb:
         layer = bb[f"encoderLayers_{i}"]
@@ -82,14 +90,23 @@ def state_dict_from_flax(params: Dict[str, Any], conf=None) -> "OrderedDict[str,
                 mlp(f"{base}.{key}.module", blk)
         i += 1
 
-    up = bb["upConv1dSkip"]
-    kernel = np.asarray(up["kernel"])  # [in, 8*out], step-major columns
-    sd["backbone.upConv1dSkip.weight"] = _t(
-        kernel.reshape(kernel.shape[0], 8, -1).transpose(0, 2, 1)
-    )
-    sd["backbone.upConv1dSkip.bias"] = _t(up["bias"])
+    upsample("backbone.upConv1dSkip", bb["upConv1dSkip"], 8)
+    if "upConv1d" in bb:
+        stack = bb["upConv1d"]
+        for i, idx in enumerate((0, 4, 8)):
+            upsample(f"backbone.upConv1d.{idx}", stack[f"up{i}"], 2)
+            conv = stack[f"conv{i}"]
+            sd[f"backbone.upConv1d.{idx + 1}.weight"] = _t(
+                np.transpose(np.asarray(conv["kernel"]), (2, 1, 0)))
+            sd[f"backbone.upConv1d.{idx + 1}.bias"] = _t(conv["bias"])
+            if f"norm{i}" in stack:
+                groupnorm(f"backbone.upConv1d.{idx + 2}", stack[f"norm{i}"])
 
-    linear("scorer.map.0", p["scorer"]["map"])
+    if "scorerProj" in p:
+        linear("scorerProj", p["scorerProj"])
+        _pairwise_scorer(sd, "scorer", p["scorer"])
+    else:
+        linear("scorer.map.0", p["scorer"]["map"])
     mlp("velocityPredictor", p["velocityPredictor"])
     mlp("refinedOFPredictor", p["refinedOFPredictor"])
     return sd
@@ -154,16 +171,28 @@ def state_dict_from_flax_ablation(variables: Dict[str, Any]) -> "OrderedDict[str
         layer += 1
     linear("contextModel.outProj", ctx["outProj"])
 
-    pw = p["pairwiseScore"]
-    for name in ("scoreMap", "scoreMapSkip"):
-        mlp3(f"pairwiseScore.{name}", pw, [f"{name}_{j}" for j in range(3)])
-    if "post" in pw:
-        conv2d("pairwiseScore.post.map.0", pw["post"]["conv1"])
-        conv2d("pairwiseScore.post.map.3", pw["post"]["conv2"])
+    _pairwise_scorer(sd, "pairwiseScore", p["pairwiseScore"])
     sd["pitchEmbedding.weight"] = _t(p["pitchEmbedding"]["embedding"])
     for head in ("velocityPredictor", "refinedOFPredictor"):
         mlp3(head, p[head], ("lin1", "lin2", "lin3"))
     return sd
+
+
+def _pairwise_scorer(sd, prefix: str, pw: Dict[str, Any]) -> None:
+    """The flax ``PairwiseFeatureBatch`` params ``pw`` into ``sd`` under
+    ``prefix`` with the reference's names: the two 3-layer MLPs at indices
+    0, 3, 6 and the post-convolutions at 0 and 3."""
+    for name in ("scoreMap", "scoreMapSkip"):
+        for idx, j in zip((0, 3, 6), range(3)):
+            d = pw[f"{name}_{j}"]
+            sd[f"{prefix}.{name}.{idx}.weight"] = _t(np.asarray(d["kernel"]).T)
+            sd[f"{prefix}.{name}.{idx}.bias"] = _t(d["bias"])
+    if "post" in pw:
+        for idx, conv in ((0, "conv1"), (3, "conv2")):
+            d = pw["post"][conv]
+            sd[f"{prefix}.post.map.{idx}.weight"] = _t(
+                np.transpose(np.asarray(d["kernel"]), (3, 2, 0, 1)))
+            sd[f"{prefix}.post.map.{idx}.bias"] = _t(d["bias"])
 
 
 def load_reference_checkpoint(path: str, prefer_best: bool = True):
