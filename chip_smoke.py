@@ -103,10 +103,7 @@
    the kernel, no memset.  It is timed on the first group (4 segments, t = 691) beside the
    plain version on the card and the CPU and the host walk; its bound is the
    bytes the visited positions need, and the ns a chain step is printed.
-   With ``--parent DIR`` (a checkout of an earlier commit whose walk kernel
-   is the first version: one thread a track, no launch plan in its C
-   interface) that checkout's walk kernel is built and timed on the same
-   tables, in turns (parent, this, this, parent).  Then on one segment's real scores the Viterbi
+   Then on one segment's real scores the Viterbi
    kernel's table equals the plain version's.
 5. Training through the entry point ``transkun_tpu_torch.cli.train.main``
    at flagship width and depth, ``--batchSize 4``: a synthetic
@@ -198,13 +195,29 @@
    lattice), no call of the plain attention on the fused route; the
    streaming kernels on the path's real activations against an fp64
    evaluation within a first-order bound of their rounding
-   (``check_attention_fp64``).  Before the paths, the streaming kernels are
-   held against their plain versions (``check_attention``'s rules, the
-   library picking the variant by itself) at 0All's shapes ([1, 89, 256]
-   and [4, 89, 256] against 13261 keys) and FT's ([1, 13261, 256]), fp32
-   and bf16, and timed at [4, 89, 256] and FT's beside the plain versions
-   and SDPA; their fp32 bound is the tensor cores' (three TF32 ``mma`` a
-   product), since the kernels run their products there.
+   (``check_attention_fp64``), and on the same tensors rounded to bf16
+   against the plain versions at bf16 (``check_attention``'s bf16 rule).
+   Before the paths, the streaming kernels are held against their plain
+   versions (``check_attention``'s rules, the library picking the variant
+   by itself) at 0All's shapes ([1, 89, 256] and [4, 89, 256] against 13261
+   keys) and FT's ([1, 13261, 256]), fp32 and bf16; each shape's plan
+   (``ops.attention.stream_plan``: warps, splits of the keys, grids,
+   shared memory) is printed, 0All's keys must be split across blocks; two
+   forward runs must give the same bits, and so must the backward handed
+   the forward's row statistics and the backward that fetches them
+   (``check_stream_bits``); each is timed beside the plain versions and
+   SDPA (``time_stream``: a lone call; the backward handed the statistics,
+   as the path hands them), its fp32 bound the tensor cores' (three TF32
+   ``mma`` a product), and beside it the exp floor: one exponential an
+   element at 16 an SM a clock at the card's largest SM clock
+   (``nvidia-smi``'s clocks.max.sm), and by its device time a call
+   (``queued_ms``: 20 calls queued behind a sleeping kernel, so that they
+   run back to back whatever the host's enqueue costs).  With ``--parent DIR`` (a checkout whose streaming
+   kernels are the first version: no plan in their C interface), that
+   checkout's ``attention_fwd.cu`` and ``attention_bwd.cu`` are built
+   beside this one's, held to the same bounds at every shape and timed in
+   turns (parent, this, this, parent; ``parent_turns``); a checkout with a
+   later C interface is said and skipped.
 
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, the V1 path's
@@ -303,6 +316,8 @@ FP32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
 DEVICE_LAUNCHES = 20  # launches between two events where the device's time is wanted
+SFU_EXPS_A_CLOCK = 16  # exponentials an SM a clock (CUDA Programming Guide, compute capability 9.0)
+QUEUE_SLEEP_MS = 50  # queued_ms: the card sleeps this long while the host enqueues the calls
 TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 # the V1 path: 3 steps at --batchSize 2 on 16 s segments cut every 12 s from
 # the first two training pieces; decode singletons on 0.1% of one segment's
@@ -326,7 +341,6 @@ BRANCH_TRAIN = {"aggregation": (2, TRAIN_BATCH), "full": (1, 1), "pairwise": (2,
 LATTICE = 89 * 149
 STREAM_SHAPES = {"0All": ((1, 89, 256), LATTICE), "0All, batch 4": ((TRAIN_BATCH, 89, 256), LATTICE),
                  "FT": ((1, LATTICE, 256), LATTICE)}
-STREAM_TIMED = ("0All, batch 4", "FT")  # the kernels line carries FT's
 PAIRWISE_SINGLETON_QUANTILE = 0.999
 
 
@@ -359,6 +373,20 @@ def cuda_ms(fn, runs=5, before=None, launches=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / launches)
     return float(np.median(times))
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's largest SM clock in MHz (``nvidia-smi``'s clocks.max.sm)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+
+
+def exp_floor_ms(exps, n_sm, mhz):
+    """The least milliseconds ``exps`` exponentials take on ``n_sm`` SMs at
+    ``mhz``: SFU_EXPS_A_CLOCK an SM a clock."""
+    return exps / (n_sm * SFU_EXPS_A_CLOCK * mhz * 1e6) * 1e3
 
 
 def decode_inputs(rng, t, nbp, dev, ties=False):
@@ -658,6 +686,213 @@ def check_attention_fp64(attention, q, k, v, do, heads):
     return rows
 
 
+def check_stream_bits(attention, q, k, v, do, heads):
+    """The streaming kernels give the same bits run after run: two forward
+    runs (o and the row statistics), and the backward with the forward's
+    statistics handed to it and without them (fetched by a forward launch).
+    Returns the statistics."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    o, stats = attention.attention_fwd_cuda(q, k, v, heads, scale, with_stats=True)
+    o2, stats2 = attention.attention_fwd_cuda(q, k, v, heads, scale, with_stats=True)
+    handed = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale, stats=stats)
+    fetched = attention.attention_bwd_cuda(q, k, v, o, do, heads, scale)
+    torch.cuda.synchronize()
+    where = f"q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}"
+    if stats is None or not (torch.equal(o, o2) and torch.equal(stats, stats2)):
+        raise AssertionError(f"streaming forward: two runs differ (or gave no statistics) at {where}")
+    if not all(torch.equal(a, b) for a, b in zip(handed, fetched)):
+        raise AssertionError(f"streaming backward: handed and fetched statistics differ at {where}")
+    return stats
+
+
+def time_stream(attention, q, k, v, do, heads, n_sm, mhz, runs=3):
+    """The streaming kernels on these inputs, the backward handed the
+    forward's statistics as the path hands them.  For "fwd" and "bwd":
+    (kernel ms, plain ms, SDPA ms, bound, the CUDA cores' fp32 bound ms, the
+    exp floor ms, the kernel's device ms): kernel, plain and SDPA ms a lone
+    call's (CUDA events, the wrapper's host work included), device ms a
+    call's launches alone (``queued_ms``).  Bound at fp32: the products
+    fp32-grade on the tensor cores (three TF32 `mma` a product, the fused
+    MLP's bound), below the CUDA cores' one; at bf16 2 bytes a value
+    against the operations at the bf16 rate.  Exp floor: one exponential an element of the [Sq, Skv]
+    softmax of each head (what the function needs, forward and backward:
+    the backward kernels evaluate two) at SFU_EXPS_A_CLOCK an SM a clock
+    at ``mhz``.  A kernel time under the larger of the bound and the floor
+    fails: the floor held at every shape on an H100, so a time below it is a
+    wrong count or a kernel that skipped work."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, sq, d = q.shape
+    dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
+    o, stats = attention.attention_fwd_cuda(q, k, v, heads, scale, with_stats=True)
+    qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
+    o_lib = sdpa(qh, kh, vh, scale=scale)
+    do_h = do.view(b, sq, heads, dh).transpose(1, 2)
+    products = 2 * b * heads * sq * k.shape[1] * dh
+    floor = exp_floor_ms(b * heads * sq * k.shape[1], n_sm, mhz)
+    fp32 = q.dtype == torch.float32
+    peak = TF32_FLOPS / 3 if fp32 else BF16_FLOPS
+    fwd_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    bwd_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+    def fwd():
+        return attention.attention_fwd_cuda(q, k, v, heads, scale)
+
+    def bwd():
+        return attention.attention_bwd_cuda(q, k, v, o, do, heads, scale, stats=stats)
+
+    timed = {
+        "fwd": (cuda_ms(fwd, runs=runs),
+                cuda_ms(lambda: attention.attention_plain(q, k, v, heads, scale), runs=runs),
+                cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale), runs=runs),
+                bound(fwd_bytes, 2 * products, peak), bound(fwd_bytes, 2 * products)[0], floor,
+                queued_ms(fwd, mhz)),
+        "bwd": (cuda_ms(bwd, runs=runs),
+                cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale), runs=runs),
+                cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h, retain_graph=True),
+                        runs=runs),
+                bound(bwd_bytes, 5 * products, peak), bound(bwd_bytes, 5 * products)[0], floor,
+                queued_ms(bwd, mhz)),
+    }
+    for side, (k_ms, _, _, bnd, _, _, _) in timed.items():
+        if max(bnd[0], floor) > k_ms:
+            raise AssertionError(f"streaming attention {side} at {tuple(q.shape)} x {k.shape[1]} keys "
+                                 f"{q.dtype}: {k_ms} ms is under its bound of {bnd[0]} ms or its exp "
+                                 f"floor of {floor} ms")
+    return timed
+
+
+def queued_ms(fn, mhz, calls=DEVICE_LAUNCHES, runs=3):
+    """Device milliseconds a call of ``fn`` without the host's work: each run
+    enqueues ``calls`` calls behind a kernel that sleeps QUEUE_SLEEP_MS
+    (``torch.cuda._sleep``), so that they run back to back on the card, and
+    takes the time between two CUDA events around them; the median of
+    ``runs``.  Fails if the host took longer to enqueue them than the sleep
+    lasts.  (No profiler session: path 1 checks the walk with one, and on
+    this card a run's later profiler sessions saw no device time once
+    several had run.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(QUEUE_SLEEP_MS * mhz * 1e3))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue_ms >= QUEUE_SLEEP_MS:
+            raise AssertionError(f"the host took {enqueue_ms} ms to enqueue {calls} calls, past the "
+                                 f"{QUEUE_SLEEP_MS} ms sleep ahead of them")
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def parent_attention(root, tmp, dev):
+    """The first streaming attention kernels (one block a 64-row tile, fp32
+    tiles loaded synchronously, the backward sweeping the keys twice for
+    its statistics; their C interface takes no plan and the backward a
+    [3, B*H, Sq] scratch), from another checkout ``root``'s
+    ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, built into
+    ``tmp``, one ``nvcc`` each at once.  Returns a forward (q, k, v, heads,
+    scale) -> o and a backward (q, k, v, o, do, heads, scale) -> (dq, dk,
+    dv) that launch that checkout's streaming variant; None, said, for a
+    later version, whose C interface takes a plan."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from transkun_tpu_torch.ops import _build
+
+    def built(name):
+        path = os.path.join(tmp, f"lib{name}_parent.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", path,
+                               os.path.join(root, "transkun_tpu_torch", "csrc", name + ".cu")],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{proc.stdout}{proc.stderr}")
+        return ctypes.CDLL(path)
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fwd_lib, bwd_lib = pool.map(built, ("attention_fwd", "attention_bwd"))
+    if hasattr(fwd_lib, "attention_fwd_stream_smem_bytes"):
+        print(f"--parent: {root}'s streaming attention kernels take a plan: not the first version, "
+              f"not compared")
+        return None
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for lib, name, n in ((fwd_lib, "attention_fwd", 4), (bwd_lib, "attention_bwd", 9)):
+        for suffix in ("", "_bf16"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = [ptr] * n + [i32] * 5 + [ctypes.c_float, i32, i32, ptr, ctypes.POINTER(i32)]
+            fn.restype = i32
+
+    def call(lib, name, tensors, q, k, heads, scale):
+        b, sq, d = q.shape
+        ran = i32(-1)
+        err = getattr(lib, name + ("" if q.dtype == torch.float32 else "_bf16"))(
+            *[t.data_ptr() for t in tensors], b, sq, k.shape[1], heads, d // heads, float(scale), 2,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(ran))
+        if err or ran.value != 2:
+            raise RuntimeError(f"the parent's {name} launch failed ({err}) or ran variant {ran.value}")
+
+    def fwd(q, k, v, heads, scale):
+        o = torch.empty_like(q)
+        call(fwd_lib, "attention_fwd", (q, k, v, o), q, k, heads, scale)
+        return o
+
+    def bwd(q, k, v, o, do, heads, scale):
+        grads = [torch.empty_like(a) for a in (q, k, v)]
+        stats = torch.empty(3 * q.shape[0] * heads * q.shape[1], dtype=torch.float32, device=dev)
+        call(bwd_lib, "attention_bwd", (q, k, v, o, do, *grads, stats), q, k, heads, scale)
+        return tuple(grads)
+
+    return fwd, bwd
+
+
+def parent_turns(attention, parent_fwd, parent_bwd, q, k, v, do, heads):
+    """Another checkout's streaming kernels (``parent_attention``) held to
+    ``check_attention``'s bounds against the plain versions, then timed
+    with this checkout's in turns: parent, this, this, parent (this
+    backward handed the forward's statistics, as the path hands them).
+    Returns, for "fwd" and "bwd", {"parent": [ms, ms], "this": [ms, ms]}."""
+    import torch
+
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    o = parent_fwd(q, k, v, heads, scale)
+    grads = parent_bwd(q, k, v, o, do, heads, scale)
+    want = attention.attention_plain(q, k, v, heads, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, want, do, heads, scale)
+    torch.cuda.synchronize()
+    for name, got, ref, atol in [("o", o, want, FWD_ATOL)] + [
+            (n, g, w, BWD_ATOL) for n, g, w in zip(("dq", "dk", "dv"), grads, want_grads)]:
+        e = float((got.float() - ref.float()).abs().max())
+        allowed = atol if q.dtype == torch.float32 else bf16_spacing_at_max(ref)
+        if not bool(torch.isfinite(got).all()) or not e <= allowed:
+            raise AssertionError(f"the parent's streaming kernels != plain at q {tuple(q.shape)}, k "
+                                 f"{tuple(k.shape)}, {q.dtype}: {name} max |diff| {e}, allowed {allowed}")
+    del o, grads, want, want_grads
+    o, stats = attention.attention_fwd_cuda(q, k, v, heads, scale, with_stats=True)
+    calls = {"fwd": {"parent": lambda: parent_fwd(q, k, v, heads, scale),
+                     "this": lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)},
+             "bwd": {"parent": lambda: parent_bwd(q, k, v, o, do, heads, scale),
+                     "this": lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale,
+                                                                  stats=stats)}}
+    turns = {side: {"parent": [], "this": []} for side in calls}
+    for who in ("parent", "this", "this", "parent"):
+        for side in calls:
+            turns[side][who].append(round(cuda_ms(calls[side][who], runs=3), 4))
+    return turns
+
+
 def mlp_inputs(rng, m, d, hidden, dev, dtype):
     """Unit-normal x; row-major weights [in, out] scaled by 1/sqrt(fan in),
     small biases; rounded to ``dtype``."""
@@ -823,50 +1058,6 @@ def walk_on_sentinel(walk, ptr, diag, bpres, start, k_max, *geometry):
     if {got[0].data_ptr(), got[1].data_ptr()} != where:
         raise AssertionError("the walk's outputs did not land on the sentinel's memory")
     return got
-
-
-def parent_walk(source, tmp, dev):
-    """The first version of the walk kernel (one thread a track; its C
-    interface takes no plan and its wrapper zero-fills begins and ends),
-    from ``source`` (another checkout's ``csrc/decode_walk.cu``), built into
-    ``tmp``; returns the library and a function with ``walk_group_cuda``'s
-    first arguments that does what that wrapper did.  Raises for a later
-    version, whose C interface differs."""
-    import ctypes
-
-    import torch
-
-    from transkun_tpu_torch.ops import _build
-
-    lib_path = os.path.join(tmp, "libdecode_walk_parent.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, source],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for the parent's walk kernel:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(lib_path)
-    if hasattr(lib, "decode_walk_smem_bytes"):
-        raise RuntimeError(f"{source} is not the walk kernel's first version: its C interface takes a "
-                           f"launch plan")
-    lib.decode_walk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    lib.decode_walk.restype = ctypes.c_int
-
-    def call(ptr, diag, bpres, start, k_max, last_frame_idx, step_frames, onset_bound=-1):
-        n, t, p = diag.shape
-        begins = torch.zeros(n, p, k_max, dtype=torch.int32, device=dev)
-        ends = torch.zeros_like(begins)
-        count = torch.empty(n, p, dtype=torch.int32, device=dev)
-        overflow = torch.empty(n, p, dtype=torch.bool, device=dev)
-        start_out = torch.empty(p, dtype=torch.int32, device=dev)
-        err = lib.decode_walk(
-            ptr.data_ptr(), diag.data_ptr(), bpres.data_ptr(), start.data_ptr(), begins.data_ptr(),
-            ends.data_ptr(), count.data_ptr(), overflow.data_ptr(), start_out.data_ptr(), n, t, p,
-            bpres.shape[-1], k_max, last_frame_idx, step_frames, onset_bound, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"the parent's decode_walk launch failed ({err})")
-        return begins, ends, count, overflow, start_out
-
-    return lib, call
 
 
 def same_notes(got, want):
@@ -1275,7 +1466,8 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
     def check_real(rec, what):
         """The streaming kernels on the real q, k, v that reached them, with
         a unit-normal cotangent, against an fp64 evaluation beside the plain
-        versions (``check_attention_fp64``)."""
+        versions (``check_attention_fp64``), and on the same tensors rounded
+        to bf16 against the plain versions at bf16 (``check_attention``)."""
         gen = torch.Generator(device=dev).manual_seed(SEED)
         for shape, (q, k, v) in rec.captured.items():
             do = torch.randn(q.shape, generator=gen, device=dev, dtype=q.dtype)
@@ -1287,6 +1479,13 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
                   f"(max |q| {float(q.abs().max()):.3g}, |k| {float(k.abs().max()):.3g}): distance from fp64, "
                   f"kernel / plain fp32 / largest bound (largest |value|): "
                   + ", ".join(f"{n} {e_k:.3g} / {e_p:.3g} / {bnd:.3g} ({top:.3g})" for n, e_k, e_p, bnd, top in rows))
+            # the same activations rounded to bf16, by check_attention's bf16 rule
+            fwd_e, bwd_e, _ = check_attention(attention, *(a.bfloat16() for a in (q, k, v, do)), ATTN_HEADS,
+                                              "stream")
+            real[f"{what} {list(shape)} bf16"] = {"o": fwd_e, "dq_dk_dv": bwd_e}
+            print(f"streaming kernels on {what}'s real activations q {list(shape)} rounded to bf16: within one "
+                  f"bf16 spacing of each output's largest value of the plain versions at bf16: max |diff| "
+                  f"o {fwd_e:.3g}, dq/dk/dv {bwd_e:.3g}")
             del do
         rec.captured.clear()
 
@@ -1456,9 +1655,9 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout of an earlier commit whose walk kernel is the first "
-                                     "version (one thread a track, no launch plan in its C interface), "
-                                     "timed beside this one in turns; any other checkout is refused")
+    ap.add_argument("--parent", help="a checkout of an earlier commit whose streaming attention kernels "
+                                     "are the first version (no plan in their C interface), timed beside "
+                                     "these in turns; with a later interface they are said and skipped")
     parent = ap.parse_args().parent
     import torch
 
@@ -1508,6 +1707,14 @@ def main() -> int:
 
     # -- build, one nvcc per source, all at once -------------------------------
     t0 = time.perf_counter()
+    parent_stream = None  # the parent's streaming attention kernels, built beside ours
+    if parent is not None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        parent_tmp = tempfile.TemporaryDirectory()
+        pool = ThreadPoolExecutor(max_workers=1)
+        parent_stream = pool.submit(parent_attention, parent, parent_tmp.name, dev)
+        pool.shutdown(wait=False)  # the build runs on beside ours; its result is taken below
     registers = {}  # kernel instance (mangled name) -> registers a thread
     for name, (_, build_s, log) in _build.build_all(SOURCES).items():
         print(f"build {name}: {build_s:.2f} s")
@@ -1783,46 +1990,20 @@ def main() -> int:
           f"{bf16['attention_bwd']['max_abs_err']:.3g}; the backward's two runs equal bit for bit")
     del q, k, v, do, o
 
-    # the streaming kernels (kernels 4 and 5 for the 0All and FT branches'
-    # 13261 keys, past the general kernels' shared memory) at the shapes path
-    # 7 gives them, fp32 and bf16, by check_attention's rules (the library
-    # must pick them by itself); timed at 0All's batch-4 shape and at FT's
-    # beside the plain versions and SDPA.  Bound at fp32: the products
-    # fp32-grade on the tensor cores (three TF32 `mma` a product, the fused
-    # MLP's bound), which is below the CUDA cores' (printed beside it); at
-    # bf16 as the other attention kernels'.
-    def time_stream(q, k, v, do, o, heads):
-        """For "fwd" and "bwd": (kernel ms, plain ms, SDPA ms, bound, the
-        CUDA cores' fp32 bound ms)."""
-        b, sq, d = q.shape
-        dh = d // heads
-        scale = 1.0 / math.sqrt(dh)
-        qh, kh, vh = (t.view(b, -1, heads, dh).transpose(1, 2).requires_grad_() for t in (q, k, v))
-        o_lib = sdpa(qh, kh, vh, scale=scale)
-        do_h = do.view(b, sq, heads, dh).transpose(1, 2)
-        products = 2 * b * heads * sq * k.shape[1] * dh
-        fp32 = q.dtype == torch.float32
-        peak = TF32_FLOPS / 3 if fp32 else BF16_FLOPS
-        fwd_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        bwd_bytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
-        timed = {
-            "fwd": (cuda_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale), runs=3),
-                    cuda_ms(lambda: attention.attention_plain(q, k, v, heads, scale), runs=3),
-                    cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(), scale=scale), runs=3),
-                    bound(fwd_bytes, 2 * products, peak), bound(fwd_bytes, 2 * products)[0]),
-            "bwd": (cuda_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale), runs=3),
-                    cuda_ms(lambda: attention.attention_bwd_plain(q, k, v, o, do, heads, scale), runs=3),
-                    cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), do_h, retain_graph=True),
-                            runs=3),
-                    bound(bwd_bytes, 5 * products, peak), bound(bwd_bytes, 5 * products)[0]),
-        }
-        for side, (k_ms, _, _, bnd, _) in timed.items():
-            if bnd[0] > k_ms:
-                raise AssertionError(f"streaming attention {side} at {tuple(q.shape)} x {k.shape[1]} keys "
-                                     f"{q.dtype}: {k_ms} ms is under its bound of {bnd[0]} ms: a wrong count")
-        return timed
-
-    stream_extra = {"attention_fwd_stream": {}, "attention_bwd_stream": {}}  # times at each timed shape
+    # the streaming kernels (kernels 4s and 5s, for the 0All and FT branches'
+    # 13261 keys, past the general kernels' shared memory) at every shape
+    # path 7 gives them, fp32 and bf16: check_attention's rules (the library
+    # must pick them by itself), the plan printed (0All's keys split across
+    # more than one block), the same bits (two forward runs; the backward
+    # with and without the forward's statistics), and timed beside the
+    # plain versions and SDPA with the exp floor; with --parent, beside that
+    # checkout's streaming kernels in turns (parent, this, this, parent)
+    # after they are held to the same bounds.  The kernels line carries FT's.
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = max_sm_clock_mhz()
+    parent_fwd, parent_bwd = (parent_stream and parent_stream.result()) or (None, None)
+    stream_extra = {"attention_fwd_stream": {}, "attention_bwd_stream": {}}  # times at each shape
+    exp_floors = {}  # the FT fp32 exp floor of each, beside its bound in the kernels line
     for name in stream_extra:
         err[name] = 0.0
         bf16[name] = {"max_abs_err": 0.0}
@@ -1833,23 +2014,45 @@ def main() -> int:
             for name, e in (("attention_fwd_stream", fwd_err), ("attention_bwd_stream", bwd_err)):
                 into, at = (err, name) if dtype == torch.float32 else (bf16[name], "max_abs_err")
                 into[at] = max(into[at], e)
-            if tag in STREAM_TIMED:
-                timed = time_stream(q, k, v, do, o, ATTN_HEADS)
-                for name, side in (("attention_fwd_stream", "fwd"), ("attention_bwd_stream", "bwd")):
-                    k_ms, p_ms, lib_ms, bnd, core_ms = timed[side]
-                    stream_extra[name][f"{tag} {str(dtype)[6:]}"] = {
-                        "q": [b, sq, d], "skv": skv, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                        "bound_ms": bnd[0], "bound_by": bnd[1], "cuda_core_bound_ms": core_ms}
-                    if tag == STREAM_TIMED[-1]:  # the kernels line: FT's
-                        if dtype == torch.float32:
-                            ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side][:4]
-                        else:
-                            bf16[name].update(zip(("ms", "plain_ms", "library_ms", "bound"), timed[side][:4]))
-                    print(f"streaming attention {'forward' if side == 'fwd' else 'backward'} {tag} "
-                          f"q {[b, sq, d]} x {skv} keys, {ATTN_HEADS} heads, {str(dtype)[6:]} ({card}): "
-                          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA{'' if side == 'fwd' else ' backward'} "
-                          f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; the CUDA cores' fp32 rate "
-                          f"{core_ms:.4f} ms), share {bnd[0] / k_ms:.1%}")
+            check_stream_bits(attention, q, k, v, do, ATTN_HEADS)
+            dh = d // ATTN_HEADS
+            plan = attention.stream_plan(b, ATTN_HEADS, sq, skv, dh, dtype, n_sm)
+            if tag.startswith("0All") and plan.splits < 2:
+                raise AssertionError(f"{tag}: the keys are not split across blocks: {plan}")
+            plan_fig = {f: getattr(plan, f) for f in ("warps", "q_tiles", "splits", "per_split", "grid",
+                                                      "keys_grid", "combine_grid", "fwd_smem",
+                                                      "rows_smem", "keys_smem")}
+            timed = time_stream(attention, q, k, v, do, ATTN_HEADS, n_sm, mhz)
+            turns = None
+            if parent_fwd is not None:
+                turns = parent_turns(attention, parent_fwd, parent_bwd, q, k, v, do, ATTN_HEADS)
+            for name, side in (("attention_fwd_stream", "fwd"), ("attention_bwd_stream", "bwd")):
+                k_ms, p_ms, lib_ms, bnd, core_ms, floor, dev_ms = timed[side]
+                stream_extra[name][f"{tag} {str(dtype)[6:]}"] = {
+                    "q": [b, sq, d], "skv": skv, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+                    "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "cuda_core_bound_ms": core_ms, "exp_floor_ms": floor, "plan": plan_fig,
+                    **({"turns": turns[side]} if turns else {})}
+                if tag == "FT":  # the kernels line
+                    plans[name] = {**(plans[name] or {}), str(dtype)[6:]: plan_fig}
+                    if dtype == torch.float32:
+                        ms[name], plain_ms[name], library_ms[name], bounds[name] = timed[side][:4]
+                        device_ms[name], exp_floors[name] = dev_ms, floor
+                    else:
+                        bf16[name].update(zip(("ms", "plain_ms", "library_ms", "bound", "device_ms",
+                                               "exp_floor_ms"), (k_ms, p_ms, lib_ms, bnd, dev_ms, floor)))
+                print(f"streaming attention {'forward' if side == 'fwd' else 'backward'} {tag} "
+                      f"q {[b, sq, d]} x {skv} keys, {ATTN_HEADS} heads, {str(dtype)[6:]} ({card}): "
+                      f"kernel {k_ms:.4f} ms (device {dev_ms:.4f} ms a call over {DEVICE_LAUNCHES} queued "
+                      f"calls), plain {p_ms:.4f} ms, "
+                      f"SDPA{'' if side == 'fwd' else ' backward'} "
+                      f"{lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; the CUDA cores' fp32 rate "
+                      f"{core_ms:.4f} ms), share {bnd[0] / k_ms:.1%}; exp floor {floor:.4f} ms "
+                      f"({n_sm} SMs x {SFU_EXPS_A_CLOCK} a clock at {mhz:.0f} MHz), share of the "
+                      f"larger {max(bnd[0], floor) / k_ms:.1%}"
+                      + (f"; in turns parent {turns[side]['parent']} ms, this {turns[side]['this']} ms"
+                         if turns else ""))
+            print(f"streaming plan {tag} {str(dtype)[6:]}: {plan_fig}")
             del q, k, v, do, o
             torch.cuda.empty_cache()
     print(f"streaming attention vs plain at {dict(STREAM_SHAPES)} ({ATTN_HEADS} heads): fp32 max |diff| "
@@ -1857,7 +2060,9 @@ def main() -> int:
           f"{err['attention_bwd_stream']:.3g} (dq, dk, dv, allowed {BWD_ATOL}); bf16 "
           f"{bf16['attention_fwd_stream']['max_abs_err']:.3g} and "
           f"{bf16['attention_bwd_stream']['max_abs_err']:.3g} (one bf16 spacing of each output's "
-          f"largest value); the backward's two runs equal bit for bit")
+          f"largest value); the backward's two runs equal bit for bit, two forward runs equal, the "
+          f"backward with and without the forward's statistics equal"
+          + ("; the parent's streaming kernels within the same bounds" if parent_fwd else ""))
 
     # fused MLP, fp32 and bf16: the segment's and the training batch's shapes
     # and a ragged one (D = 128, last row tile part full), each with row-major
@@ -2316,36 +2521,14 @@ def main() -> int:
           f"one segment; k_max {WALK_GLOBAL_K}); the next starts equal the host walk's; plans: "
           f"{walk_plans}")
 
-    def walk_line(label, lone, device, back):
-        return (f"{label}: lone launch {lone:.4f} ms, device {device:.4f} ms a call (profiler, "
-                f"{DEVICE_LAUNCHES} calls), {back:.4f} ms a call back to back, {device * 1e6 / longest:.0f} "
-                f"ns a chain step, bound {bounds['decode_walk'][0]:.5f} ms ({walk_bytes} bytes), share "
-                f"{bounds['decode_walk'][0] / device:.2%}")
-
-    print(f"decode_walk [{n_g},{t - 1},90] ({card}): "
-          + walk_line("this kernel", ms["decode_walk"], device_ms["decode_walk"], back_to_back)
-          + f"; plain on the card {plain_ms['decode_walk']:.1f} ms, on the CPU "
-          f"{walk_extras['plain_cpu_ms']:.1f} ms, host walk {walk_extras['host_walk_ms']:.1f} ms; "
-          f"{int(visits.sum())} visited positions, longest chain {longest}")
-    if parent is not None:
-        # the parent checkout's kernel on the same tables, in turns: parent,
-        # this, this, parent
-        with tempfile.TemporaryDirectory() as tmp:
-            _, parent_call = parent_walk(
-                os.path.join(parent, "transkun_tpu_torch", "csrc", "decode_walk.cu"), tmp, dev)
-            for g_out, p_out in zip(out, parent_call(*walk_args)):
-                if not torch.equal(g_out, p_out):
-                    raise AssertionError("the parent's walk kernel differs from this one on the real tables")
-            times = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
-                fn = (lambda: parent_call(*walk_args)) if who == "parent" else \
-                    (lambda: walk.walk_group_cuda(*walk_args))
-                times[who].append((cuda_ms(fn), profiled_ms(fn), cuda_ms(fn, launches=DEVICE_LAUNCHES)))
-        walk_extras["turns"] = times
-        for who, label in (("parent", "parent kernel (before)"), ("this", "this kernel (after)")):
-            lone, device, back = (float(np.median([x[i] for x in times[who]])) for i in range(3))
-            print(f"decode_walk [{n_g},{t - 1},90] in turns ({card}): " + walk_line(label, lone, device, back)
-                  + f"; runs (lone, device, back to back) {[tuple(round(v, 4) for v in x) for x in times[who]]}")
+    walk_ms = device_ms["decode_walk"]
+    print(f"decode_walk [{n_g},{t - 1},90] ({card}): this kernel: lone launch {ms['decode_walk']:.4f} ms, "
+          f"device {walk_ms:.4f} ms a call (profiler, {DEVICE_LAUNCHES} calls), {back_to_back:.4f} ms a "
+          f"call back to back, {walk_ms * 1e6 / longest:.0f} ns a chain step, bound "
+          f"{bounds['decode_walk'][0]:.5f} ms ({walk_bytes} bytes), share "
+          f"{bounds['decode_walk'][0] / walk_ms:.2%}; plain on the card {plain_ms['decode_walk']:.1f} ms, "
+          f"on the CPU {walk_extras['plain_cpu_ms']:.1f} ms, host walk {walk_extras['host_walk_ms']:.1f} "
+          f"ms; {int(visits.sum())} visited positions, longest chain {longest}")
 
     # one segment's real scores: kernel table == plain table
     padded = np.pad(audio.T, ((0, 0), (pad, pad + seg_size)))
@@ -2806,7 +2989,8 @@ def main() -> int:
         e = bf16[name]
         return {"max_abs_err": e["max_abs_err"], "ms": e["ms"], "device_ms": e.get("device_ms"),
                 "plain_ms": e["plain_ms"], "bound_ms": e["bound"][0], "bound_by": e["bound"][1],
-                "library_ms": e.get("library_ms")}
+                "library_ms": e.get("library_ms"),
+                **({"exp_floor_ms": e["exp_floor_ms"]} if "exp_floor_ms" in e else {})}
 
     for name in KERNELS:
         if sum(by_path[path][name] for path in by_path) == 0:
@@ -2831,7 +3015,8 @@ def main() -> int:
         "bf16": bf16_entry(name),
         "v1": v1_times.get(name),
         **({"chain": walk_extras} if name == "decode_walk" else {}),
-        **({"timed": stream_extra[name]} if name in stream_extra else {}),
+        **({"exp_floor_ms": exp_floors[name], "timed": stream_extra[name]}
+           if name in stream_extra else {}),
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,6 +2,7 @@
 """Check and time the port's two attention kernels on one CUDA card.
 
     python3 scripts/profile_torch_attention.py [--runs 5] [--launches 1] [--no-times] [--only-variants]
+    python3 scripts/profile_torch_attention.py --stream [--parent DIR] [--blocks-an-sm 1,2,3]
 
 Builds ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` (printing what
 ``-Xptxas -v`` says about the flagship instances: registers, spills), then for
@@ -27,6 +28,14 @@ fp32 and bf16 inputs:
   ``[356, 200]``, ``[356, 320]`` (the F attention with ``downsampleF=False``,
   4 segments) and ``[89, 700]`` (forward only), 8 heads of 32.
   ``--only-variants`` times only these.
+
+``--stream`` checks and times only the streaming kernels, at the shapes
+path 7 of ``chip_smoke.py`` gives them (``STREAM_SHAPES``), with that
+script's functions; ``--parent DIR`` adds a checkout whose streaming kernels
+are the first version, in turns; ``--blocks-an-sm`` times the plan with
+other targets of blocks an SM (``ops.attention.STREAM_BLOCKS_AN_SM``, which
+sets how many splits the keys take) beside the default's (device time by
+launch, ``torch.profiler``).
 
 Prints the card's name and power limit first; exits 1 without a CUDA device.
 """
@@ -82,6 +91,13 @@ def main() -> int:
     ap.add_argument("--launches", type=int, default=1)
     ap.add_argument("--no-times", action="store_true")
     ap.add_argument("--only-variants", action="store_true")
+    ap.add_argument("--stream", action="store_true",
+                    help="only the streaming kernels at chip_smoke.py's STREAM_SHAPES")
+    ap.add_argument("--parent", help="with --stream: a checkout whose streaming kernels are the "
+                                     "first version, timed beside these in turns")
+    ap.add_argument("--blocks-an-sm", help="with --stream: values of STREAM_BLOCKS_AN_SM to plan "
+                                           "with, comma-separated, each timed by device time beside "
+                                           "the default's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -103,6 +119,8 @@ def main() -> int:
                 print("  " + line.split("'")[1], "|", " ".join(lines[i + 2 : i + 4]).strip())
 
     rng = np.random.default_rng(0)
+    if args.stream:
+        return stream(args, card, dev, rng)
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, skv, heads, dh in SHAPES:
             d = heads * dh
@@ -156,7 +174,7 @@ def main() -> int:
                 for variant in ("general", "stream"):
                     smem = getattr(attention._library("attention_" + direction),
                                    f"attention_{direction}_smem_bytes")(sq, skv, dh, attention.VARIANTS[variant])
-                    if smem <= _build.SMEM_LIMIT:  # the general kernels' k and v fit
+                    if variant == "stream" or smem <= _build.SMEM_LIMIT:  # the general kernels' k and v fit
                         ms[f"{direction} {variant}"] = timed(lambda: call(variant))
             print(f"{str(dtype)[6:]} [{b},{sq},{d}] x {skv} keys, {heads} heads ({card}), library "
                   f"picks {picked}, {args.launches} launches a run, ms: "
@@ -190,6 +208,84 @@ def main() -> int:
             }
             print(f"{str(dtype)[6:]} [{b},{sq},{d}] {heads} heads ({card}), {args.launches} launches a run, ms: "
                   + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()))
+    return 0
+
+
+def kernel_ms(fn, calls=5):
+    """Device milliseconds a call of ``fn`` spends in each kernel it
+    launches (``torch.profiler``), by the kernel's name with its
+    templates' namespace cut away."""
+    import re
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^.*?(attention_\w+?)(<|\(|$).*", r"\1", e.key)
+            out[name] = round(out.get(name, 0.0) + e.self_device_time_total / calls / 1e3, 4)
+    return out
+
+
+def stream(args, card, dev, rng) -> int:
+    """The streaming kernels at ``chip_smoke.STREAM_SHAPES``, fp32 and bf16:
+    ``chip_smoke.check_attention`` and ``check_stream_bits``, the plan, and
+    ``chip_smoke.time_stream`` (kernel, plain, SDPA, bound, exp floor); with
+    ``--parent``, ``chip_smoke.parent_turns`` beside that checkout's."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from transkun_tpu_torch.ops import attention
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = chip_smoke.max_sm_clock_mhz()
+    heads = chip_smoke.ATTN_HEADS
+    with tempfile.TemporaryDirectory() as tmp:
+        parent = chip_smoke.parent_attention(args.parent, tmp, dev) if args.parent else None
+        for dtype in (torch.float32, torch.bfloat16):
+            for tag, ((b, sq, d), skv) in chip_smoke.STREAM_SHAPES.items():
+                q, k, v, do = chip_smoke.attention_inputs(rng, b, sq, skv, d, dev, dtype)
+                fwd_err, bwd_err, _ = chip_smoke.check_attention(attention, q, k, v, do, heads, "stream")
+                chip_smoke.check_stream_bits(attention, q, k, v, do, heads)
+                plan = attention.stream_plan(b, heads, sq, skv, d // heads, dtype, n_sm)
+                timed = chip_smoke.time_stream(attention, q, k, v, do, heads, n_sm, mhz, runs=args.runs)
+                turns = parent and chip_smoke.parent_turns(attention, *parent, q, k, v, do, heads)
+                print(f"{tag} {str(dtype)[6:]} ({card}): max |diff| forward {fwd_err:.3g}, backward "
+                      f"{bwd_err:.3g}; plan {plan}")
+                scale = 1.0 / math.sqrt(d // heads)
+                o, stats = attention.attention_fwd_cuda(q, k, v, heads, scale, with_stats=True)
+                launches = {
+                    "fwd": kernel_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
+                    "bwd": kernel_ms(lambda: attention.attention_bwd_cuda(q, k, v, o, do, heads, scale,
+                                                                          stats=stats))}
+                for side, (k_ms, p_ms, lib_ms, bnd, _, floor, dev_ms) in timed.items():
+                    print(f"  {side}: kernel {k_ms:.4f} ms (device {dev_ms:.4f}, queued), plain "
+                          f"{p_ms:.4f}, SDPA {lib_ms:.4f}, bound {bnd[0]:.4f} ({bnd[1]}), exp floor "
+                          f"{floor:.4f}; device ms by launch {launches[side]}"
+                          + (f"; in turns parent {turns[side]['parent']}, this {turns[side]['this']}"
+                             if turns else ""))
+                default = attention.STREAM_BLOCKS_AN_SM
+                for blocks in ([int(x) for x in args.blocks_an_sm.split(",")] if args.blocks_an_sm else []):
+                    attention.STREAM_BLOCKS_AN_SM = blocks
+                    attention.stream_plan.cache_clear()
+                    splits = attention.stream_plan(b, heads, sq, skv, d // heads, dtype, n_sm).splits
+                    other = {
+                        "fwd": kernel_ms(lambda: attention.attention_fwd_cuda(q, k, v, heads, scale)),
+                        "bwd": kernel_ms(lambda: attention.attention_bwd_cuda(
+                            q, k, v, o, do, heads, scale, stats=stats))}
+                    print(f"  {blocks} blocks an SM ({splits} splits): device ms by launch {other}")
+                attention.STREAM_BLOCKS_AN_SM = default
+                attention.stream_plan.cache_clear()
+                del o, stats, q, k, v, do
+                torch.cuda.empty_cache()
     return 0
 
 

@@ -27,7 +27,7 @@ flagship V2 configuration with the same seeded weights: 4 segments, t =
 * with ``--parent DIR`` (a checkout of an earlier commit whose kernel is
   the first version: one thread a track, the tables read from global
   memory), that kernel built with ``clock64`` marks patched into a copy of
-  its source and launched through ``chip_smoke.parent_walk``: the cycles a
+  its source and launched through ``parent_walk``: the cycles a
   warp spends walking, its chain steps, and the cycles from issuing a
   step's ptr and diag loads to their first use.
 
@@ -49,7 +49,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-import chip_smoke  # noqa: E402  (the path 1 inputs, the profiler's time, the parent's binding)
+import chip_smoke  # noqa: E402  (the path 1 inputs, the profiler's time)
 LAUNCHES = 20
 TILES = (1, 2, 4, 8, 16, 32)
 PHASE_TILES = (1, 2, 4, 8)
@@ -101,6 +101,41 @@ def nvcc(source, out, defines=()):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}{proc.stderr}")
     return ctypes.CDLL(out)
+
+
+def parent_walk(source, tmp, dev):
+    """The first version of the walk kernel (one thread a track; its C
+    interface takes no plan and its wrapper zero-fills begins and ends),
+    from ``source`` (another checkout's ``csrc/decode_walk.cu``), built into
+    ``tmp``; returns the library and a function with ``walk_group_cuda``'s
+    first arguments that does what that wrapper did.  Raises for a later
+    version, whose C interface differs."""
+    import torch
+
+    lib = nvcc(source, os.path.join(tmp, "libdecode_walk_parent.so"))
+    if hasattr(lib, "decode_walk_smem_bytes"):
+        raise RuntimeError(f"{source} is not the walk kernel's first version: its C interface takes a "
+                           f"launch plan")
+    lib.decode_walk.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.decode_walk.restype = ctypes.c_int
+
+    def call(ptr, diag, bpres, start, k_max, last_frame_idx, step_frames, onset_bound=-1):
+        n, t, p = diag.shape
+        begins = torch.zeros(n, p, k_max, dtype=torch.int32, device=dev)
+        ends = torch.zeros_like(begins)
+        count = torch.empty(n, p, dtype=torch.int32, device=dev)
+        overflow = torch.empty(n, p, dtype=torch.bool, device=dev)
+        start_out = torch.empty(p, dtype=torch.int32, device=dev)
+        err = lib.decode_walk(
+            ptr.data_ptr(), diag.data_ptr(), bpres.data_ptr(), start.data_ptr(), begins.data_ptr(),
+            ends.data_ptr(), count.data_ptr(), overflow.data_ptr(), start_out.data_ptr(), n, t, p,
+            bpres.shape[-1], k_max, last_frame_idx, step_frames, onset_bound, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's decode_walk launch failed ({err})")
+        return begins, ends, count, overflow, start_out
+
+    return lib, call
 
 
 def real_tables(dev):
@@ -280,11 +315,11 @@ def main() -> int:
             path = os.path.join(tmp, "decode_walk_parent.cu")
             with open(path, "w") as f:
                 f.write(text)
-            plib, parent_walk = chip_smoke.parent_walk(path, tmp, dev)
+            plib, parent_launch = parent_walk(path, tmp, dev)
             plib.study_read.argtypes = [ctypes.c_void_p]
 
             def parent_call():
-                return parent_walk(*args, *geometry)
+                return parent_launch(*args, *geometry)
 
             ok = all(torch.equal(g.cpu(), w) for g, w in zip(parent_call(), want))
             ms = device_ms(parent_call, opts.runs)[0]

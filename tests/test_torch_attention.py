@@ -5,7 +5,10 @@ runs it, at its shapes and tolerances: forward atol 2e-6, gradients atol
 ``BasicBlock`` and the backbone ctx with both flags set against the flax
 modules with their flags set, on the same weights (atol and rtol 1e-4, as
 the default route's tests), and one tiny training step of the port, fused
-against default."""
+against default.  Also the streaming kernels' launch plan (``stream_plan``:
+the key splits, grids, shared memory and scratch sizes) and the route that
+runs past 160 keys, where the card hands the forward's row statistics to
+the backward."""
 
 import jax
 import jax.numpy as jnp
@@ -216,6 +219,109 @@ def test_training_step_fused_matches_default(models, fused_flags, monkeypatch):
     for name, g in grads_d.items():
         bound = 1e-4 * max(float(g.abs().max()), 1e-12)
         assert float((grads_f[name] - g).abs().max()) <= bound, name
+
+
+# -- the streaming kernels' plan and the forward's statistics ------------------
+
+STREAM_PLAN_SHAPES = [  # b, heads, sq, skv, head_dim
+    (1, 8, 89, 13261, 32),  # 0All in transcription
+    (4, 8, 89, 13261, 32),  # 0All at --batchSize 4
+    (1, 8, 13261, 13261, 32),  # FT
+    (2, 8, 89, 321, 32),
+    (5, 3, 37, 61, 8),
+    (1, 1, 5, 200, 32),
+    (2, 2, 150, 700, 64),
+    (3, 4, 1, 1000, 16),
+]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,sq,skv,dh", STREAM_PLAN_SHAPES)
+def test_stream_plan_splits_cover_every_key_tile_once(b, heads, sq, skv, dh, dtype):
+    """The splits are contiguous runs of key tiles that cover each tile
+    once, none empty; the query tiles cover every row; the grids count the
+    blocks; every block's shared memory is within a Hopper block's."""
+    from transkun_tpu_torch.ops import _build
+
+    plan = ta.stream_plan(b, heads, sq, skv, dh, dtype, H100_SMS)
+    ranges = plan.split_ranges()
+    assert plan.key_tiles == -(-skv // ta.STREAM_KEYS)
+    assert len(ranges) == plan.splits and all(first < end for first, end in ranges)
+    assert [t for first, end in ranges for t in range(first, end)] == list(range(plan.key_tiles))
+    assert 1 <= plan.warps <= ta.STREAM_MAX_WARPS
+    assert plan.q_tiles * plan.warps * 16 >= sq > (plan.q_tiles - 1) * plan.warps * 16
+    assert plan.grid == b * heads * plan.q_tiles * plan.splits
+    assert plan.keys_grid == b * heads * plan.key_tiles
+    assert max(plan.fwd_smem, plan.rows_smem, plan.keys_smem) <= _build.SMEM_LIMIT
+
+
+def test_stream_plan_splits_the_keys_where_the_grid_is_short():
+    """FT's 1664 blocks take one split; 0All's 8 or 32 (b, h) pairs of one
+    query tile of 6 warps (89 rows, no warp idle) split the keys into more
+    blocks than SMs, at most two an SM; a short run of keys takes no more
+    splits than it has key tiles, and a grid that fills the card on its own
+    takes one."""
+    for dtype in (torch.float32, torch.bfloat16):
+        ft = ta.stream_plan(1, 8, 13261, 13261, 32, dtype, H100_SMS)
+        assert (ft.splits, ft.q_tiles, ft.warps, ft.grid, ft.combine_grid) == (1, 208, 4, 1664, 0)
+        for batch in (1, 4):
+            zero_all = ta.stream_plan(batch, 8, 89, 13261, 32, dtype, H100_SMS)
+            assert (zero_all.q_tiles, zero_all.warps) == (1, 6)
+            assert zero_all.splits > 1 and zero_all.grid <= 2 * ta.STREAM_BLOCKS_AN_SM * H100_SMS
+            assert zero_all.grid > H100_SMS
+    assert ta.stream_plan(1, 1, 5, 200, 32, torch.float32, H100_SMS).splits == 4
+    assert ta.stream_plan(1, 8, 89, 13261, 32, torch.float32, 4).splits == 1
+    assert ta.stream_plan(2, 8, 700, 700, 32, torch.float32, H100_SMS).splits == 1
+    assert ta.stream_plan(1, 8, 300, 1000, 32, torch.float32, H100_SMS).splits == 6
+
+
+@pytest.mark.parametrize("b,heads,sq,skv,dh", STREAM_PLAN_SHAPES)
+def test_stream_buffers_hold_what_the_kernels_index(b, heads, sq, skv, dh):
+    """The wrapper's buffers (``stream_buffers``) have the plan's sizes,
+    which are the layouts the kernels index: statistics [2, B*H, Sq]; with
+    splits, partial outputs [splits, B*H, Sq, dh] and their max and sum
+    [2, splits, B*H, Sq]; the backward's delta [B*H, Sq] and dq's partials
+    [splits, B*H, Sq, dh]."""
+    plan = ta.stream_plan(b, heads, sq, skv, dh, torch.bfloat16, H100_SMS)
+    plane = b * heads * sq
+    stats, scratch = ta.stream_buffers(plan, "cpu", "fwd")
+    bwd = ta.stream_buffers(plan, "cpu", "bwd")
+    assert stats.dtype == bwd.dtype == torch.float32
+    assert stats.numel() == plan.stats == 2 * plane
+    split = plan.splits > 1
+    assert (scratch.numel() if split else scratch) == (plan.splits * plane * dh + 2 * plan.splits * plane
+                                                       if split else None)
+    assert bwd.numel() == plan.bwd_scratch == plane + (plan.splits * plane * dh if split else 0)
+
+
+def test_fused_attention_past_the_mma_keys_matches_jax_kernel(rng):
+    """Past 160 keys, where the card runs the streaming kernels, the CPU
+    route's gradients still equal the JAX backward kernel's in interpret
+    mode (atol 1e-5); and the row statistics that the streaming forward
+    hands the backward (``attention_stats_plain``: the max in log2 units and
+    1 / sum) rebuild the plain forward's softmax, so that o from them is
+    ``attention_plain``'s within 1e-6."""
+    b, sq, skv, h, dh = 2, 9, 200, 2, 8
+    q, k, v = _qkv(rng, b, sq, skv, h * dh)
+    scale = 1.0 / np.sqrt(dh)
+    co = rng.normal(size=(b, sq, h * dh)).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(ap.fused_attention(q, k, v, h, scale) * co), argnums=(0, 1, 2)
+    )(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = _t((q, k, v), grad=True)
+    (ta.fused_attention(tq, tk, tv, h, scale) * torch.from_numpy(co)).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5)
+    tq, tk, tv = _t((q, k, v))
+    stats = ta.attention_stats_plain(tq, tk, h, scale)
+    assert stats.shape == (2, b * h, sq) and stats.dtype == torch.float32
+    m, inv = stats.reshape(2, b, h, sq, 1)
+    logits = torch.matmul(ta._heads(tq, h) * scale, ta._heads(tk, h).transpose(-1, -2))
+    torch.testing.assert_close(m, logits.amax(dim=-1, keepdim=True) * ta.LOG2E, atol=1e-6, rtol=0)
+    p = torch.exp2(logits * ta.LOG2E - m) * inv
+    o = ta._flat(torch.matmul(p, ta._heads(tv, h)))
+    torch.testing.assert_close(o, ta.attention_plain(tq, tk, tv, h, scale), atol=1e-6, rtol=0)
 
 
 # -- bf16 inputs ---------------------------------------------------------------

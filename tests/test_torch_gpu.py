@@ -3,7 +3,10 @@ the Viterbi kernel also on tie-heavy inputs, and the Viterbi, alpha and beta
 kernels at every cluster size and at the cluster edges (one lane group; more
 lane groups than SMs; a ragged Tp), and on the V1 model's routes (unpadded
 scores, a learned noise) at its shapes and tails; the walk kernel (the
-decode's stitching chain) against ``walk_group_plain``, as integers.
+decode's stitching chain) against ``walk_group_plain``, as integers; the
+attention kernels, the streaming ones also at the edges of their tiles,
+key splits and head dims, run twice and with handed and fetched row
+statistics for the same bits.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -519,10 +522,11 @@ ATTN_STREAM_SHAPES = [  # b, sq, skv, heads, head_dim
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,skv,h,dh", ATTN_STREAM_SHAPES)
 def test_attention_stream_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
-    """The streaming kernels (``variant="stream"``) against the plain
-    versions, within the bounds of ``test_attention_kernels_equal_plain``;
-    the library picks them by itself past the tensor-core kernels' 160 keys,
-    and each call counts one launch of the variant."""
+    """The streaming kernels (``variant="stream"``, the backward handed the
+    forward's row statistics) against the plain versions, within the bounds
+    of ``test_attention_kernels_equal_plain``; the library picks them by
+    itself past the tensor-core kernels' 160 keys, and each call counts one
+    launch of the variant."""
     from transkun_tpu_torch.ops import attention
 
     q, k, v, do = _attn_inputs(np.random.default_rng(skv), b, sq, skv, h * dh, cuda, dtype)
@@ -531,8 +535,8 @@ def test_attention_stream_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
         for name in ("attention_fwd", "attention_bwd"):
             assert attention.kernel_variant(name, sq, skv, dh) == "stream"
     f0, b0 = attention.fwd_launches_by_variant["stream"], attention.bwd_launches_by_variant["stream"]
-    o = attention.attention_fwd_cuda(q, k, v, h, scale, variant="stream")
-    grads = attention.attention_bwd_cuda(q, k, v, o, do, h, scale, variant="stream")
+    o, stats = attention.attention_fwd_cuda(q, k, v, h, scale, variant="stream", with_stats=True)
+    grads = attention.attention_bwd_cuda(q, k, v, o, do, h, scale, variant="stream", stats=stats)
     torch.cuda.synchronize()
     assert (attention.fwd_launches_by_variant["stream"],
             attention.bwd_launches_by_variant["stream"]) == (f0 + 1, b0 + 1)
@@ -542,6 +546,123 @@ def test_attention_stream_kernels_equal_plain(cuda, b, sq, skv, h, dh, dtype):
         assert got.dtype == dtype and bool(torch.isfinite(got).all())
         allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
         assert float((got.float() - ref.float()).abs().max()) <= allowed
+
+
+ATTN_STREAM_EDGES = [  # b, sq, skv, heads, head_dim: the plan's splits on the card
+    (3, 37, 45, 2, 16),  # fewer keys than a tile
+    (2, 89, 64 * 5 + 1, 8, 32),  # one key in the last tile, a split of its own
+    (1, 5, 200, 1, 32),  # more splits wanted than key tiles: one a tile
+    (3, 1, 1000, 4, 32),  # one query row
+    (1, 89, 13261, 8, 32),  # 0All in transcription: 89 rows, one tile of 6 warps
+    (2, 150, 700, 4, 16),  # head_dim 16, three query tiles
+    (2, 150, 700, 2, 64),  # head_dim 64
+    (1, 300, 1000, 8, 32),  # five query tiles, the keys in six splits of three tiles
+    (2, 700, 700, 8, 32),  # 176 blocks of (b, h, query tile): one split
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,dh", ATTN_STREAM_EDGES)
+def test_attention_stream_kernels_at_the_edges(cuda, b, sq, skv, h, dh, dtype):
+    """The streaming kernels at the edges of their tiles, splits and head
+    dims against the plain versions (the bounds of
+    ``test_attention_kernels_equal_plain``), and the forward's statistics
+    against ``attention_stats_plain``: the max within 1e-5 of max(1, |max|)
+    and 1 / sum within 1e-5 relative (fp32 sums in another order)."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(skv + sq), b, sq, skv, h * dh, cuda, dtype)
+    scale = 1.0 / np.sqrt(dh)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = attention.stream_plan(b, h, sq, skv, dh, dtype, n_sm)
+    assert [r for rng in plan.split_ranges() for r in range(*rng)] == list(range(plan.key_tiles))
+    if (b, sq, skv) == (1, 5, 200):
+        assert plan.splits == plan.key_tiles == 4
+    if (b, sq, skv) == (2, 700, 700):
+        assert plan.splits == 1
+    o, stats = attention.attention_fwd_cuda(q, k, v, h, scale, variant="stream", with_stats=True)
+    grads = attention.attention_bwd_cuda(q, k, v, o, do, h, scale, variant="stream", stats=stats)
+    torch.cuda.synchronize()
+    want = attention.attention_plain(q, k, v, h, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, o, do, h, scale)
+    for got, ref, atol in [(o, want, 2e-5)] + [(g, w, 1e-4) for g, w in zip(grads, want_grads)]:
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
+        assert float((got.float() - ref.float()).abs().max()) <= allowed
+    want_stats = attention.attention_stats_plain(q, k, h, scale)
+    assert stats.shape == want_stats.shape == (2, b * h, sq)
+    assert float(((stats[0] - want_stats[0]).abs() / want_stats[0].abs().clamp(min=1.0)).max()) <= 1e-5
+    assert float(((stats[1] - want_stats[1]).abs() / want_stats[1]).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv", [(2, 89, 3000), (2, 700, 700)])
+def test_attention_stream_kernels_give_the_same_bits(cuda, dtype, b, sq, skv):
+    """The splits are joined in a fixed order and nothing goes through
+    atomics: two forward runs give the same bits, and the backward gives the
+    same bits twice with the forward's statistics handed to it and once
+    without them (fetched by a launch of the forward kernel).  The first
+    shape's keys are split, the second's are not."""
+    from transkun_tpu_torch.ops import attention
+
+    q, k, v, do = _attn_inputs(np.random.default_rng(5), b, sq, skv, 256, cuda, dtype)
+    scale = 1.0 / np.sqrt(32)
+    o, stats = attention.attention_fwd_cuda(q, k, v, 8, scale, variant="stream", with_stats=True)
+    o2, stats2 = attention.attention_fwd_cuda(q, k, v, 8, scale, variant="stream", with_stats=True)
+    handed = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant="stream", stats=stats)
+    again = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant="stream", stats=stats)
+    fetched = attention.attention_bwd_cuda(q, k, v, o, do, 8, scale, variant="stream")
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(stats, stats2)
+    for a, c, e in zip(handed, again, fetched):
+        assert torch.equal(a, c) and torch.equal(a, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv", [(2, 89, 333), (2, 700, 333)])
+def test_attention_stream_kernels_at_very_negative_logits(cuda, b, sq, skv, dtype):
+    """Every logit -20 * sqrt(32) = -113 (q = 20, k = -1 everywhere), so each
+    row's max in log2 units is below -128 and 2^(-max) overflows: the keys
+    past Skv in the last, partial tile must still add nothing.  The softmax
+    is uniform, and the kernels' outputs are finite and within the bounds
+    of ``test_attention_kernels_equal_plain`` of the plain versions.  The
+    first shape splits the keys, the second does not."""
+    from transkun_tpu_torch.ops import attention
+
+    h, dh = 8, 32
+    _, _, v, do = _attn_inputs(np.random.default_rng(skv), b, sq, skv, h * dh, cuda, dtype)
+    q = torch.full((b, sq, h * dh), 20.0, device=cuda, dtype=dtype)
+    k = torch.full((b, skv, h * dh), -1.0, device=cuda, dtype=dtype)
+    scale = 1.0 / np.sqrt(dh)
+    o, stats = attention.attention_fwd_cuda(q, k, v, h, scale, variant="stream", with_stats=True)
+    grads = attention.attention_bwd_cuda(q, k, v, o, do, h, scale, variant="stream", stats=stats)
+    torch.cuda.synchronize()
+    assert float(stats[0].max()) < -128
+    want = attention.attention_plain(q, k, v, h, scale)
+    want_grads = attention.attention_bwd_plain(q, k, v, o, do, h, scale)
+    for got, ref, atol in [(o, want, 2e-5)] + [(g, w, 1e-4) for g, w in zip(grads, want_grads)]:
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        allowed = atol if dtype == torch.float32 else _bf16_spacing_at_max(ref)
+        assert float((got.float() - ref.float()).abs().max()) <= allowed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_plan_shared_memory_matches_the_libraries(cuda, dtype):
+    """The shared memory that ``stream_plan`` counts is what the kernels lay out."""
+    from transkun_tpu_torch.ops import attention
+
+    bf16 = int(dtype == torch.bfloat16)
+    fwd = attention._library("attention_fwd").attention_fwd_stream_smem_bytes
+    bwd = attention._library("attention_bwd").attention_bwd_stream_smem_bytes
+    for sq, dh in ((89, 32), (13261, 32), (5, 16), (300, 64), (1, 8), (100, 40)):
+        plan = attention.stream_plan(1, 8, sq, 1000, dh, dtype, 132)
+        assert fwd(plan.warps, dh, bf16) == plan.fwd_smem
+        assert bwd(plan.warps, dh, bf16, 0) == plan.rows_smem
+        assert bwd(plan.warps, dh, bf16, 1) == plan.keys_smem
 
 
 @pytest.mark.gpu

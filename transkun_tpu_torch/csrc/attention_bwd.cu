@@ -14,7 +14,8 @@
 // The inputs are float or bfloat16 and go to fp32 as they are loaded; p,
 // delta, dp, dl and every sum are fp32; dq, dk, dv are written in the input
 // type.  Nothing of size [Sq, Skv] reaches device memory or shared memory.
-// Accurate expf, no --use_fast_math.
+// Accurate expf (in the streaming kernels the SFU's 2^x, exp2_neg), no
+// --use_fast_math.
 //
 // What bounds it: by the count, operations (five products, 2.5 times the
 // forward's two: at [356, 149, 256], 8 heads, fp32, 20 GFLOP against 434 MB,
@@ -62,30 +63,33 @@
 // Key sequences too long for the general kernel's shared memory (the 0All
 // and FT branches: 13261 keys a segment at flagship width) go to the
 // streaming kernels, which take any Sq and Skv at head_dim <= 64 and keep
-// nothing of size [Sq, Skv] anywhere.  Two launches on the stream, no
-// atomics, so the same bits on every run:
-//   * Pass A (attention_bwd_stream_rows), a block per (b, h, tile of 64
-//     query rows), 4 warps of 16 rows with the q and do fragments in
-//     registers.  It streams the key tiles (64 keys, fp32 in shared memory)
-//     twice: first the logits alone for each row's max and sum (online, as
-//     the forward streaming kernel), then logits and dp = do v^T again for
-//     p, dl = p (dp - delta) and dq += dl k.  delta = rowsum(do o).  Each
-//     row's max, 1 / sum and delta go to a [3, B*H, Sq] fp32 scratch that
-//     the wrapper allocates.
-//   * Pass B (attention_bwd_stream_keys), a block per (b, h, tile of 64
-//     keys), 4 warps of 16 keys with the k and v fragments in registers,
-//     streams the query tiles (q, do and the rows' statistics in shared
-//     memory) and accumulates dk and dv as the mma kernel's pass B does.
-//   * Each streamed tile's products for dq (pass A) and for dk and dv (pass
-//     B) go into fresh accumulators, added to the running sums by the CUDA
-//     cores: the tensor cores' fp32 accumulation does not round to nearest
-//     (see attention_fwd.cu's streaming kernel).
-//   * Eight products for the five (the logits three times, dp twice).
-//     What bounds it: operations, as the forward; the same simple schedule
-//     (synchronous tile loads, 64 pass-A blocks at the 0All shape) is left
-//     for a redesign.
+// nothing of size [Sq, Skv] anywhere (building blocks in
+// attention_stream.cuh: the ring of `cp.async` tiles, bf16 `m16n8k16` with
+// the fp32 operand split high/low at bf16, TF32 x3 at fp32).  They take the
+// forward's row statistics (max of the logits in log2 units and 1 / sum,
+// [2, B*H, Sq]), so each pass sweeps the other side once: 2 exponentials
+// and 7 products an element across the two passes.  Two launches on the
+// stream, and a third with split keys; no atomics, so the same bits on
+// every run:
+//   * Pass A (attention_bwd_stream_rows), a block per (b, h, query tile,
+//     split of the keys) as the forward's plan: q and do fragments in
+//     registers, delta = rowsum(do o) from the block's rows, then a key tile
+//     at a time logits and dp = do v^T, p = 2^(logit - max) / sum, dl = p
+//     (dp - delta) and dq += dl k.  Split 0 writes each row's delta for
+//     pass B.  With split keys each block writes its part of dq in fp32 and
+//     attention_bwd_combine adds them in split order.
+//   * Pass B (attention_bwd_stream_keys), a block per (b, h, 64 keys), 16
+//     keys a warp with their k and v fragments in registers, streams the
+//     query tiles (q, do and their rows' max, 1 / sum and delta through the
+//     ring) and accumulates dk += dl^T q and dv += p^T do.
+//   * Each streamed tile's products go into fresh accumulators, added to the
+//     running sums by the CUDA cores (the tensor cores' fp32 accumulation
+//     does not round to nearest).
+//   * What bounds them: as the forward, the elementwise work around the
+//     exponentials at bf16 (pass B's is the larger: two splits and three
+//     statistics an element) and the TF32 products at fp32.
 
-#include "attention_mma.cuh"
+#include "attention_stream.cuh"
 
 namespace {
 
@@ -438,305 +442,275 @@ __global__ void __launch_bounds__(kGeneralWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
-// streaming kernels: any Sq and Skv, head_dim <= 64
+// streaming kernels: any Sq and Skv, head_dim <= 64 (building blocks in
+// attention_stream.cuh)
 // ---------------------------------------------------------------------------
 
-// four tiles of 64 rows (pass A: q, do, k, v; pass B: k, v, q, do) and
-// pass B's three statistics of 64 query rows
-__host__ __device__ constexpr size_t stream_smem_bytes(int dhp) {
-  return ((size_t)2 * (kStreamRows + kStreamKeys) * (dhp + kPitchPad) +
-          (size_t)3 * kStreamKeys) *
-         sizeof(float);
-}
-
-// Pass A: a block per (b, h, 64 query rows) -> the rows' statistics (to
-// `stats`: max of the scaled logits, 1 / sum exp, delta; each a plane of
-// [B*H, Sq]) and dq.
+// Pass A: a block per (b, h, tile of 16 * warps query rows, split of the key
+// tiles) -> dq, from the forward's row statistics (`stats` [2, B*H, Sq]:
+// max of the logits in log2 units, 1 / sum); split 0 writes each row's delta =
+// rowsum(do o) to `delta` [B*H, Sq] for pass B.  With one split it writes
+// dq; with more, its part of dq / scale to `dq_part` [splits, B*H, Sq, dh],
+// which attention_bwd_combine adds up.
 template <typename T, int KD>
-__global__ void __launch_bounds__(kStreamWarps * 32, 2)
+__global__ void __launch_bounds__(kStreamThreads<T>, KD <= 4 ? 2 : 1)
     attention_bwd_stream_rows(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ o,
                               const T* __restrict__ d_o, T* __restrict__ dq,
-                              float* __restrict__ stats, int sq, int skv, int heads,
-                              int dh, float scale, int vec) {
-  constexpr bool kExact = kExactInTf32<T>;
-  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                        // [kStreamRows][kPitch]
-  float* dos = qs + kStreamRows * kPitch;  // [kStreamRows][kPitch]
-  float* ks = dos + kStreamRows * kPitch;  // [kStreamKeys][kPitch]
-  float* vs = ks + kStreamKeys * kPitch;   // [kStreamKeys][kPitch]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                              const float* __restrict__ stats, float* __restrict__ delta,
+                              float* __restrict__ dq_part, int sq, int skv, int heads, int dh,
+                              float scale, int splits, int per_split, int vec) {
+  using G = StreamTile<T, KD>;
+  using M = StreamMath<T, KD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const float log2_scale = scale * kLog2e;  // the logits in log2 units, for 2^x
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int q_tiles = (sq + kStreamRows - 1) / kStreamRows;
-  const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * kStreamRows;
-  const int b = bh / heads, h = bh % heads;
-  const size_t plane = (size_t)(gridDim.x / q_tiles) * sq;
+  const int block_rows = warps * 16, q_tiles = (sq + block_rows - 1) / block_rows;
+  const int split = blockIdx.x % splits, qt = (blockIdx.x / splits) % q_tiles;
+  const int bh = blockIdx.x / (splits * q_tiles), b = bh / heads, h = bh % heads;
+  const int key_tiles = (skv + kStreamKeys - 1) / kStreamKeys;
+  const SplitRange range = split_range(split, per_split, key_tiles);
+  const int n = range.end - range.first;
   const size_t ld = (size_t)heads * dh;
-  const size_t q_at = ((size_t)b * sq + q0) * ld + h * dh;  // the block's row 0
-  const size_t k_at = (size_t)b * skv * ld + h * dh;
-  const int rows = min(kStreamRows, sq - q0);
-  const int r0 = warp * 16;  // the warp's rows in the block's tile
+  const int q0 = qt * block_rows, rows = min(block_rows, sq - q0);
+  const size_t q_at = ((size_t)b * sq + q0) * ld + h * dh;
+  const size_t k_at = ((size_t)b * skv + (size_t)range.first * kStreamKeys) * ld + h * dh;
+  const int r0 = warp * 16;
   const bool active = r0 < rows;
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [block_rows][kPitch]
+  T* dos = qs + block_rows * G::kPitch;    // [block_rows][kPitch]
+  T* ring = dos + block_rows * G::kPitch;  // kStages x (k tile, v tile)
 
-  load_tile(qs, q + q_at, rows, kStreamRows, dh, kDhp, kPitch, ld, vec);
-  load_tile(dos, d_o + q_at, rows, kStreamRows, dh, kDhp, kPitch, ld, vec);
-  __syncthreads();
-  AFrag qa[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    qa[kk] = a_from_tile<kExact>(qs + r0 * kPitch, kPitch, kk * 8, g, t);
+  auto keys_of = [&](int j) { return min(kStreamKeys, skv - (range.first + j) * kStreamKeys); };
+  auto load_kv = [&](int j) {
+    T* ks = ring + (j % G::kStages) * 2 * G::kTile;
+    const size_t at = k_at + (size_t)j * kStreamKeys * ld;
+    load_rows<T, KD>(ks, k + at, keys_of(j), kStreamKeys, ld, dh, vec);
+    load_rows<T, KD>(ks + G::kTile, v + at, keys_of(j), kStreamKeys, ld, dh, vec);
+  };
 
-  // sweep 1: each row's max and sum, online over the key tiles
-  const float neg_inf = __int_as_float(0xff800000);
-  float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
-  for (int kv0 = 0; kv0 < skv; kv0 += kStreamKeys) {
-    const int keys = min(kStreamKeys, skv - kv0);
-    __syncthreads();
-    load_tile(ks, k + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
-    __syncthreads();
-    if (!active) continue;
+  load_rows<T, KD>(qs, q + q_at, rows, block_rows, ld, dh, vec);
+  load_rows<T, KD>(dos, d_o + q_at, rows, block_rows, ld, dh, vec);
+  commit_copies();
 #pragma unroll
-    for (int j = 0; j < kStreamTiles; j += kGroup) {
-      if (j * 8 >= keys) break;
-      float s[kGroup][4];
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_rows_as_columns<kExact, kExact, kGroup>(s, qa[kk], ks + j * 8 * kPitch, kPitch,
-                                                    kk * 8, g, t);
-      float mt0 = neg_inf, mt1 = neg_inf;
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = (j + i) * 8 + 2 * t + (c & 1) < keys ? s[i][c] * scale : neg_inf;
-          if (c < 2) mt0 = fmaxf(mt0, s[i][c]);
-          else mt1 = fmaxf(mt1, s[i][c]);
-        }
-      // every group has a key, so the new max is finite
-      const float mn0 = fmaxf(m0, quad_max(mt0)), mn1 = fmaxf(m1, quad_max(mt1));
-      l0 *= expf(m0 - mn0);
-      l1 *= expf(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
-        l0 += expf(s[i][0] - m0) + expf(s[i][1] - m0);
-        l1 += expf(s[i][2] - m1) + expf(s[i][3] - m1);
-      }
-    }
+  for (int j = 0; j < G::kStages - 1; ++j) {
+    if (j < n) load_kv(j);
+    commit_copies();
   }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  wait_copies<G::kStages - 1>();
+  __syncthreads();
+  typename M::Frags qa, doa;
+  M::a_frags(qa, qs + r0 * G::kPitch, lane);
+  M::a_frags(doa, dos + r0 * G::kPitch, lane);
 
+  // rows r0+g (index 0) and r0+g+8 (index 1): the forward's statistics and delta
+  const size_t plane = (size_t)(gridDim.x / (splits * q_tiles)) * sq;
+  const size_t row_at = (size_t)bh * sq + q0 + r0 + g;
+  const bool row0 = active && r0 + g < rows, row1 = active && r0 + g + 8 < rows;
+  const float m0 = row0 ? stats[row_at] : 0.f, m1 = row1 ? stats[row_at + 8] : 0.f;
+  const float inv0 = row0 ? stats[plane + row_at] : 0.f;
+  const float inv1 = row1 ? stats[plane + row_at + 8] : 0.f;
   float delta0 = 0.f, delta1 = 0.f;
-  if (active) {
-    for (int d = t; d < dh; d += 4) {
-      if (r0 + g < rows)
-        delta0 = fmaf(dos[(r0 + g) * kPitch + d],
-                      as_float(o[q_at + (size_t)(r0 + g) * ld + d]), delta0);
-      if (r0 + g + 8 < rows)
-        delta1 = fmaf(dos[(r0 + g + 8) * kPitch + d],
-                      as_float(o[q_at + (size_t)(r0 + g + 8) * ld + d]), delta1);
-    }
+  for (int d = t; d < dh; d += 4) {
+    if (row0)
+      delta0 = fmaf(as_float(dos[(r0 + g) * G::kPitch + d]),
+                    as_float(o[q_at + (size_t)(r0 + g) * ld + d]), delta0);
+    if (row1)
+      delta1 = fmaf(as_float(dos[(r0 + g + 8) * G::kPitch + d]),
+                    as_float(o[q_at + (size_t)(r0 + g + 8) * ld + d]), delta1);
   }
   delta0 = quad_sum(delta0);
   delta1 = quad_sum(delta1);
-  if (active && t == 0) {
-    const size_t at = (size_t)bh * sq + q0 + r0 + g;
-    if (r0 + g < rows) {
-      stats[at] = m0;
-      stats[plane + at] = inv0;
-      stats[2 * plane + at] = delta0;
-    }
-    if (r0 + g + 8 < rows) {
-      stats[at + 8] = m1;
-      stats[plane + at + 8] = inv1;
-      stats[2 * plane + at + 8] = delta1;
-    }
+  if (split == 0 && t == 0) {
+    if (row0) delta[row_at] = delta0;
+    if (row1) delta[row_at + 8] = delta1;
   }
 
-  // sweep 2: p, dl and dq += dl k, a group of four key tiles at a time
-  AFrag doa[KD];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    doa[kk] = a_from_tile<kExact>(dos + r0 * kPitch, kPitch, kk * 8, g, t);
-  float acc[KD][4];
-#pragma unroll
-  for (int n = 0; n < KD; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  for (int kv0 = 0; kv0 < skv; kv0 += kStreamKeys) {
-    const int keys = min(kStreamKeys, skv - kv0);
+  float acc[KD][4] = {};
+  for (int j = 0; j < n; ++j) {
+    wait_copies<G::kStages - 2>();
     __syncthreads();
-    load_tile(ks, k + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
-    load_tile(vs, v + k_at + (size_t)kv0 * ld, keys, kStreamKeys, dh, kDhp, kPitch, ld, vec);
-    __syncthreads();
+    if (j + G::kStages - 1 < n) load_kv(j + G::kStages - 1);
+    commit_copies();
     if (!active) continue;
-    float part[KD][4];  // this tile's dl k
+    const T* ks = ring + (j % G::kStages) * 2 * G::kTile;
+    const T* vs = ks + G::kTile;
+    const int keys = keys_of(j);
+    float part[KD][4] = {};  // this tile's dl k, added to the running sum
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kStreamTiles; j += kGroup) {
-      if (j * 8 >= keys) break;
-      float s[kGroup][4], dl[kGroup][4];  // dl holds dp first
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = dl[i][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mma_rows_as_columns<kExact, kExact, kGroup>(s, qa[kk], ks + j * 8 * kPitch, kPitch,
-                                                    kk * 8, g, t);
-        mma_rows_as_columns<kExact, kExact, kGroup>(dl, doa[kk], vs + j * 8 * kPitch, kPitch,
-                                                    kk * 8, g, t);
-      }
+    for (int k0 = 0; k0 < kStreamKeys; k0 += 8 * kGroup) {
+      if (k0 >= keys) break;
+      float s[kGroup][4] = {}, dl[kGroup][4] = {};  // dl holds dp first
+      M::rows_product(s, qa, ks + k0 * G::kPitch, lane);
+      M::rows_product(dl, doa, vs + k0 * G::kPitch, lane);
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool there = (j + i) * 8 + 2 * t + (c & 1) < keys;
-          const float p = there ? expf(s[i][c] * scale - ((c >> 1) ? m1 : m0)) *
-                                      ((c >> 1) ? inv1 : inv0)
-                                : 0.f;
-          dl[i][c] = p * (dl[i][c] - ((c >> 1) ? delta1 : delta0));
-        }
-        const AFrag dla = a_from_acc(dl[i]);
-        mma_rows_summed<kExact, KD>(part, dla, ks + (j + i) * 8 * kPitch, kPitch, g, t);
+        dl[i][0] = exp2_neg(fmaf(s[i][0], log2_scale, -m0)) * inv0 * (dl[i][0] - delta0);
+        dl[i][1] = exp2_neg(fmaf(s[i][1], log2_scale, -m0)) * inv0 * (dl[i][1] - delta0);
+        dl[i][2] = exp2_neg(fmaf(s[i][2], log2_scale, -m1)) * inv1 * (dl[i][2] - delta1);
+        dl[i][3] = exp2_neg(fmaf(s[i][3], log2_scale, -m1)) * inv1 * (dl[i][3] - delta1);
       }
+      // the last tile of the keys: dl = 0 past its last key, whose logit 0
+      // gives p = 2^(-max) / sum, infinite where the row's max is below -128
+      if (keys < kStreamKeys) {
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (k0 + i * 8 + 2 * t + (c & 1) >= keys) dl[i][c] = 0.f;
+      }
+      M::summed_product(part, dl, ks + k0 * G::kPitch, lane);
     }
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
+    for (int c0 = 0; c0 < KD; ++c0)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+      for (int c = 0; c < 4; ++c) acc[c0][c] += part[c0][c];
   }
   if (!active) return;
+  if (splits == 1) {
 #pragma unroll
-  for (int n = 0; n < KD; ++n)
-    store_acc(dq + q_at, acc[n], scale, scale, r0, rows, n * 8, dh, ld, g, t);
+    for (int c0 = 0; c0 < KD; ++c0)
+      store_acc(dq + q_at, acc[c0], scale, scale, r0, rows, c0 * 8, dh, ld, g, t);
+    return;
+  }
+  float* mine = dq_part + ((size_t)split * plane + (size_t)bh * sq + q0) * dh;
+#pragma unroll
+  for (int c0 = 0; c0 < KD; ++c0)
+    store_acc(mine, acc[c0], 1.f, 1.f, r0, rows, c0 * 8, dh, (size_t)dh, g, t);
 }
 
-// Pass B: a block per (b, h, 64 keys) -> dk and dv, streaming the query
-// tiles with the statistics pass A wrote.
+// Pass B: a block per (b, h, tile of 64 keys), 16 keys a warp with their k
+// and v fragments in registers -> dk and dv, streaming the query tiles (q,
+// do and the rows' max, 1 / sum and delta) through the ring.
 template <typename T, int KD>
-__global__ void __launch_bounds__(kStreamWarps * 32, 2)
+__global__ void __launch_bounds__(kKeyWarps * 32, sizeof(T) == 2 && KD <= 4 ? 3 : 2)
     attention_bwd_stream_keys(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ d_o,
-                              const float* __restrict__ stats, T* __restrict__ dk,
-                              T* __restrict__ dv, int sq, int skv, int heads, int dh,
-                              float scale, int vec) {
-  constexpr bool kExact = kExactInTf32<T>;
-  constexpr int kDhp = KD * 8, kPitch = kDhp + kPitchPad;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                           // [kStreamRows][kPitch]
-  float* vs = ks + kStreamRows * kPitch;      // [kStreamRows][kPitch]
-  float* qs = vs + kStreamRows * kPitch;      // [kStreamKeys][kPitch]
-  float* dos = qs + kStreamKeys * kPitch;     // [kStreamKeys][kPitch]
-  float* row_max = dos + kStreamKeys * kPitch;  // [kStreamKeys]
-  float* row_inv = row_max + kStreamKeys;
-  float* row_delta = row_inv + kStreamKeys;
-
+                              const float* __restrict__ stats, const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int sq, int skv, int heads,
+                              int dh, float scale, int vec) {
+  using G = StreamTile<T, KD>;
+  using M = StreamMath<T, KD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const float log2_scale = scale * kLog2e;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int k_tiles = (skv + kStreamRows - 1) / kStreamRows;
-  const int bh = blockIdx.x / k_tiles, c0 = (blockIdx.x % k_tiles) * kStreamRows;
+  const int k_tiles = (skv + kStreamKeys - 1) / kStreamKeys;
+  const int bh = blockIdx.x / k_tiles, c0 = (blockIdx.x % k_tiles) * kStreamKeys;
   const int b = bh / heads, h = bh % heads;
   const size_t plane = (size_t)(gridDim.x / k_tiles) * sq;
   const size_t ld = (size_t)heads * dh;
   const size_t q_at = (size_t)b * sq * ld + h * dh;
   const size_t k_at = ((size_t)b * skv + c0) * ld + h * dh;  // the block's key 0
-  const int keys = min(kStreamRows, skv - c0);
+  const int keys = min(kStreamKeys, skv - c0);
   const int w0 = warp * 16;  // the warp's keys in the block's tile
   const bool active = w0 < keys;
-  const bool key0 = w0 + g < keys, key1 = w0 + g + 8 < keys;
+  const int n = (sq + kStreamKeys - 1) / kStreamKeys;
+  T* kst = reinterpret_cast<T*>(smem_raw);  // [64][kPitch]
+  T* vst = kst + G::kTile;                  // [64][kPitch]
+  T* ring = vst + G::kTile;                 // kStages x (q tile, do tile)
+  float* values = reinterpret_cast<float*>(ring + G::kStages * 2 * G::kTile);  // kStages x 3 x 64
 
-  load_tile(ks, k + k_at, keys, kStreamRows, dh, kDhp, kPitch, ld, vec);
-  load_tile(vs, v + k_at, keys, kStreamRows, dh, kDhp, kPitch, ld, vec);
-  __syncthreads();
-  AFrag ka[KD], va[KD];
+  auto load_qd = [&](int i) {  // query tile i, its rows' max, 1 / sum and delta
+    const int stage = i % G::kStages, rows = min(kStreamKeys, sq - i * kStreamKeys);
+    T* qt = ring + stage * 2 * G::kTile;
+    const size_t at = q_at + (size_t)i * kStreamKeys * ld;
+    load_rows<T, KD>(qt, q + at, rows, kStreamKeys, ld, dh, vec);
+    load_rows<T, KD>(qt + G::kTile, d_o + at, rows, kStreamKeys, ld, dh, vec);
+    float* mine = values + stage * 3 * kStreamKeys;
+    const size_t row_at = (size_t)bh * sq + (size_t)i * kStreamKeys;
+    load_row_values(mine, stats + row_at, rows);
+    load_row_values(mine + kStreamKeys, stats + plane + row_at, rows);
+    load_row_values(mine + 2 * kStreamKeys, delta + row_at, rows);
+  };
+
+  load_rows<T, KD>(kst, k + k_at, keys, kStreamKeys, ld, dh, vec);
+  load_rows<T, KD>(vst, v + k_at, keys, kStreamKeys, ld, dh, vec);
+  commit_copies();
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    ka[kk] = a_from_tile<kExact>(ks + w0 * kPitch, kPitch, kk * 8, g, t);
-    va[kk] = a_from_tile<kExact>(vs + w0 * kPitch, kPitch, kk * 8, g, t);
+  for (int i = 0; i < G::kStages - 1; ++i) {
+    if (i < n) load_qd(i);
+    commit_copies();
   }
-  float acc_k[KD][4], acc_v[KD][4];
-#pragma unroll
-  for (int n = 0; n < KD; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
+  wait_copies<G::kStages - 1>();
+  __syncthreads();
+  typename M::Frags ka, va;
+  M::a_frags(ka, kst + w0 * G::kPitch, lane);
+  M::a_frags(va, vst + w0 * G::kPitch, lane);
 
-  for (int i0 = 0; i0 < sq; i0 += kStreamKeys) {
-    const int rows = min(kStreamKeys, sq - i0);
+  float acc_k[KD][4] = {}, acc_v[KD][4] = {};
+  for (int i = 0; i < n; ++i) {
+    wait_copies<G::kStages - 2>();
     __syncthreads();
-    load_tile(qs, q + q_at + (size_t)i0 * ld, rows, kStreamKeys, dh, kDhp, kPitch, ld, vec);
-    load_tile(dos, d_o + q_at + (size_t)i0 * ld, rows, kStreamKeys, dh, kDhp, kPitch, ld, vec);
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const size_t at = (size_t)bh * sq + i0 + r;
-      row_max[r] = stats[at];
-      row_inv[r] = stats[plane + at];
-      row_delta[r] = stats[2 * plane + at];
-    }
-    __syncthreads();
+    if (i + G::kStages - 1 < n) load_qd(i + G::kStages - 1);
+    commit_copies();
     if (!active) continue;
-    float part_k[KD][4], part_v[KD][4];  // this query tile's dl^T q and p^T do
+    const int stage = i % G::kStages, rows = min(kStreamKeys, sq - i * kStreamKeys);
+    const T* qt = ring + stage * 2 * G::kTile;
+    const T* dot = qt + G::kTile;
+    const float* row_max = values + stage * 3 * kStreamKeys;
+    const float* row_inv = row_max + kStreamKeys;
+    const float* row_delta = row_inv + kStreamKeys;
+    float part_k[KD][4] = {}, part_v[KD][4] = {};  // this tile's dl^T q and p^T do
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part_k[n][c] = part_v[n][c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kStreamTiles; j += kGroup) {
-      if (j * 8 >= rows) break;
+    for (int r0 = 0; r0 < kStreamKeys; r0 += 8 * kGroup) {
+      if (r0 >= rows) break;
       // keys w0+g (x[0..1]) and w0+g+8 (x[2..3]); tile i: query rows
-      // 8(j+i)+2t and 8(j+i)+2t+1 of the streamed tile
-      float pt[kGroup][4], dlt[kGroup][4];
+      // r0+8i+2t and r0+8i+2t+1 of the streamed tile.  Rows past Sq have
+      // zero statistics, so p = 0 there.  A key past Skv (k = v = 0) may
+      // get p = inf, but only in its own rows of dk and dv, never stored.
+      float pt[kGroup][4] = {}, dlt[kGroup][4] = {};
+      M::rows_product(pt, ka, qt + r0 * G::kPitch, lane);
+      M::rows_product(dlt, va, dot + r0 * G::kPitch, lane);
 #pragma unroll
-      for (int i = 0; i < kGroup; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) pt[i][c] = dlt[i][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        mma_rows_as_columns<kExact, kExact, kGroup>(pt, ka[kk], qs + j * 8 * kPitch, kPitch,
-                                                    kk * 8, g, t);
-        mma_rows_as_columns<kExact, kExact, kGroup>(dlt, va[kk], dos + j * 8 * kPitch, kPitch,
-                                                    kk * 8, g, t);
-      }
-#pragma unroll
-      for (int i = 0; i < kGroup; ++i) {
+      for (int ii = 0; ii < kGroup; ++ii) {
+        const int r = r0 + ii * 8 + 2 * t;  // this thread's columns r and r+1
+        const float2 m = *reinterpret_cast<const float2*>(row_max + r);
+        const float2 inv = *reinterpret_cast<const float2*>(row_inv + r);
+        const float2 delta = *reinterpret_cast<const float2*>(row_delta + r);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          const int r = (j + i) * 8 + 2 * t + (c & 1);
-          const bool there = r < rows && ((c >> 1) ? key1 : key0);
-          pt[i][c] = there ? expf(pt[i][c] * scale - row_max[r]) * row_inv[r] : 0.f;
-          dlt[i][c] = there ? pt[i][c] * (dlt[i][c] - row_delta[r]) : 0.f;
+          const bool odd = c & 1;
+          pt[ii][c] = exp2_neg(fmaf(pt[ii][c], log2_scale, -(odd ? m.y : m.x))) * (odd ? inv.y : inv.x);
+          dlt[ii][c] = pt[ii][c] * (dlt[ii][c] - (odd ? delta.y : delta.x));
         }
-        const AFrag pa = a_from_acc(pt[i]), dla = a_from_acc(dlt[i]);
-        mma_rows_summed<kExact, KD>(part_v, pa, dos + (j + i) * 8 * kPitch, kPitch, g, t);
-        mma_rows_summed<kExact, KD>(part_k, dla, qs + (j + i) * 8 * kPitch, kPitch, g, t);
       }
+      M::summed_product(part_v, pt, dot + r0 * G::kPitch, lane);
+      M::summed_product(part_k, dlt, qt + r0 * G::kPitch, lane);
     }
 #pragma unroll
-    for (int n = 0; n < KD; ++n)
+    for (int n0 = 0; n0 < KD; ++n0)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        acc_k[n][c] += part_k[n][c];
-        acc_v[n][c] += part_v[n][c];
+        acc_k[n0][c] += part_k[n0][c];
+        acc_v[n0][c] += part_v[n0][c];
       }
   }
   if (!active) return;
 #pragma unroll
-  for (int n = 0; n < KD; ++n) {
-    store_acc(dk + k_at, acc_k[n], scale, scale, w0, keys, n * 8, dh, ld, g, t);
-    store_acc(dv + k_at, acc_v[n], 1.f, 1.f, w0, keys, n * 8, dh, ld, g, t);
+  for (int n0 = 0; n0 < KD; ++n0) {
+    store_acc(dk + k_at, acc_k[n0], scale, scale, w0, keys, n0 * 8, dh, ld, g, t);
+    store_acc(dv + k_at, acc_v[n0], 1.f, 1.f, w0, keys, n0 * 8, dh, ld, g, t);
   }
+}
+
+// The splits' parts of dq added in split order, a thread per (b, h, row,
+// column), times scale.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    attention_bwd_combine(const float* __restrict__ dq_part, T* __restrict__ dq, int bh_count,
+                          int sq, int heads, int dh, int splits, float scale) {
+  const size_t plane = (size_t)bh_count * sq;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= plane * dh) return;
+  const size_t at = idx / dh;  // bh * sq + row
+  const int d = (int)(idx - at * dh);
+  float acc = 0.f;
+  for (int s = 0; s < splits; ++s) acc += dq_part[(s * plane + at) * dh + d];
+  const int bh = (int)(at / sq), row = (int)(at - (size_t)bh * sq);
+  const int b = bh / heads, h = bh % heads;
+  store_float(dq + ((size_t)b * sq + row) * heads * dh + (size_t)h * dh + d, acc * scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -768,13 +742,19 @@ int pick(int variant, int sq, int skv, int dh) {
 struct Args {
   const void *q, *k, *v, *o, *d_o;
   void *dq, *dk, *dv;
-  float* stats;  // the streaming kernels' [3, B*H, Sq] scratch
+  const float* stats;  // the streaming kernels' [2, B*H, Sq], from the forward
+  float* scratch;      // and their delta [B*H, Sq], then dq's partials
   int b, sq, skv, heads, dh;
   float scale;
+  int warps, splits, per_split;  // the streaming kernels' plan
 };
 
 template <typename T, int KD>
 cudaError_t launch_stream(const Args& a, int device, cudaStream_t stream) {
+  const int key_tiles = (a.skv + kStreamKeys - 1) / kStreamKeys;
+  if (!plan_takes(a.warps, a.splits, a.per_split, key_tiles) || a.stats == nullptr ||
+      a.scratch == nullptr)
+    return cudaErrorInvalidValue;
   auto rows_kernel = attention_bwd_stream_rows<T, KD>;
   auto keys_kernel = attention_bwd_stream_keys<T, KD>;
   cudaError_t err = allow_dynamic_smem(rows_kernel, device);
@@ -782,17 +762,25 @@ cudaError_t launch_stream(const Args& a, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   bool vec = (a.dh * sizeof(T)) % 16 == 0;
   for (const void* p : {a.q, a.k, a.v, a.d_o}) vec = vec && ((uintptr_t)p % 16 == 0);
-  const size_t smem = stream_smem_bytes(KD * 8);
-  const int q_tiles = (a.sq + kStreamRows - 1) / kStreamRows;
-  const int k_tiles = (a.skv + kStreamRows - 1) / kStreamRows;
-  rows_kernel<<<a.b * a.heads * q_tiles, kStreamWarps * 32, smem, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o, (const T*)a.d_o,
-      (T*)a.dq, a.stats, a.sq, a.skv, a.heads, a.dh, a.scale, (int)vec);
+  const size_t plane = (size_t)a.b * a.heads * a.sq;
+  float* delta = a.scratch;
+  float* dq_part = a.splits > 1 ? a.scratch + plane : nullptr;
+  const int q_tiles = (a.sq + 16 * a.warps - 1) / (16 * a.warps);
+  rows_kernel<<<a.b * a.heads * q_tiles * a.splits, a.warps * 32,
+                rows_stream_smem<T, KD>(a.warps), stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o, (const T*)a.d_o, (T*)a.dq,
+      a.stats, delta, dq_part, a.sq, a.skv, a.heads, a.dh, a.scale, a.splits, a.per_split,
+      (int)vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  keys_kernel<<<a.b * a.heads * k_tiles, kStreamWarps * 32, smem, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.d_o, a.stats, (T*)a.dk,
+  keys_kernel<<<a.b * a.heads * key_tiles, kKeyWarps * 32, keys_stream_smem<T, KD>(), stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.d_o, a.stats, delta, (T*)a.dk,
       (T*)a.dv, a.sq, a.skv, a.heads, a.dh, a.scale, (int)vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  const size_t total = plane * a.dh;
+  attention_bwd_combine<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      dq_part, (T*)a.dq, a.b * a.heads, a.sq, a.heads, a.dh, a.splits, a.scale);
   return cudaGetLastError();
 }
 
@@ -819,7 +807,7 @@ int launch(const Args& a, int variant, int device, void* stream_ptr, int* ran) {
   variant = pick(variant, a.sq, a.skv, a.dh);
   *ran = variant;
   if (variant == kStream) {
-    if (!stream_takes(a.dh) || a.stats == nullptr) return (int)cudaErrorInvalidValue;
+    if (!stream_takes(a.dh)) return (int)cudaErrorInvalidValue;
     switch (padded_head_dim(a.dh)) {
       case 16:
         return (int)launch_stream<T, 2>(a, device, stream);
@@ -854,21 +842,41 @@ int launch(const Args& a, int variant, int device, void* stream_ptr, int* ran) {
   }
 }
 
+template <typename T, int KD>
+long long stream_smem(int warps, int pass) {
+  return (long long)(pass == 0 ? rows_stream_smem<T, KD>(warps) : keys_stream_smem<T, KD>());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory a block needs at this shape with `variant` (-1: the one the
-// launch would pick, 0: the tensor-core kernel, 1: the general kernel, 2:
-// the streaming kernels), or -1 where that variant does not take the shape.
-// Above the block's limit means that nothing takes it.
+// launch would pick, 0: the tensor-core kernel, 1: the general kernel), or
+// -1 where that variant does not take the shape, and for the streaming
+// kernels, whose shared memory follows their plan
+// (attention_bwd_stream_smem_bytes).  Above the block's limit means that
+// nothing takes it.
 long long attention_bwd_smem_bytes(int sq, int skv, int dh, int variant) {
   variant = pick(variant, sq, skv, dh);
   if (variant == kGeneral) return (long long)general_smem_bytes(sq, skv, dh);
-  if (variant == kStream)
-    return stream_takes(dh) ? (long long)stream_smem_bytes(padded_head_dim(dh)) : -1;
   if (variant != kMma || !mma_takes(sq, skv, dh)) return -1;
   return (long long)mma_smem_bytes(sq, skv, padded_head_dim(dh));
+}
+
+// Shared memory of a streaming block at head_dim `dh`, fp32 (bf16 = 0) or
+// bf16 tensors: pass 0 (query rows, `warps` warps) or pass 1 (key tiles);
+// -1 where the streaming kernels do not take dh.
+long long attention_bwd_stream_smem_bytes(int warps, int dh, int bf16, int pass) {
+  if (!stream_takes(dh)) return -1;
+  const int kd = padded_head_dim(dh) / 8;
+  if (bf16)
+    return kd == 2   ? stream_smem<__nv_bfloat16, 2>(warps, pass)
+           : kd == 4 ? stream_smem<__nv_bfloat16, 4>(warps, pass)
+                     : stream_smem<__nv_bfloat16, 8>(warps, pass);
+  return kd == 2   ? stream_smem<float, 2>(warps, pass)
+         : kd == 4 ? stream_smem<float, 4>(warps, pass)
+                   : stream_smem<float, 8>(warps, pass);
 }
 
 // 0: the tensor-core kernel runs this shape, 1: the general kernel, 2: the
@@ -881,23 +889,32 @@ const char* attention_bwd_error_string(int err) {
 
 // Launch on `stream`; allocate nothing, do not synchronise.  Return the
 // cudaError_t of the launch (0 on success) and write the variant that ran
-// to `ran`.  float and bfloat16 tensors.  `stats`: fp32 scratch of
-// 3 * B * heads * Sq floats for the streaming kernels (unread by the others).
+// to `ran`.  float and bfloat16 tensors.  The streaming variant takes its
+// plan (warps a block of pass A, splits of the key tiles, key tiles a
+// split; from ops/attention.py::stream_plan), the forward's row statistics
+// `stats` (fp32 [2, B*H, Sq]) and an fp32 `scratch` of B*H*Sq floats (the
+// rows' delta), plus splits * B*H*Sq * dh with more than one split (dq's
+// partials, which a third launch adds up); the other variants read none of
+// these.
 int attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                  const void* d_o, void* dq, void* dk, void* dv, void* stats, int b,
-                  int sq, int skv, int heads, int dh, float scale, int variant, int device,
-                  void* stream, int* ran) {
-  return launch<float>({q, k, v, o, d_o, dq, dk, dv, (float*)stats, b, sq, skv, heads, dh, scale},
+                  const void* d_o, void* dq, void* dk, void* dv, const void* stats,
+                  void* scratch, int b, int sq, int skv, int heads, int dh, float scale,
+                  int variant, int warps, int splits, int per_split, int device, void* stream,
+                  int* ran) {
+  return launch<float>({q, k, v, o, d_o, dq, dk, dv, (const float*)stats, (float*)scratch, b,
+                        sq, skv, heads, dh, scale, warps, splits, per_split},
                        variant, device, stream, ran);
 }
 
 int attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                       const void* d_o, void* dq, void* dk, void* dv, void* stats, int b,
-                       int sq, int skv, int heads, int dh, float scale, int variant,
-                       int device, void* stream, int* ran) {
-  return launch<__nv_bfloat16>(
-      {q, k, v, o, d_o, dq, dk, dv, (float*)stats, b, sq, skv, heads, dh, scale}, variant,
-      device, stream, ran);
+                       const void* d_o, void* dq, void* dk, void* dv, const void* stats,
+                       void* scratch, int b, int sq, int skv, int heads, int dh, float scale,
+                       int variant, int warps, int splits, int per_split, int device,
+                       void* stream, int* ran) {
+  return launch<__nv_bfloat16>({q, k, v, o, d_o, dq, dk, dv, (const float*)stats,
+                                (float*)scratch, b, sq, skv, heads, dh, scale, warps, splits,
+                                per_split},
+                               variant, device, stream, ran);
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // attention_bwd.cu) on top of mma_tf32.cuh, which holds the warp-level
 // tensor-core product and the high/low split that makes it fp32-grade (the
 // fused MLP shares them): the fragment loaders over fp32 tiles, the tile
-// loader and the launch bookkeeping.
+// loader and the launch bookkeeping.  The streaming kernels' own pieces are
+// in attention_stream.cuh.
 //
 // The product is `mma.sync.m16n8k8` on TF32 operands with fp32 accumulators
 // in registers.  A TF32 value keeps 11 significant bits, so one product is
@@ -16,16 +17,19 @@
 // products of inputs take one `mma` and the products whose left operand is
 // fp32 by contract (p, dl) take two.
 //
-// Why not `wgmma` and TMA: the products here are 149 x 149 x 32 per head.
-// `wgmma`'s 64-row tiles pad 149 -> 192 and 89 -> 128 rows (22-30% wasted
-// against 7% with 16-row tiles), its B operand has to sit swizzled in shared
-// memory, and its accumulators cannot feed the next product's A operand
-// without a detour, which is what keeps p and dl out of shared memory here.
-// Why TF32 `mma` also for bf16 inputs, and not `m16n8k16` bf16: the fp32
-// operands p and dl would need a bf16 high/low split (16 bits in all, against
-// 22 here), the kernels are nowhere near the tensor cores' rate at these
-// sizes (the time goes to shared-memory reads and the schedulers), and one
-// fragment layout serves both types.
+// Why not `wgmma` and TMA in the tensor-core kernels: the products there are
+// 149 x 149 x 32 per head.  `wgmma`'s 64-row tiles pad 149 -> 192 and 89 ->
+// 128 rows (22-30% wasted against 7% with 16-row tiles), its B operand has to
+// sit swizzled in shared memory, and its accumulators cannot feed the next
+// product's A operand without a detour, which is what keeps p and dl out of
+// shared memory here.  Why TF32 `mma` also for bf16 inputs there: at these
+// sizes the time goes to shared-memory reads and the schedulers, not to the
+// tensor cores, and one fragment layout serves both types.
+// The streaming kernels (attention_stream.cuh) are another matter: at 13261
+// keys the products are long and the tensor cores' rate counts, so their
+// bf16 instances keep bf16 tiles and run `m16n8k16` (the fp32 operand p or dl
+// split into two bf16 halves, 16 bits in all); their fp32 instances use the
+// TF32 products below.
 //
 // Fragment layouts of m16n8k8 (PTX ISA), g = lane / 4, t = lane % 4:
 //   A (16 x 8, row):  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
@@ -51,18 +55,6 @@ constexpr int kPitchPad = 4;      // floats added to a tile row
 constexpr int kMaxKeyTiles = 20;  // 8-key tiles a thread keeps: Skv <= 160
 constexpr int kGroup = 4;         // tiles whose `mma`s are interleaved; 32 rows
 constexpr int kMaxHeadDim = 64;   // head_dim of the largest mma instance
-
-// The streaming kernels (any Skv): a block of kStreamWarps warps owns a tile
-// of kStreamRows rows, 16 a warp (query rows; keys in the backward's second
-// pass), and streams the other side through shared memory kStreamKeys rows
-// at a time.
-constexpr int kStreamWarps = 4;
-constexpr int kStreamRows = 16 * kStreamWarps;
-constexpr int kStreamKeys = 64;
-constexpr int kStreamTiles = kStreamKeys / 8;  // 8-row tiles of a streamed tile
-static_assert(kStreamTiles % kGroup == 0, "a streamed tile is whole groups of tiles");
-
-__host__ __device__ constexpr bool stream_takes(int dh) { return dh >= 1 && dh <= kMaxHeadDim; }
 
 // Rows g and g+8, columns k0+t and k0+t+4 of the 16-row tile at `tile`.
 template <bool kExact>

@@ -68,6 +68,7 @@
 //     output's rounding is 2^-9 and the chains stay whole.
 // No --use_fast_math: erff and the divisions are the accurate ones.
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -110,50 +111,6 @@ struct Layout {
 
 __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.0f + erff(h * 0.70710678118654752440f));
-}
-
-__device__ __forceinline__ uint32_t smem_address(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// `bytes` of them are read (0 or 16), the rest is written as zeros.
-__device__ __forceinline__ void copy16_async(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_address(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
-
-// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 tiles of 16-bit values from shared memory: lane 8i + r gives the
-// address of row r (16 bytes) of tile i, and gets of every tile the values
-// 2t, 2t+1 of row g: a tile whose rows run along k is an `mma` fragment
-// register as it comes.
-__device__ __forceinline__ void load_tiles(uint32_t (&r)[4], const uint32_t* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_address(row)));
-}
-
-// two floats rounded to bf16 (nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The block's rows of x into the x tile, zeros past row m.
