@@ -219,9 +219,40 @@
    turns (parent, this, this, parent; ``parent_turns``); a checkout with a
    later C interface is said and skipped.
 
+11. Multi-process training and the remaining entry points (path 8,
+   ``dist_path``).  (a) Two ranks on the one card over gloo (NCCL takes one
+   rank a card, so NCCL across cards is not run here), each a process
+   (``dist_rank``) under the launcher's environment: the flagship model from
+   the seed rank 0 broadcasts, ``DIST_STEPS`` steps of
+   ``make_train_step(..., group=...)`` at ``--batchSize`` ``DIST_BATCH`` a
+   rank on path 2's corpus, the optimizer's count starting at
+   ``DIST_OPT_COUNT``, past its rectification gate: after each step the
+   parameters moved and equal on both ranks bit for bit, one alpha and one
+   beta launch a rank, and the step's
+   summed gradient before the clip within ``DIST_GRAD_RTOL`` of each
+   tensor's largest value of the sum of the two halves' gradients computed
+   in one process; then one V1 step (``AblationConfig()``, 16 s segments,
+   ``DIST_V1_BATCH`` a rank) whose BatchNorm running statistics equal one
+   process's on the concatenated batch (rtol 1e-4, 1e-6 absolute); on
+   rank 0, each model's logZ route at the step's own lane count (the
+   flagship's ``log_z_padded`` on its padded lanes, V1's ``log_z_best``)
+   against autograd of ``log_z_slow`` on that rank's scores
+   (``logz_against_slow``: logZ within ``TABLE_RTOL``, the cotangents
+   within ``cotangent_tolerance``); each step's wall time and peak memory
+   printed.  (b) ``cli.train.main
+   --nDevices 2`` must refuse, naming the one card found; ``--nDevices 1``
+   takes 2 steps.  (c) ``crf_minimal_example`` on the card: ``logProb``
+   within 1e-5 relative of ``eval_path - log_z_slow``, both decodes equal
+   to the plain tables' walk.  (d) The piece of 4 through
+   ``transcribe_many(devices=[cuda:0, cuda:0])`` over 2 copies: path 1's
+   notes.  (e) ``cli.compute_metrics`` on path 1's MIDI against itself:
+   note F1 1.0.  (f) ``TRANSKUN_TPU_TIMING=silent``: path 1's
+   ``last_transcribe_marks`` printed as phases.  Every launch count must
+   equal the calls made.
+
 Prints the card, build times, kernel times, each transcription's wall time,
-RTF and peak memory, each training step time and peak memory, the V1 path's
-and path 7's figures as JSON lines, then one JSON
+RTF and peak memory, each training step time and peak memory, the V1 path's,
+path 7's and path 8's figures as JSON lines, then one JSON
 line with the kernels (launches on each path, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
 fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
@@ -325,6 +356,15 @@ TRAIN_PIECES, VAL_PIECES, CORPUS_PIECE_SECONDS = 3, 1, 40.0
 V1_TRAIN_BATCH, V1_TRAIN_STEPS, V1_SEGMENT_SECONDS, V1_SEGMENT_HOP = 2, 3, 16.0, 12.0
 V1_SINGLETON_QUANTILE = 0.999
 V1_STEP_SECONDS, V1_SEGMENT_SECONDS_DECODE = 10.0, 20.0  # TransKunAblation.transcribe's defaults
+# path 8: two gloo ranks on the one card, --batchSize 2 a rank (a global batch
+# of 4, path 2's) for DIST_STEPS flagship steps, then one V1 step at 1 a rank
+# (a global batch of 2, path 6's) on 16 s segments
+DIST_BATCH, DIST_STEPS, DIST_V1_BATCH = 2, 2, 1
+# the optimizer's count at the start of path 8's steps: past the rectification
+# gate, which holds the parameters still for the first steps (a resumed run)
+DIST_OPT_COUNT = 10
+DIST_GRAD_RTOL = 1e-3  # tests/test_torch_train.py's gradient bound: of each tensor's largest value
+DIST_STATS_RTOL, DIST_STATS_ATOL = 1e-4, 1e-6  # the JAX package's SyncBN test's bounds
 # path 7: the non-flagship V2 branches, each the flagship conf with these changes
 BRANCHES = {
     "aggregation": {"enabledAttn": ["F", "T", "All0", "0All"]},
@@ -508,6 +548,31 @@ def cotangent_tolerance(log_z, t):
     2.4e-4 from an fp64 scan at t = 251 (logZ 387), the kernels' 1.6e-3
     from log_z_slow at t = 691 (logZ 1048) on an H100."""
     return max(1e-4, 2 * 2**-24 * math.sqrt(t) * float(log_z.abs().max()))
+
+
+def logz_against_slow(semicrf, through_kernels, s, noise):
+    """logZ and its score and noise cotangents through the kernels
+    (``through_kernels(s, noise)`` -> logZ [N], on leaves ``s [T, T, N]``
+    and ``noise [T-1, N]``) against autograd of the plain ``log_z_slow``,
+    each lane's logZ weighted alike on both sides.  Returns (logZ's largest
+    difference relative to max(1, |logZ|), the cotangents' largest absolute
+    difference, its bound ``cotangent_tolerance``, the largest |logZ|, the
+    largest noise cotangent)."""
+    import torch
+
+    t, _, nb = s.shape
+    w = torch.linspace(0.5, 1.5, nb, device=s.device)
+    grads = []
+    for fn in (through_kernels, semicrf.log_z_slow):
+        s_g, n_g = s.detach().clone().requires_grad_(), noise.detach().clone().requires_grad_()
+        lz = fn(s_g, n_g)
+        (lz * w).sum().backward()
+        grads.append((lz.detach(), s_g.grad, n_g.grad))
+    (lz, gs, gn), (lz_ref, gs_ref, gn_ref) = grads
+    lz_err = float(((lz - lz_ref).abs() / lz_ref.abs().clamp(min=1.0)).max())
+    g_err = max(float((gs - gs_ref).abs().max()), float((gn - gn_ref).abs().max()))
+    return (lz_err, g_err, cotangent_tolerance(lz_ref, t), float(lz_ref.abs().max()),
+            float(gn_ref.abs().max()))
 
 
 def ptxas_registers(log):
@@ -1324,25 +1389,14 @@ def v1_path(dev, card, audio, corpus, pickles, counts, reset_counts):
               f"{dev_ms:.4f} ms over {DEVICE_LAUNCHES} launches, plain {p_ms:.3f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]}), share {bnd[0] / dev_ms:.1%} on device time")
     del s_pad, noise, spdiag, shift_rows
-    w = torch.linspace(0.5, 1.5, nb, device=dev)
-    grads = []
-    for fn in (semicrf.log_z_best, semicrf.log_z_slow):
-        s_g, n_g = s.clone().requires_grad_(), s_skip.clone().requires_grad_()
-        lz = fn(s_g, n_g)
-        (lz * w).sum().backward()
-        grads.append((lz.detach(), s_g.grad, n_g.grad))
-    torch.cuda.synchronize()
-    (lz, gs, gn), (lz_ref, gs_ref, gn_ref) = grads
-    lz_err = float(((lz - lz_ref).abs() / lz_ref.abs().clamp(min=1.0)).max())
-    g_err = max(float((gs - gs_ref).abs().max()), float((gn - gn_ref).abs().max()))
-    g_tol = cotangent_tolerance(lz_ref, t)
-    if lz_err > TABLE_RTOL or g_err > g_tol or float(gn_ref.abs().max()) == 0.0:
+    lz_err, g_err, g_tol, lz_max, gn_max = logz_against_slow(semicrf, semicrf.log_z_best, s, s_skip)
+    if lz_err > TABLE_RTOL or g_err > g_tol or gn_max == 0.0:
         raise AssertionError(f"V1 logZ through the kernels vs log_z_slow at {list(s.shape)}: logZ relative "
                              f"{lz_err}, score and noise cotangents max |diff| {g_err} (allowed {g_tol})")
     print(f"V1 logZ via log_z_best (kernels) vs autograd of log_z_slow at {list(s.shape)} with the learned "
-          f"noise: logZ up to {float(lz_ref.abs().max()):.1f}, within {lz_err:.3g} relative (allowed "
+          f"noise: logZ up to {lz_max:.1f}, within {lz_err:.3g} relative (allowed "
           f"{TABLE_RTOL}), score and noise cotangents max |diff| {g_err:.3g} (allowed {g_tol:.3g}), largest "
-          f"noise cotangent {float(gn_ref.abs().max()):.3g}")
+          f"noise cotangent {gn_max:.3g}")
     return launches, err, times, figures
 
 
@@ -1648,6 +1702,401 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
                   f"(allowed {LOSS_RTOL})")
     if failures:
         raise AssertionError(f"path 7: {len(failures)} checks failed: {failures}")
+    return launches, figures
+
+
+def dist_rank(in_path, out_path):
+    """One rank of path 8 (a), started by ``dist_path`` under the launcher's
+    environment with both ranks on ``cuda:0`` over gloo: the flagship model
+    from the seed rank 0 broadcasts, DIST_STEPS steps of ``make_train_step``
+    with the group on the rank's rows of each global batch, then one V1 step.
+    Rank 0 also computes the references in one process: the two halves'
+    gradients of each step, and the V1 running statistics of the
+    concatenated batch.  Writes its figures as JSON to ``out_path``."""
+    import torch
+
+    from transkun_tpu_torch.models.ablation import AblationConfig, TransKunAblation
+    from transkun_tpu_torch.models.config import load_default_conf
+    import transkun_tpu_torch.models.transkun as transkun_module
+    from transkun_tpu_torch.models.transkun import TransKun
+    from transkun_tpu_torch.ops import logz, semicrf
+    from transkun_tpu_torch.parallel import (
+        all_reduce_max, broadcast_from_0, broadcast_module_, init_distributed, process_info,
+    )
+    from transkun_tpu_torch.train.optim import AdaBelief
+    from transkun_tpu_torch.train.step import TrainState, dropout_seed, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed("cuda", backend="gloo"):
+        raise RuntimeError("path 8: no group joined")
+    rank, world = process_info()
+    group = torch.distributed.group.WORLD
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with open(in_path, "rb") as f:
+        data = pickle.load(f)
+    out = {"rank": rank, "steps": [], "v1": {}}
+
+    def same_on_ranks(tensors):
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        differs = torch.tensor(int(not torch.equal(flat, broadcast_from_0(flat, group))))
+        return int(all_reduce_max(differs, group)) == 0
+
+    # each rank proposes its own seed: rank 0's is the one every rank takes
+    seed = int(broadcast_from_0(torch.tensor(SEED + rank), group))
+    _, conf = load_default_conf()
+    model = TransKun(conf, device=dev, seed=seed)
+    broadcast_module_(model.module, group)
+    ref = TransKun(conf, device=dev, seed=seed) if rank == 0 else None
+
+    class Recording:
+        """The clip, recording the gradients it is handed: the summed ones."""
+
+        def __init__(self, clip):
+            self.clip, self.grads = clip, None
+
+        def __call__(self, grads, q):
+            self.grads = [g.clone() for g in grads]
+            return self.clip(grads, q)
+
+        def push(self, norm, finite):
+            self.clip.push(norm, finite)
+
+    state = TrainState(model, AdaBelief(model.module.named_parameters()))
+    state.optimizer.count.fill_(DIST_OPT_COUNT)
+    state.clip = Recording(state.clip)
+    step_fn = make_train_step(model, group=group)
+
+    def flat_params(module):
+        return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+    def flagship_logz(model, frames):
+        """The step's logZ route (``logz.log_z_padded`` on the scorer's
+        padded lanes, the kernels at the rank's own shape) against
+        ``log_z_slow`` on the real lanes of this rank's scores."""
+        n, t, p = frames.shape[0], frames.shape[2], len(model.targetMIDIPitch)
+        t_pad, p_pad = transkun_module._pad_to(t, semicrf.PALLAS_KP), transkun_module._track_pad(n, p)
+        model.module.eval()
+        with torch.no_grad():
+            s_pad, noise_pad, _ = model.module.process_frames_train(frames, t_pad, p_pad)
+        lanes = torch.arange(n * p_pad, device=dev).view(n, p_pad)[:, :p].reshape(-1)
+
+        def through_kernels(s_g, n_g):
+            sp, npad = s_pad.clone(), noise_pad.clone()
+            sp[:t, :t, lanes] = s_g
+            npad[: t - 1, lanes] = n_g
+            return logz.log_z_padded(t, sp, npad)[lanes]
+
+        got = logz_against_slow(semicrf, through_kernels, s_pad[:t, :t, lanes], noise_pad[: t - 1, lanes])
+        return dict(zip(("lz_err", "g_err", "g_tol", "lz_max"), got[:4]), shape=list(s_pad.shape))
+
+    def k_sync(densest):
+        return int(all_reduce_max(torch.tensor(densest), group))
+
+    for k, (audio, notes) in enumerate(data["batches"]):
+        rows = slice(DIST_BATCH * rank, DIST_BATCH * (rank + 1))
+        frames, labels = model.frames(audio[rows]), model.labels(notes[rows], k_sync=k_sync)
+        if ref is not None:
+            ref.module.load_state_dict(model.module.state_dict())
+        generator = torch.Generator(device=dev).manual_seed(dropout_seed(SEED, k, rank))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches = (logz.alpha_launches, logz.beta_launches)
+        before = flat_params(model.module)
+        t0 = time.perf_counter()
+        metrics = step_fn(state, frames, labels, generator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = int((flat_params(model.module) != before).sum())
+        del before
+        step = {"wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "moved": moved,
+                "alpha": logz.alpha_launches - launches[0], "beta": logz.beta_launches - launches[1],
+                "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "finite": bool(metrics["finite"]), "k": labels[0].shape[-1],
+                "params_equal": same_on_ranks(model.module.parameters())}
+        if ref is not None:
+            # the two halves' gradients in one process, each of its half's mean
+            # loss with its rank's dropout stream, summed
+            loss_fn, summed = ref.make_train_loss(), None
+            for r in range(world):
+                part = slice(DIST_BATCH * r, DIST_BATCH * (r + 1))
+                ref.module.zero_grad(set_to_none=True)
+                logp = loss_fn(ref.frames(audio[part]), ref.labels(notes[part], step["k"]),
+                               torch.Generator(device=dev).manual_seed(dropout_seed(SEED, k, r)))
+                (-logp.sum(-1).mean() / 50.0).backward()
+                grads = [p.grad.detach().clone() for p in ref.module.parameters()]
+                summed = grads if summed is None else [a + b for a, b in zip(summed, grads)]
+            ratio = max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                        for g, w in zip(state.clip.grads, summed))
+            step["grad_vs_halves"] = ratio
+            ref.module.zero_grad(set_to_none=True)
+            if k == 0:
+                out["logz"] = flagship_logz(ref, frames)
+        out["steps"].append(step)
+    del model, ref, state, step_fn, frames, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the V1 model: one step, its BatchNorm statistics summed over the ranks
+    v1 = TransKunAblation(AblationConfig(), device=dev, seed=seed)
+    broadcast_module_(v1.module, group)
+    audio, notes = data["v1"]
+    if rank == 0:
+        # the running statistics of one train-mode forward on the whole batch
+        ref1 = TransKunAblation(AblationConfig(), device=dev, seed=seed)
+        with torch.no_grad():
+            ref1.make_train_loss()(ref1.frames(audio), ref1.labels(notes), None)
+        want = {k: v for k, v in ref1.module.state_dict().items() if "running" in k}
+        del ref1
+    before = {k: v.clone() for k, v in v1.module.state_dict().items() if "running" in k}
+    state = TrainState(v1, AdaBelief(v1.module.named_parameters()))
+    state.optimizer.count.fill_(DIST_OPT_COUNT)
+    params_before = flat_params(v1.module)
+    rows = slice(DIST_V1_BATCH * rank, DIST_V1_BATCH * (rank + 1))
+    frames, labels = v1.frames(audio[rows]), v1.labels(notes[rows], k_sync=k_sync)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = (logz.alpha_launches, logz.beta_launches)
+    t0 = time.perf_counter()
+    metrics = make_train_step(v1, group=group)(
+        state, frames, labels, torch.Generator(device=dev).manual_seed(dropout_seed(SEED, 0, rank)))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in v1.module.state_dict().items() if "running" in k}
+    out["v1"] = {"wall_s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                 "alpha": logz.alpha_launches - launches[0], "beta": logz.beta_launches - launches[1],
+                 "loss": float(metrics["loss"]), "finite": bool(metrics["finite"]),
+                 "moved": sum(not torch.equal(before[k], v) for k, v in got.items()), "buffers": len(got),
+                 "params_moved": int((flat_params(v1.module) != params_before).sum()),
+                 "params_equal": same_on_ranks(list(v1.module.parameters()) + list(got.values()))}
+    if rank == 0:
+        out["v1"]["stats_err"] = max(
+            float(((g - want[k]).abs() - DIST_STATS_RTOL * want[k].abs()).max()) for k, g in got.items())
+        # the step's logZ route (log_z_best: the kernels at this rank's lane
+        # count) on this rank's scores, against log_z_slow
+        v1.module.eval()
+        with torch.no_grad():
+            s, s_skip = v1.module.process_frames(frames)[:2]
+        checked = logz_against_slow(semicrf, semicrf.log_z_best, s, s_skip)
+        out["v1"]["logz"] = dict(zip(("lz_err", "g_err", "g_tol", "lz_max", "gn_max"), checked),
+                                 shape=list(s.shape))
+    torch.distributed.destroy_process_group()
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
+    if bad:
+        raise AssertionError(f"JAX code was imported: {bad[:5]}")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dist_path(dev, card, corpus, pickles, train_args, tmp, conf, audio, notes, budget, counts,
+              reset_counts):
+    """Path 8: multi-process training and the remaining entry points.
+    (a) two gloo ranks on the one card (``dist_rank``); (b) ``cli.train
+    --nDevices``; (c) ``crf_minimal_example`` on the card; (d) path 1's
+    piece through ``transcribe_many(devices=[cuda:0, cuda:0])``; (e)
+    ``cli.compute_metrics`` on path 1's MIDI against itself; (f) path 1's
+    timing marks.  Returns the launches of each kernel on the path and its
+    figures."""
+    import contextlib
+    import io
+
+    import torch
+
+    from transkun_tpu_torch import crf_minimal_example
+    from transkun_tpu_torch.cli import compute_metrics as metrics_cli
+    from transkun_tpu_torch.cli import train as train_cli
+    from transkun_tpu_torch.data import dataset as D
+    from transkun_tpu_torch.data.midi import write_midi
+    import transkun_tpu_torch.models.transkun as transkun_module
+    from transkun_tpu_torch.models.transkun import TransKun
+    from transkun_tpu_torch.ops import semicrf, viterbi
+    from transkun_tpu_torch.parallel import launch_ranks
+
+    launches = dict.fromkeys(KERNELS, 0)
+    figures = {}
+
+    def add(got):
+        for name in KERNELS:
+            launches[name] += got[name]
+
+    # (a) two ranks on the one card over gloo (NCCL takes one rank a card)
+    dataset = D.DatasetMaestro(corpus, os.path.join(pickles, "train.pickle"))
+    n_chunk = int(conf.segmentSizeInSecond * conf.fs)
+    loader = D.BatchLoader(
+        D.DatasetMaestroIterator(dataset, conf.segmentHopSizeInSecond, conf.segmentSizeInSecond,
+                                 seed=SEED, notes_strictly_contained=False),
+        2 * DIST_BATCH, shuffle=True, seed=0, drop_last=True, num_workers=0)
+    batches = []
+    for batch in loader:
+        batches.append((batch["audioSlices"][:, :n_chunk], batch["notes"]))
+        if len(batches) == DIST_STEPS:
+            break
+    got = [dataset.fetch_data(idx, 0.0, V1_SEGMENT_SECONDS, True, False) for idx in range(2 * DIST_V1_BATCH)]
+    v1_batch = (np.stack([a for _, a, _ in got]), [nt for nt, _, _ in got])
+    in_path = os.path.join(tmp, "dist_in.pkl")
+    with open(in_path, "wb") as f:
+        pickle.dump({"batches": batches, "v1": v1_batch}, f)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        launch_ranks(lambda rank: [sys.executable, "-c",
+                                   "import sys, chip_smoke; sys.exit(chip_smoke.dist_rank(*sys.argv[1:]))",
+                                   in_path, os.path.join(tmp, f"rank{rank}.json")],
+                     2, local_rank=lambda rank: 0, cwd=here, timeout=600)
+    except RuntimeError as e:
+        raise AssertionError(f"path 8 ranks: {e}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        for k, step in enumerate(r["steps"]):
+            if not (step["finite"] and step["params_equal"] and step["moved"] > 0
+                    and step["alpha"] == 1 and step["beta"] == 1):
+                raise AssertionError(f"path 8 rank {r['rank']} step {k}: {step}")
+            print(f"path 8 (a) rank {r['rank']} flagship V2 step {k}, --batchSize {DIST_BATCH} a rank, gloo on "
+                  f"one card ({card}): wall {step['wall_s']:.4f} s, peak memory {step['peak_gb']:.2f} GB, "
+                  f"loss {step['loss']:.3f}, grad norm {step['grad_norm']:.3f}, launches alpha "
+                  f"{step['alpha']} beta {step['beta']}; {step['moved']} parameters moved, all equal on "
+                  f"both ranks bit for bit")
+        v1 = r["v1"]
+        if not (v1["finite"] and v1["params_equal"] and v1["params_moved"] > 0 and v1["alpha"] == 1
+                and v1["beta"] == 1 and v1["moved"] == v1["buffers"] > 0):
+            raise AssertionError(f"path 8 rank {r['rank']} V1 step: {v1}")
+        print(f"path 8 (a) rank {r['rank']} V1 step, --batchSize {DIST_V1_BATCH} a rank ({card}): wall "
+              f"{v1['wall_s']:.4f} s, peak memory {v1['peak_gb']:.2f} GB, launches alpha {v1['alpha']} "
+              f"beta {v1['beta']}; parameters and running statistics equal on both ranks")
+        launches["semicrf_alpha"] += sum(st["alpha"] for st in r["steps"]) + v1["alpha"]
+        launches["semicrf_beta"] += sum(st["beta"] for st in r["steps"]) + v1["beta"]
+    if [st["loss"] for st in ranks[0]["steps"]] != [st["loss"] for st in ranks[1]["steps"]]:
+        raise AssertionError("path 8: the ranks report different losses")
+    grad_err = max(st["grad_vs_halves"] for st in ranks[0]["steps"])
+    if grad_err > DIST_GRAD_RTOL:
+        raise AssertionError(f"path 8: summed gradient against the two halves' sum: {grad_err}")
+    stats_err = ranks[0]["v1"]["stats_err"]
+    if stats_err > DIST_STATS_ATOL:
+        raise AssertionError(f"path 8: V1 running statistics exceed the concatenated batch's by "
+                             f"{stats_err} beyond rtol {DIST_STATS_RTOL}")
+    for what, lz in (("flagship V2 step", ranks[0]["logz"]), ("V1 step", ranks[0]["v1"]["logz"])):
+        if lz["lz_err"] > TABLE_RTOL or lz["g_err"] > lz["g_tol"]:
+            raise AssertionError(f"path 8 {what}: logZ through the kernels vs log_z_slow at {lz['shape']}: {lz}")
+        print(f"path 8 (a) rank 0 {what}: logZ through the kernels at the step's shape {lz['shape']} vs "
+              f"autograd of log_z_slow on the real lanes: logZ up to {lz['lz_max']:.1f}, within "
+              f"{lz['lz_err']:.3g} relative (allowed {TABLE_RTOL}), score and noise cotangents max |diff| "
+              f"{lz['g_err']:.3g} (allowed {lz['g_tol']:.3g})")
+    print(f"path 8 (a): the step's summed gradient before the clip against the sum of the two halves' "
+          f"gradients in one process: largest difference {grad_err:.3g} of each tensor's largest value "
+          f"(allowed {DIST_GRAD_RTOL}); V1 running statistics against one process's on the "
+          f"concatenated batch: within rtol {DIST_STATS_RTOL} and {stats_err:.3g} (allowed "
+          f"{DIST_STATS_ATOL}); ranks' wall {wall:.1f} s")
+    figures["dist"] = {"ranks": ranks, "wall_s": wall, "grad_vs_halves": grad_err,
+                       "v1_stats_err": stats_err, "logz": ranks[0]["logz"], "v1_logz": ranks[0]["v1"]["logz"]}
+
+    # (b) the CLI: two ranks need two cards; one rank trains
+    try:
+        train_cli.main([os.path.join(tmp, "ckpt_dist.pt"), *train_args, "--nDevices", "2"])
+    except SystemExit as e:
+        if f"{torch.cuda.device_count()} found" not in str(e):
+            raise AssertionError(f"--nDevices 2 said {e}")
+        print(f"path 8 (b): --nDevices 2 on this machine: {e}")
+    else:
+        raise AssertionError("--nDevices 2 ran on one card")
+    reset_counts()
+    run = train_cli.main([os.path.join(tmp, "ckpt_dist.pt"), *train_args, "--nDevices", "1",
+                          "--statsEvery", "0", "--maxEpoch", "1", "--stopAtStep", "2"])
+    torch.cuda.synchronize()
+    got = counts()
+    want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": 2, "semicrf_beta": 2}
+    if run["steps"] != 2 or got != want or not np.isfinite(run["losses"]).all():
+        raise AssertionError(f"--nDevices 1: {run['steps']} steps, losses {run['losses']}, launches {got}")
+    add(got)
+    print(f"path 8 (b): --nDevices 1 took {run['steps']} steps ({card}): step seconds "
+          f"{[round(x, 4) for x in run['step_seconds']]}, launches {got}")
+
+    # (c) the semi-CRF example on the card against its plain version
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = crf_minimal_example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    got = counts()
+    want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": 2, "semicrf_alpha": 1, "semicrf_beta": 1}
+    if got != want:
+        raise AssertionError(f"crf_minimal_example launches {got}, calls made {want}")
+    add(got)
+    score, noise = out["score"], out["noise_score"]
+    plain = semicrf.eval_path(out["intervals"], score, noise) - semicrf.log_z_slow(score, noise)
+    lp_err = float(((out["log_prob"] - plain).abs() / plain.abs()).max())
+    s_t, noise_pad, gate = semicrf.decode_layout(score, noise)
+    t, n = score.shape[0], score.shape[2]
+    ptr = viterbi.viterbi_backward_tables_plain(s_t, noise_pad, gate)[: t - 1, :n].cpu().numpy()
+    diag = (gate[:t, :n] > 0).cpu().numpy()
+    if lp_err > 1e-5 or out["decoded"] != semicrf.backtrack_backward(ptr, diag, None) \
+            or out["decoded_forced"] != semicrf.backtrack_backward(ptr, diag, [100] * n):
+        raise AssertionError(f"crf_minimal_example: logProb {lp_err} off the plain version's, or a decode differs")
+    print(f"path 8 (c) crf_minimal_example on the card: logProb within {lp_err:.3g} relative of "
+          f"eval_path - log_z_slow (allowed 1e-5), both decodes equal the plain tables' walk "
+          f"({sum(map(len, out['decoded']))} intervals), launches {got}; {len(printed.getvalue())} "
+          f"bytes printed")
+
+    # (d) path 1's piece on two "devices", both the card
+    model = TransKun(conf, device=dev, seed=SEED)
+    with torch.no_grad():
+        model.module.scorer.map[0].bias[-1] = -8.0
+    model.decode_k_budget = budget
+    reset_counts()
+    t0 = time.perf_counter()
+    many = list(model.transcribe_many([audio, audio], devices=[dev, dev]))
+    torch.cuda.synchronize()
+    many_wall = time.perf_counter() - t0
+    got = counts()
+    pad = math.ceil((conf.segmentSizeInSecond - conf.segmentHopSizeInSecond) * conf.fs)
+    hop = math.ceil(conf.segmentHopSizeInSecond * conf.fs / conf.hopSize) * conf.hopSize
+    n_seg = math.ceil((audio.shape[0] + 2 * pad) / hop)
+    group = transkun_module.DEFAULT_SEGMENT_BATCH
+    want = {**dict.fromkeys(KERNELS, 0), "viterbi_bwd": 2 * n_seg, "decode_walk": 2 * -(-n_seg // group)}
+    if got != want or model.last_transcribe_fallback_from is not None:
+        raise AssertionError(f"transcribe_many(devices=...) launches {got}, calls made {want}")
+    for notes_i in many:
+        equal, worst = same_notes(notes_i, notes)
+        if not equal:
+            raise AssertionError(f"transcribe_many(devices=[cuda:0, cuda:0]): notes differ from path 1's "
+                                 f"({len(notes_i)} against {len(notes)}, {worst} s)")
+    add(got)
+    print(f"path 8 (d) transcribe_many(devices=[cuda:0, cuda:0]) over 2 copies ({card}): wall "
+          f"{many_wall:.3f} s, notes equal path 1's ({len(notes)}), launches {got}")
+
+    # (e) the evaluation CLI on path 1's MIDI against itself
+    for sub in ("est", "gt"):
+        os.makedirs(os.path.join(tmp, "metrics", sub))
+        write_midi(notes, os.path.join(tmp, "metrics", sub, "piece.mid"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics_cli.main([os.path.join(tmp, "metrics", "est"), os.path.join(tmp, "metrics", "gt"),
+                          "--outputJSON", os.path.join(tmp, "metrics.json")])
+    with open(os.path.join(tmp, "metrics.json")) as f:
+        note_f1 = json.load(f)["aggregated"]["note"][2]
+    if note_f1 != 1.0:
+        raise AssertionError(f"compute_metrics of path 1's MIDI against itself: note F1 {note_f1}")
+    print(f"path 8 (e) compute_metrics on path 1's MIDI against itself: note F1 {note_f1}")
+
+    # (f) the timing marks of path 1's piece
+    os.environ["TRANSKUN_TPU_TIMING"] = "silent"
+    try:
+        reset_counts()
+        marked = model.transcribe(audio)
+        torch.cuda.synchronize()
+        add(counts())
+    finally:
+        del os.environ["TRANSKUN_TPU_TIMING"]
+    marks = model.last_transcribe_marks
+    if not same_notes(marked, notes)[0] or [m[0] for m in marks[-3:]] != ["event waited for", "assembled", "merged"]:
+        raise AssertionError(f"timing marks {marks}")
+    phases = [(label, round((at - before) * 1e3, 2)) for (_, before), (label, at) in zip(marks, marks[1:])]
+    print(f"path 8 (f) TRANSKUN_TPU_TIMING=silent, path 1's piece ({card}), ms since the mark before: {phases}")
+    figures["marks_ms"] = phases
+    del model
     return launches, figures
 
 
@@ -2918,6 +3367,13 @@ def main() -> int:
             dev, card, audio, os.path.join(tmp, "corpus"), pickles, budget, counts, reset_counts)
         print(f"path 7 wall {time.perf_counter() - t0:.1f} s")
 
+        # -- path 8: multi-process training and the remaining entry points -------
+        t0 = time.perf_counter()
+        by_path["dist"], dist_figures = dist_path(
+            dev, card, os.path.join(tmp, "corpus"), pickles, args, tmp, conf, audio, notes, budget,
+            counts, reset_counts)
+        print(f"path 8 wall {time.perf_counter() - t0:.1f} s")
+
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
     reset_counts()
@@ -2997,6 +3453,7 @@ def main() -> int:
             raise AssertionError(f"no path launched {name}")
     print(json.dumps({"v1": v1_figures}))
     print(json.dumps({"branches": branch_figures}))
+    print(json.dumps({"dist": dist_figures}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

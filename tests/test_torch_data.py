@@ -266,7 +266,7 @@ TINY1 = {
 }
 
 GUARD = """
-import os, sys
+import os, shutil, sys
 import numpy as np
 from transkun_tpu_torch.cli.create_dataset_maestro import main as create_dataset
 from transkun_tpu_torch.cli.train import main as train
@@ -287,6 +287,21 @@ out = os.path.join(tmp, "out.mid")
 transcribe([os.path.join(root, "2020", "p1.wav"), out, "--conf", conf, "--weight", ckpt,
             "--device", "cpu"])
 assert os.path.exists(out)
+from transkun_tpu_torch import crf_minimal_example
+from transkun_tpu_torch.cli import compute_metrics, gen_conf, plot_deviation
+from transkun_tpu_torch.parallel import init_distributed, process_info
+from transkun_tpu_torch.utils import profiling
+for sub in ("est", "gt"):
+    os.makedirs(os.path.join(tmp, sub))
+    shutil.copy(os.path.join(root, "2020", "p1.midi"), os.path.join(tmp, sub, "p1.midi"))
+metrics = os.path.join(tmp, "metrics.json")
+compute_metrics.main([os.path.join(tmp, "est"), os.path.join(tmp, "gt"), "--outputJSON", metrics])
+plot_deviation.main([metrics, "--cumulative", "--output", os.path.join(tmp, "dev.png"), "--noDisplay"])
+gen_conf.main([])
+crf_minimal_example.main(["--device", "cpu"])
+assert not init_distributed("cpu") and process_info() == (0, 1)
+with profiling.device_trace(os.path.join(tmp, "trace")):
+    profiling.block(crf_minimal_example.main(["--device", "cpu"]))
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
 assert not bad, bad
@@ -296,9 +311,10 @@ print("entry points ran,", run["steps"], "steps")
 
 def test_entry_points_import_nothing_of_jax(tmp_path):
     """Dataset build, a tiny CPU training run on the fused route (plain
-    versions), a transcription with the saved weights and ``chip_smoke``'s
-    import, in a fresh interpreter: then no module of jax, jaxlib, flax or
-    transkun_tpu may be loaded."""
+    versions), a transcription with the saved weights, the evaluation,
+    plotting and conf CLIs, the semi-CRF example, the process-group and
+    profiling modules and ``chip_smoke``'s import, in a fresh interpreter:
+    then no module of jax, jaxlib, flax or transkun_tpu may be loaded."""
     root = str(tmp_path / "corpus")
     meta = _corpus(root, pmidi, pnote)
     conf = tmp_path / "tiny.conf"

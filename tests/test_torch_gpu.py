@@ -6,7 +6,10 @@ scores, a learned noise) at its shapes and tails; the walk kernel (the
 decode's stitching chain) against ``walk_group_plain``, as integers; the
 attention kernels, the streaming ones also at the edges of their tiles,
 key splits and head dims, run twice and with handed and fetched row
-statistics for the same bits.
+statistics for the same bits; a two-rank gloo training step with both ranks
+on one card (``tests/_torch_dist_ranks.py``), whose ranks must hold the same
+parameters; the semi-CRF example (``crf_minimal_example``) against its plain
+version.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -1054,3 +1057,44 @@ def test_walk_kernel_rejects_what_it_does_not_take(cuda):
         walk.walk_group(ptr[:, :-1], diag, bpres, start, *geometry)
     with pytest.raises(ValueError):  # another device
         walk.walk_group(ptr, diag, bpres, start.cpu(), *geometry)
+
+
+@pytest.mark.gpu
+def test_two_rank_step_on_one_card_keeps_the_ranks_equal(cuda, tmp_path):
+    """Two gloo ranks on ``cuda:0`` take two data-parallel steps: each
+    launches the alpha and beta kernels once a step, and the ranks'
+    parameters are equal bit for bit after each step."""
+    import _torch_dist_ranks as ranks
+
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    ranks.run_pair("v2_card", str(tmp_path / "none.pt"), outs)
+    got = [torch.load(p, weights_only=False) for p in outs]
+    for step in range(ranks.STEPS):
+        a, b = got[0]["params"][step], got[1]["params"][step]
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert got[0]["launches"] == got[1]["launches"] == (ranks.STEPS, ranks.STEPS)
+    assert not torch.equal(got[0]["params"][0]["scorer.map.0.weight"],
+                           got[0]["params"][1]["scorer.map.0.weight"])
+
+
+@pytest.mark.gpu
+def test_crf_example_on_the_card_equals_plain(cuda):
+    """``crf_minimal_example`` on the card: ``logProb`` (the alpha and beta
+    kernels) within 1e-5 relative of ``eval_path - log_z_slow``, and both
+    decodes (the Viterbi kernel) equal to the plain tables' walk."""
+    from transkun_tpu_torch import crf_minimal_example
+
+    before = (viterbi.launches, logz.alpha_launches, logz.beta_launches)
+    out = crf_minimal_example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    assert (viterbi.launches - before[0], logz.alpha_launches - before[1],
+            logz.beta_launches - before[2]) == (2, 1, 1)
+    score, noise = out["score"], out["noise_score"]
+    want = semicrf.eval_path(out["intervals"], score, noise) - semicrf.log_z_slow(score, noise)
+    torch.testing.assert_close(out["log_prob"], want, rtol=1e-5, atol=0)
+    s_t, noise_pad, gate = semicrf.decode_layout(score, noise)
+    t, n = score.shape[0], score.shape[2]
+    ptr = viterbi.viterbi_backward_tables_plain(s_t, noise_pad, gate)[: t - 1, :n].cpu().numpy()
+    diag = (gate[:t, :n] > 0).cpu().numpy()
+    assert out["decoded"] == semicrf.backtrack_backward(ptr, diag, None)
+    assert out["decoded_forced"] == semicrf.backtrack_backward(ptr, diag, [100] * n)

@@ -485,4 +485,4 @@ def test_cli_train_resume_transcribe(tmp_path):
                 "--device", "cpu"])
     assert out.exists()
     with pytest.raises(SystemExit):  # an option of the JAX trainer that is not ported
-        train(args + ["--nDevices", "2"])
+        train(args + ["--deviceData", "on"])

@@ -1,5 +1,5 @@
 """Training CLI of the port (counterpart of ``transkun_tpu/cli/train.py`` and
-the reference ``python3 -m transkun.train``), one process on one device:
+the reference ``python3 -m transkun.train``):
 
     python -m transkun_tpu_torch.cli.train ckpt.pt \
         --datasetPath ... --datasetMetaFile_train train.pickle \
@@ -15,15 +15,36 @@ TF32 is turned off for matmuls and convolutions.  The default device is
 ``cuda`` and the command fails when CUDA is absent; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 
-``main`` returns a record of the run (losses, per-step seconds, the largest
-per-step device memory, the seconds of each stats pass, and the counts of
-steps, stats passes and validation batches) for callers that drive it from
-Python.
+Data parallelism, one process a rank (``train.step``: gradients and loss
+summed over the ranks, not averaged):
+
+- ``--nDevices N`` on one node spawns N ranks (``torch.multiprocessing``),
+  one a card over NCCL; with ``--device cpu``, N ranks over gloo.  Fewer
+  cards than N is an error.
+- under ``torchrun`` (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) the process joins the
+  launcher's group; ``--nDevices``, if given, must equal ``WORLD_SIZE``.
+
+``--batchSize`` is a rank's batch; the global batch is ``batchSize * N``.
+The run seed is rank 0's, rank 0's weights are broadcast, each rank loads
+its shard of the epoch's chunks, the label capacity K grows alike on every
+rank, each rank validates its shard and the counts are summed; rank 0 alone
+prints, saves (a barrier after each save) and writes the TensorBoard log
+(``tensorboardX``, ``ckpt + ".log"``, the JAX package's tags).
+
+``main`` returns a record of the run (rank 0's where several ranks ran:
+losses, per-step seconds, the largest per-step device memory, the seconds
+of each stats pass, and the counts of steps, stats passes and validation
+batches) for callers that drive it from Python.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import sys
+import tempfile
 import time
 
 
@@ -69,15 +90,17 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 activations (params stay fp32)")
+    parser.add_argument("--nDevices", default=None, type=int,
+                        help="data-parallel ranks: without a launcher, spawn this many (one a "
+                        "card, or gloo ranks with --device cpu); under torchrun it must equal "
+                        "WORLD_SIZE")
     # options of the JAX trainer that this port does not have yet: they
     # raise instead of being ignored
-    parser.add_argument("--nDevices", default=None, type=int)
     parser.add_argument("--deviceData", default="auto", choices=["auto", "on", "off"])
     parser.add_argument("--linkInt16", default="auto", choices=["auto", "force", "off"])
     args = parser.parse_args(argv)
 
     not_ported = [
-        (args.nDevices is not None and args.nDevices > 1, "--nDevices > 1 (multi-process training)"),
         (args.deviceData == "on", "--deviceData on (device-resident corpus)"),
         (args.linkInt16 == "force", "--linkInt16 force"),
     ]
@@ -87,18 +110,80 @@ def main(argv=None):
 
     import torch
 
-    from ..data import dataset as D
-    from ..data.augment import Augmentator
-    from ..models.config import parse_conf_file
-    from ..train.checkpoint import checkpoint_exists, load_checkpoint, restore_train_state, save_checkpoint
-    from ..train.optim import AdaBelief
-    from ..train.step import TrainState, make_train_step
-    from ..train.validate import do_validation
-    from ..utils import compute_param_size
+    from ..parallel import dist as P
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
+    if P.launched():
+        world = int(os.environ["WORLD_SIZE"])
+        if args.nDevices is not None and args.nDevices != world:
+            raise SystemExit(f"--nDevices {args.nDevices} under a launcher of WORLD_SIZE {world}")
+    elif args.nDevices is not None and args.nDevices > 1:
+        return _spawn(args, sys.argv[1:] if argv is None else list(argv))
+    return _train(args)
+
+
+def _spawn(args, argv):
+    """Run ``argv`` in ``--nDevices`` spawned ranks on this node; returns
+    rank 0's record."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from ..parallel.dist import free_port
+
+    n = args.nDevices
+    threads = 0
+    if args.device == "cuda":
+        found = torch.cuda.device_count()
+        if found < n:
+            raise SystemExit(f"--nDevices {n} needs {n} cards, one a rank; {found} found")
+    else:  # the ranks share this process's CPU threads
+        threads = max(1, torch.get_num_threads() // n)
+    with tempfile.TemporaryDirectory() as tmp:
+        record_path = os.path.join(tmp, "record.json")
+        mp.spawn(_spawned_rank, args=(n, free_port(), argv, record_path, threads), nprocs=n)
+        with open(record_path) as f:
+            return json.load(f)
+
+
+def _spawned_rank(index, world, port, argv, record_path, threads):
+    """One rank of ``_spawn``: the launcher's environment, then ``main``."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(world), LOCAL_RANK=str(index),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        record = main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if index == 0:
+        with open(record_path, "w") as f:
+            json.dump(record, f)
+
+
+def _train(args):
+    import torch
+
+    from ..data import dataset as D
+    from ..data.augment import Augmentator
+    from ..models.config import parse_conf_file
+    from ..parallel import dist as P
+    from ..train.checkpoint import checkpoint_exists, load_checkpoint, restore_train_state, save_checkpoint
+    from ..train.optim import AdaBelief
+    from ..train.step import TrainState, dropout_seed, make_train_step
+    from ..train.validate import do_validation
+    from ..utils import compute_param_size
+
+    group = None
     device = torch.device(args.device)
+    if P.init_distributed(args.device):
+        group = torch.distributed.group.WORLD
+        device = P.rank_device(args.device)
+    rank, world = P.process_info()
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -107,17 +192,24 @@ def main(argv=None):
     if args.gradientCheckpoint != "auto":
         conf.useGradientCheckpoint = args.gradientCheckpoint == "on"
     run_seed = int(time.time()) if args.seed is None else args.seed
+    # every rank builds the same weights from rank 0's seed, and takes rank
+    # 0's weights besides (ref: rank 0 initializes, train.py:53-73)
+    run_seed = int(P.broadcast_from_0(torch.tensor(run_seed, dtype=torch.int64), group))
     model = module_mod.TransKun(conf, device=device, seed=run_seed % 2**31,
                                 compute_dtype=torch.bfloat16 if args.bf16 else None)
-    print(f"device: {device}, batch: {args.batchSize}, bf16: {args.bf16}")
-    print(f"#Param(M): {compute_param_size(model.module):.2f}")
+    if group is not None:
+        P.broadcast_module_(model.module, group)
+    if rank == 0:
+        print(f"device: {device}, batch: {args.batchSize} a rank, {world} rank(s), global batch: "
+              f"{args.batchSize * world}, bf16: {args.bf16}")
+        print(f"#Param(M): {compute_param_size(model.module):.2f}")
 
     optimizer = AdaBelief(
         model.module.named_parameters(), max_lr=args.max_lr, weight_decay=args.weight_decay,
         n_iter=args.nIter, warmup_cutoff=args.warmupCutoff,
     )
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(model, clip_quantile=args.gradClippingQuantile)
+    step_fn = make_train_step(model, clip_quantile=args.gradClippingQuantile, group=group)
 
     def snapshot():
         return {k: v.detach().clone() for k, v in model.module.state_dict().items()}
@@ -126,8 +218,9 @@ def main(argv=None):
     loss_tracker = {"train": [], "val": []}
     start_epoch = 0
     ckpt_path = args.saved_filename
-    if checkpoint_exists(ckpt_path):
-        print("resuming from checkpoint...")
+    if checkpoint_exists(ckpt_path):  # every rank loads the same file
+        if rank == 0:
+            print("resuming from checkpoint...")
         ckpt = load_checkpoint(ckpt_path)
         restore_train_state(state, ckpt)
         best_state_dict = ckpt.get("best_state_dict", ckpt["state_dict"])
@@ -137,9 +230,37 @@ def main(argv=None):
         # continue the exact data and dropout stream of the interrupted run
         run_seed = int(extra.get("run_seed", run_seed))
 
-    def save(epoch):
-        save_checkpoint(ckpt_path, state, best_state_dict,
-                        {"loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
+    def save(epoch, message=None):
+        if rank == 0:
+            save_checkpoint(ckpt_path, state, best_state_dict,
+                            {"loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
+            if message:
+                print(message, flush=True)
+        P.barrier(group)
+
+    def log(*a, **kw):
+        if rank == 0:
+            print(*a, **kw)
+
+    writer = None
+    if rank == 0:  # the JAX package's rule: no tensorboardX, no log
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            print("tensorboardX is not installed: no TensorBoard log")
+        else:
+            writer = SummaryWriter(ckpt_path + ".log")
+
+    def scalars(values, step):
+        if writer is not None:
+            for tag, value in values.items():
+                writer.add_scalar(tag, value, step)
+
+    k_sync = None
+    if group is not None:
+        # label K auto-grow agrees across ranks, so every rank pads alike
+        def k_sync(densest: int) -> int:
+            return int(P.all_reduce_max(torch.tensor(densest, dtype=torch.int64), group))
 
     dataset = D.DatasetMaestro(args.datasetPath, args.datasetMetaFile_train)
     dataset_val = D.DatasetMaestro(args.datasetPath, args.datasetMetaFile_val)
@@ -156,117 +277,144 @@ def main(argv=None):
     record = {"losses": [], "step_seconds": [], "step_peak_bytes": 0, "stats_seconds": [],
               "steps": 0, "stats_passes": 0, "val_batches": 0, "val_results": []}
     global_step = state.step
-    for epoch in range(start_epoch, args.maxEpoch):
-        data_iter = D.DatasetMaestroIterator(
-            dataset, hop, chunk, seed=epoch * 100 + run_seed, augmentator=augmentator,
-            notes_strictly_contained=False,
-        )
-        loader = D.BatchLoader(
-            data_iter, args.batchSize, shuffle=True, seed=epoch, drop_last=True,
-            num_workers=args.dataLoaderWorkers,
-        )
-        loss_all = []
-        pending_log = []
+    try:
+        for epoch in range(start_epoch, args.maxEpoch):
+            data_iter = D.DatasetMaestroIterator(
+                dataset, hop, chunk, seed=epoch * 100 + run_seed, augmentator=augmentator,
+                notes_strictly_contained=False,
+            )
+            # each rank loads its shard of the epoch's chunks; every rank takes
+            # the smallest shard's count of steps, so the collectives pair up
+            loader = D.BatchLoader(
+                data_iter, args.batchSize, shuffle=True, seed=epoch, drop_last=True,
+                rank=rank, world_size=world, num_workers=args.dataLoaderWorkers,
+            )
+            n_steps = len(data_iter) // world // args.batchSize
+            loss_all = []
+            pending_log = []
 
-        for idx, batch in enumerate(loader):
-            notes_batch = batch["notes"]
-            # chunk bounds are float seconds, so lengths jitter by a sample:
-            # crop to one size
-            audio = batch["audioSlices"][:, :n_chunk_samples]
-            frames = model.frames(audio)
-            labels = model.labels(notes_batch, args.maxEvents)
-            generator = torch.Generator(device=device).manual_seed(global_step * 7919 + run_seed)
-            if device.type == "cuda":
-                torch.cuda.reset_peak_memory_stats(device)
-            t_step = time.perf_counter()
-            metrics = step_fn(state, frames, labels, generator)
-            if device.type == "cuda":
-                record["step_peak_bytes"] = max(
-                    record["step_peak_bytes"], torch.cuda.max_memory_allocated(device)
-                )
-            record["steps"] += 1
-            pending_log.append((epoch, idx, global_step, metrics, t_step))
-            if len(pending_log) >= max(args.logEvery, 1) or idx == len(loader) - 1:
-                fetched = torch.stack([
-                    torch.stack([m["loss"], m["grad_norm"], m["clip_value"], m["finite"].float()])
-                    for *_, m, _ in pending_log
-                ]).cpu().numpy()
-                # wall seconds per step since the first pending step began;
-                # with --logEvery 1 it is the step alone
-                dt = (time.perf_counter() - pending_log[0][4]) / len(pending_log)
-                bad_step = None
-                for (ep_i, idx_i, gs_i, _, _), (loss, gnorm, clipv, fin) in zip(pending_log, fetched):
-                    print(
-                        f"epoch:{ep_i} progress:{idx_i / max(len(loader), 1):0.3f} "
-                        f"step:{gs_i} loss:{loss:0.4f} gradNorm:{gnorm:0.2f} "
-                        f"clipValue:{clipv:0.2f} time:{dt:0.2f}",
-                        flush=True,
+            for idx, batch in enumerate(loader):
+                if idx == n_steps:
+                    break
+                notes_batch = batch["notes"]
+                # chunk bounds are float seconds, so lengths jitter by a sample:
+                # crop to one size
+                audio = batch["audioSlices"][:, :n_chunk_samples]
+                frames = model.frames(audio)
+                labels = model.labels(notes_batch, args.maxEvents, k_sync=k_sync)
+                generator = torch.Generator(device=device).manual_seed(
+                    dropout_seed(run_seed, global_step, rank))
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                t_step = time.perf_counter()
+                metrics = step_fn(state, frames, labels, generator)
+                if device.type == "cuda":
+                    record["step_peak_bytes"] = max(
+                        record["step_peak_bytes"], torch.cuda.max_memory_allocated(device)
                     )
-                    loss_all.append(float(loss))
-                    record["losses"].append(float(loss))
-                    record["step_seconds"].append(dt)
-                    if not fin and bad_step is None:
-                        bad_step = gs_i
-                pending_log.clear()
-                if bad_step is not None:
-                    # the step skipped the update on the device, so the state
-                    # a checkpoint would hold is the last good one
-                    print(f"non-finite loss/grad at step {bad_step} (update skipped), aborting")
-                    raise SystemExit(1)
+                record["steps"] += 1
+                pending_log.append((epoch, idx, global_step, metrics, t_step))
+                if len(pending_log) >= max(args.logEvery, 1) or idx == n_steps - 1:
+                    fetched = torch.stack([
+                        torch.stack([m["loss"], m["grad_norm"], m["clip_value"], m["finite"].float()])
+                        for *_, m, _ in pending_log
+                    ]).cpu().numpy()
+                    # wall seconds per step since the first pending step began;
+                    # with --logEvery 1 it is the step alone
+                    dt = (time.perf_counter() - pending_log[0][4]) / len(pending_log)
+                    bad_step = None
+                    for (ep_i, idx_i, gs_i, _, _), (loss, gnorm, clipv, fin) in zip(pending_log, fetched):
+                        log(
+                            f"epoch:{ep_i} progress:{idx_i / max(n_steps, 1):0.3f} "
+                            f"step:{gs_i} loss:{loss:0.4f} gradNorm:{gnorm:0.2f} "
+                            f"clipValue:{clipv:0.2f} time:{dt:0.2f}",
+                            flush=True,
+                        )
+                        scalars({"Loss/train": loss, "Optimizer/gradNorm": gnorm,
+                                 "Optimizer/clipValue": clipv}, gs_i)
+                        loss_all.append(float(loss))
+                        record["losses"].append(float(loss))
+                        record["step_seconds"].append(dt)
+                        if not fin and bad_step is None:
+                            bad_step = gs_i
+                    pending_log.clear()
+                    if bad_step is not None:
+                        # the step skipped the update on the device (on every
+                        # rank: the flag is of the summed values), so the state
+                        # a checkpoint would hold is the last good one
+                        log(f"non-finite loss/grad at step {bad_step} (update skipped), aborting")
+                        raise SystemExit(1)
 
-            if args.statsEvery > 0 and idx % args.statsEvery == 0:
-                t_stats = time.perf_counter()  # both passes end in host numbers
-                stats = model.compute_stats(audio, notes_batch)
-                stats2 = model.compute_stats_mireval(audio, notes_batch)
-                record["stats_seconds"].append(time.perf_counter() - t_stats)
-                record["stats_passes"] += 1
-                n_gt = stats2["nGT"] + 1e-4
-                n_est = stats2["nEst"] + 1e-4
-                n_cor = stats2["nCorrect"] + 1e-4
-                p, r = n_cor / n_est, n_cor / n_gt
-                f1 = 2 * p * r / (p + r)
-                fw_p = (stats["nCorrectFramewise"] + 1e-4) / (stats["nEstFramewise"] + 1e-4)
-                fw_r = (stats["nCorrectFramewise"] + 1e-4) / (stats["nGTFramewise"] + 1e-4)
-                fw_f1 = 2 * fw_p * fw_r / (fw_p + fw_r)
-                print(f"f1:{f1:.4f} precision:{p:.4f} recall:{r:.4f} f1Frame:{fw_f1:.4f}")
+                if args.statsEvery > 0 and idx % args.statsEvery == 0 and rank == 0:
+                    t_stats = time.perf_counter()  # both passes end in host numbers
+                    stats = model.compute_stats(audio, notes_batch)
+                    stats2 = model.compute_stats_mireval(audio, notes_batch)
+                    record["stats_seconds"].append(time.perf_counter() - t_stats)
+                    record["stats_passes"] += 1
+                    n_gt = stats2["nGT"] + 1e-4
+                    n_est = stats2["nEst"] + 1e-4
+                    n_cor = stats2["nCorrect"] + 1e-4
+                    p, r = n_cor / n_est, n_cor / n_gt
+                    f1 = 2 * p * r / (p + r)
+                    fw_p = (stats["nCorrectFramewise"] + 1e-4) / (stats["nEstFramewise"] + 1e-4)
+                    fw_r = (stats["nCorrectFramewise"] + 1e-4) / (stats["nGTFramewise"] + 1e-4)
+                    fw_f1 = 2 * fw_p * fw_r / (fw_p + fw_r)
+                    print(f"f1:{f1:.4f} precision:{p:.4f} recall:{r:.4f} f1Frame:{fw_f1:.4f}")
+                    scalars({"Loss/train_f1": f1, "Loss/train_precision": p, "Loss/train_recall": r,
+                             "Loss/train_f1_frame": fw_f1,
+                             "Loss/train_mse_velocity": stats["seVelocityForced"] / n_gt,
+                             "Loss/train_mse_OF": stats["seOFForced"] / n_gt}, global_step)
 
-            if idx % args.ckptEvery == args.ckptEvery - 1:
-                save(epoch)
-                print("saved", flush=True)
-            global_step += 1
+                if idx % args.ckptEvery == args.ckptEvery - 1:
+                    save(epoch, "saved")
+                global_step += 1
+                if args.stopAtStep is not None and global_step >= args.stopAtStep:
+                    break
+
             if args.stopAtStep is not None and global_step >= args.stopAtStep:
+                save(epoch, f"stopAtStep {args.stopAtStep} reached; saved")
                 break
 
-        if args.stopAtStep is not None and global_step >= args.stopAtStep:
-            save(epoch)
-            print(f"stopAtStep {args.stopAtStep} reached; saved", flush=True)
-            break
+            loss_tracker["train"].append(sum(loss_all) / max(len(loss_all), 1))
+            if (epoch + 1) % max(args.validateEvery, 1) != 0:
+                save(epoch + 1)
+                continue
 
-        loss_tracker["train"].append(sum(loss_all) / max(len(loss_all), 1))
-        if (epoch + 1) % max(args.validateEvery, 1) != 0:
+            # each rank validates its shard; the counts are summed over the ranks
+            log("Validating...", flush=True)
+            val_iter = D.DatasetMaestroIterator(
+                dataset_val, conf.segmentHopSizeInSecond, chunk,
+                notes_strictly_contained=False, seed=run_seed + epoch * 100,
+            )
+            val_loader = D.BatchLoader(
+                val_iter, min(2 * args.batchSize * world, max(len(val_iter), 1)),
+                shuffle=True, seed=epoch, drop_last=False, rank=rank, world_size=world,
+            )
+            val_result = do_validation(model, val_loader, conf.fs, group)
+            record["val_batches"] += len(val_loader)
+            record["val_results"].append(val_result)
+            log("result:", val_result, flush=True)
+            scalars({"val/" + k: v for k, v in val_result.items()}, epoch)
+            loss_tracker["val"].append(val_result["f1"])
+            if val_result["f1"] >= max(loss_tracker["val"]):
+                log("best updated", flush=True)
+                best_state_dict = snapshot()
             save(epoch + 1)
-            continue
-
-        print("Validating...", flush=True)
-        val_iter = D.DatasetMaestroIterator(
-            dataset_val, conf.segmentHopSizeInSecond, chunk,
-            notes_strictly_contained=False, seed=run_seed + epoch * 100,
-        )
-        val_loader = D.BatchLoader(
-            val_iter, min(2 * args.batchSize, max(len(val_iter), 1)),
-            shuffle=True, seed=epoch, drop_last=False,
-        )
-        val_result = do_validation(model, val_loader, conf.fs)
-        record["val_batches"] += len(val_loader)
-        record["val_results"].append(val_result)
-        print("result:", val_result, flush=True)
-        loss_tracker["val"].append(val_result["f1"])
-        if val_result["f1"] >= max(loss_tracker["val"]):
-            print("best updated", flush=True)
-            best_state_dict = snapshot()
-        save(epoch + 1)
+    finally:
+        if writer is not None:
+            writer.close()
     return record
 
 
-if __name__ == "__main__":
+def cli():
+    """The console script: ``main`` without its record (a returned object
+    would become the exit status), leaving a launcher's group."""
     main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    cli()

@@ -7,7 +7,8 @@ The default device is ``cuda``, and the command fails when CUDA is absent;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.  A
 directory input transcribes every audio file in it, mirroring the tree,
 through ``TransKun.transcribe_many``: the next file is read and dispatched
-before the current one's notes are assembled.
+before the current one's notes are assembled; with ``--allDevices`` the
+files go round-robin over every visible card (multi-card serving).
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ def main(argv=None):
     parser.add_argument("--segmentSize", type=float, default=None, help="segment size (s)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--bf16", action="store_true", help="bfloat16 compute")
+    parser.add_argument(
+        "--allDevices", action="store_true",
+        help="directory mode: round-robin the files over every visible card",
+    )
     args = parser.parse_args(argv)
 
     import torch
@@ -86,10 +91,15 @@ def main(argv=None):
             durations.append(audio.shape[0] / model.fs)
             yield audio
 
+    devices = None
+    if args.allDevices:
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if args.device == "cuda" else [torch.device("cpu")])
     results = model.transcribe_many(
         read_all(),
         step_in_second=args.segmentHopSize,
         segment_size_in_second=args.segmentSize,
+        devices=devices,
     )
     for p, notes in zip(files, results):
         out = pathlib.Path(args.outPath) / p.relative_to(root).with_suffix(".midi")
@@ -99,6 +109,7 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     total_audio = sum(durations)
     print(f"RTF: {total_audio / max(dt, 1e-9):.1f}x ({total_audio:.0f}s audio in {dt:.0f}s)")
+
 
 if __name__ == "__main__":
     main()

@@ -18,8 +18,9 @@ Viterbi, alpha and beta kernels run on the unpadded routes
 once and hand the learned noise on.
 
 BatchNorm (``SyncBatchNorm``) keeps the reference's train-mode statistics
-(biased variance to normalize, running variance ``ss / (n - 1) - mean**2``);
-the sum across processes is not ported (one process).  Train and eval modes
+(biased variance to normalize, running variance ``ss / (n - 1) - mean**2``)
+and, under data parallelism (``make_train_loss(group=...)``), sums them over
+the group's ranks, differentiably.  Train and eval modes
 are explicit, as in ``models/transkun.py``.  Segments are decoded one after
 the other, the final ones shorter (not padded), as the JAX package does.
 """
@@ -37,6 +38,7 @@ from torch import nn
 from ..data.note import Note, resolve_overlapping
 from ..ops import distributions as dist
 from ..ops import frontend, semicrf
+from ..parallel.dist import all_reduce_sum_differentiable
 from ..utils import compute_param_size
 from .layers import Dropout, set_dropout_generator
 from .transkun import MelFrontend, _gather_ctx, target_midi_pitches
@@ -99,13 +101,20 @@ class SyncBatchNorm(nn.Module):
     with the biased ``E[x^2] - E[x]^2``; update the running statistics with
     momentum 0.01 and ``uvar = ss / (n - 1) - mean^2`` (which differs from
     the unbiased variance by ``n / (n - 1)`` on the mean^2 term; kept for
-    parity).  Eval mode normalizes with the running statistics.  The
-    statistics are this process's alone.  ``num_batches_tracked`` counts
-    train-mode calls, so that a reference state_dict loads strictly."""
+    parity).  Eval mode normalizes with the running statistics.  With a
+    ``group`` (a ``torch.distributed`` group, set by ``set_sync_group``) the
+    train-mode statistics (s, ss, n) are summed over its ranks by an
+    autograd-aware all-reduce (``parallel.all_reduce_sum_differentiable``),
+    whose backward sums the cotangents over the ranks as the transpose of
+    the JAX package's ``psum`` does (``models/ablation.py:112-119``);
+    without one they are this process's.
+    ``num_batches_tracked`` counts train-mode calls, so that a reference
+    state_dict loads strictly."""
 
     def __init__(self, num_features: int, momentum: float = 0.01, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -120,6 +129,10 @@ class SyncBatchNorm(nn.Module):
             s = xf.sum(red)
             ss = (xf * xf).sum(red)
             n = float(xf.numel() // c)
+            if self.group is not None:
+                stats = torch.cat([s, ss, s.new_full((1,), n)])
+                stats = all_reduce_sum_differentiable(stats, self.group)
+                s, ss, n = stats[:c], stats[c : 2 * c], stats[2 * c]
             mean = s / n
             var = ss / n - mean * mean
             with torch.no_grad():
@@ -134,6 +147,14 @@ class SyncBatchNorm(nn.Module):
         inv_std = torch.rsqrt(var + self.eps)
         y = (xf - mean.view(shape)) * inv_std.view(shape) * self.weight.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+def set_sync_group(module: nn.Module, group) -> None:
+    """Point every ``SyncBatchNorm`` under ``module`` at ``group`` (None:
+    this process's statistics alone)."""
+    for m in module.modules():
+        if isinstance(m, SyncBatchNorm):
+            m.group = group
 
 
 class ConvBlock(nn.Module):
@@ -173,7 +194,13 @@ class PreLayer(nn.Module):
 class BiGRU(nn.Module):
     """A bidirectional GRU stack and its output projection (ref
     ``SimpleRNN``): x [N, T, C] -> [N, T, output_size].  Dropout between
-    layers is ``nn.GRU``'s own."""
+    layers is ``nn.GRU``'s own, which draws from torch's global generator of
+    x's device.  With ``self.generator`` set (``set_dropout_generator``, a
+    generator a step) that generator is seeded from the step generator's
+    seed for the call and restored after, so the masks follow the step's
+    stream (a rank's own in data parallelism).  On a card cuDNN keeps its
+    own dropout state, seeded once a process at the first train-mode call:
+    from the first step's seed."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int, n_layers: int,
                  dropout: float = 0.0):
@@ -181,9 +208,16 @@ class BiGRU(nn.Module):
         self.grus = nn.GRU(input_size, hidden_size, n_layers, batch_first=True,
                            dropout=dropout if n_layers > 1 else 0.0, bidirectional=True)
         self.outProj = nn.Linear(2 * hidden_size, output_size)
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.outProj(self.grus(x)[0])
+        if not (self.training and self.grus.dropout > 0 and self.generator is not None):
+            return self.outProj(self.grus(x)[0])
+        on_card = x.device.type == "cuda"
+        with torch.random.fork_rng(devices=[x.device] if on_card else []):
+            gen = torch.cuda.default_generators[x.device.index] if on_card else torch.default_generator
+            gen.manual_seed(self.generator.initial_seed())
+            return self.outProj(self.grus(x)[0])
 
 
 def _mlp3(input_size: int, hidden1: int, hidden2: int, output_size: int, dropout: float) -> nn.Sequential:
@@ -441,22 +475,26 @@ class TransKunAblation:
         x = torch.from_numpy(np.ascontiguousarray(np.swapaxes(audio_batch, -1, -2), np.float32))
         return frontend.make_frame(x.to(self.device), self.hopSize, self.windowSize)
 
-    def labels(self, notes_batch, max_events: int = 32) -> Labels:
-        """Note lists -> padded label tensors on the device."""
+    def labels(self, notes_batch, max_events: int = 32, k_sync=None) -> Labels:
+        """Note lists -> padded label tensors on the device (``k_sync``: see
+        ``data.labels.encode_batch``)."""
         from ..data.labels import encode_batch
 
-        labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events)
+        labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events,
+                              k_sync=k_sync)
         return tuple(torch.from_numpy(a).to(self.device) for a in labels.astuple())
 
-    def make_train_loss(self):
+    def make_train_loss(self, group=None):
         """loss_fn(frames, labels, generator) -> logp [N, P] in train mode
-        (BatchNorm on the batch's statistics, its running statistics
-        updated), with the scorer's and heads' dropout masks drawn from
-        ``generator``."""
+        (BatchNorm on the batch's statistics, summed over ``group``'s ranks
+        where one is given, its running statistics updated), with the
+        scorer's, heads' and GRU's dropout masks drawn from ``generator``
+        (the GRU's: see ``BiGRU``)."""
 
         def loss_fn(frames, labels, generator):
             self.module.train()
             set_dropout_generator(self.module, generator)
+            set_sync_group(self.module, group)
             return log_prob_padded(self.module, frames, labels)
 
         return loss_fn

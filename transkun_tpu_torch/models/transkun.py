@@ -31,7 +31,11 @@ Train and eval modes are explicit: each entry point sets the mode it needs
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
+import os
+import time
 from collections import defaultdict, deque
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -43,6 +47,7 @@ from ..data.note import Note, resolve_overlapping
 from ..ops import distributions as dist
 from ..ops import frontend, logz, semicrf, walk
 from ..ops.viterbi import viterbi_backward_tables_padded
+from ..utils import compute_param_size
 from .backbone import Backbone, UpConvSkip
 from .config import ModelConfig
 from .layers import (
@@ -390,9 +395,19 @@ class TransKun:
         # resumed from (None: it did not), and each group's compact count
         self.last_transcribe_fallback_from: Optional[int] = None
         self.last_transcribe_group_counts: List[int] = []
+        # with TRANSKUN_TPU_TIMING set: the last transcription's (label, host
+        # clock) marks, from the dispatch's start to the merge's end
+        self.last_transcribe_marks: List[Tuple[str, float]] = []
+        # transcribe_many(devices=...): the module replicated on each other
+        # device, keyed by device, with the weights' versions it was copied at
+        self._replicas: Dict[torch.device, Tuple[Any, "TransKun"]] = {}
 
     def load_state_dict(self, state_dict) -> None:
         self.module.load_state_dict(state_dict, strict=True)
+
+    def param_count(self) -> float:
+        """Parameters in millions."""
+        return compute_param_size(self.module)
 
     # -- training -------------------------------------------------------------
 
@@ -401,16 +416,20 @@ class TransKun:
         x = torch.from_numpy(np.ascontiguousarray(np.swapaxes(audio_batch, -1, -2), np.float32))
         return frontend.make_frame(x.to(self.device), self.hopSize, self.windowSize)
 
-    def labels(self, notes_batch, max_events: int = 32) -> Labels:
-        """Note lists -> padded label tensors on the device."""
+    def labels(self, notes_batch, max_events: int = 32, k_sync=None) -> Labels:
+        """Note lists -> padded label tensors on the device (``k_sync``: see
+        ``data.labels.encode_batch``)."""
         from ..data.labels import encode_batch
 
-        labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events)
+        labels = encode_batch(notes_batch, self.hopSize / self.fs, self.targetMIDIPitch, max_events,
+                              k_sync=k_sync)
         return tuple(torch.from_numpy(a).to(self.device) for a in labels.astuple())
 
-    def make_train_loss(self):
+    def make_train_loss(self, group=None):
         """loss_fn(frames, labels, generator) -> logp [N, P] in train mode,
-        with every dropout mask drawn from ``generator``."""
+        with every dropout mask drawn from ``generator``.  ``group`` is
+        unused: V2 has no statistics to sum across ranks (V1's BatchNorm
+        takes it)."""
 
         def loss_fn(frames, labels, generator):
             self.module.train()
@@ -804,28 +823,79 @@ class TransKun:
         merge_incomplete_event: bool = True,
         velocity_criterion: str = "hamming",
         segment_batch: Optional[int] = None,
-        depth: int = 1,
+        depth: Optional[int] = None,
+        devices: Optional[Sequence[Any]] = None,
     ) -> Iterator[List[Note]]:
         """Pipelined transcription of many pieces: a generator of one note
         list a piece, in input order (the JAX package's
-        ``transcribe_many``, ``:1237-1310``, on one card).
+        ``transcribe_many``, ``:1237-1310``).
 
         ``pieces`` is an iterable of waveforms, or of (anything, waveform)
-        pairs, read lazily.  ``depth`` pieces stay in flight: piece i+1 is
-        read and dispatched before piece i is finished, so the card works
-        on it while the host assembles piece i's notes."""
+        pairs, read lazily.  ``depth`` pieces stay in flight (default: one a
+        device): piece i+1 is read and dispatched before piece i is
+        finished, so the card works on it while the host assembles piece
+        i's notes.  ``devices`` (e.g. every visible card) takes the pieces
+        round-robin, each piece's chain on its own device; the module is
+        replicated once on each device other than this model's and kept for
+        later calls until its weights change."""
+        devs = [self.device] if not devices else [torch.device(d) for d in devices]
+        if depth is None:
+            depth = len(devs)
         if depth < 0:
             raise ValueError(f"depth must be at least 0, got {depth}")
+        models = [self._replica(d) for d in devs]
         queue = deque()
-        for item in pieces:
+        for i, item in enumerate(pieces):
             x = item[1] if isinstance(item, tuple) else item
-            queue.append(self._transcribe_dispatch(
-                x, step_in_second, segment_size_in_second, discard_second_half,
-                velocity_criterion, segment_batch))
+            m = models[i % len(models)]
+            with m._on_device():
+                queue.append((m, m._transcribe_dispatch(
+                    x, step_in_second, segment_size_in_second, discard_second_half,
+                    velocity_criterion, segment_batch)))
             if len(queue) > depth:
-                yield self._transcribe_finish(queue.popleft(), merge_incomplete_event)
+                yield self._finish_on(*queue.popleft(), merge_incomplete_event)
         while queue:
-            yield self._transcribe_finish(queue.popleft(), merge_incomplete_event)
+            yield self._finish_on(*queue.popleft(), merge_incomplete_event)
+
+    def _finish_on(self, m: "TransKun", plan: Dict[str, Any], merge_incomplete_event: bool) -> List[Note]:
+        """``_transcribe_finish`` of a plan dispatched by ``m`` (this model or
+        a replica), its route's record copied to this model."""
+        with m._on_device():
+            notes = m._transcribe_finish(plan, merge_incomplete_event)
+        if m is not self:
+            self.last_transcribe_fallback_from = m.last_transcribe_fallback_from
+            self.last_transcribe_group_counts = m.last_transcribe_group_counts
+            self.last_transcribe_marks = m.last_transcribe_marks
+        return notes
+
+    def _on_device(self):
+        """The model's card as the current CUDA device: the kernels launch on
+        the current device's stream."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
+    def _replica(self, device: torch.device) -> "TransKun":
+        """This model on ``device``: itself on its own device, else a copy of
+        the module there, cached while the weights are unchanged."""
+        def canonical(d):
+            if d.type == "cuda" and d.index is None:
+                return torch.device("cuda", torch.cuda.current_device())
+            return d
+
+        device = canonical(device)
+        if device == canonical(self.device):
+            return self
+        tensors = self.module.state_dict().values()
+        version = tuple((t.data_ptr(), t._version) for t in tensors)
+        cached = self._replicas.get(device)
+        if cached is None or cached[0] != version:
+            replica = copy.copy(self)
+            replica.module = copy.deepcopy(self.module).to(device)
+            replica.device = device
+            replica._replicas = {}
+            self._replicas[device] = (version, replica)
+        return self._replicas[device][1]
 
     @torch.no_grad()
     def _transcribe_dispatch(
@@ -841,8 +911,16 @@ class TransKun:
         group's program with the forced starts chained device to device, and
         enqueue the copies of each group's outputs into pinned host buffers.
         Returns the plan ``_transcribe_finish`` takes; waits for nothing (on
-        the card: the upload is from pinned memory, and no value is read)."""
+        the card: the upload is from pinned memory, and no value is read).
+
+        With ``TRANSKUN_TPU_TIMING`` set, host-clock marks are taken after the
+        upload's enqueue and each group's, and ``_transcribe_finish`` adds
+        the event wait, the assembly and the merge; it keeps them in
+        ``last_transcribe_marks`` and prints each phase unless the variable
+        is ``silent``.  A mark reads the host clock only: no synchronizing
+        call."""
         self.module.eval()
+        marks = [("begin", time.perf_counter())] if os.environ.get("TRANSKUN_TPU_TIMING") else None
         if step_in_second is None and segment_size_in_second is None:
             step_in_second = self.segmentHopSizeInSecond
             segment_size_in_second = self.segmentSizeInSecond
@@ -881,15 +959,19 @@ class TransKun:
             host, start = host.pin_memory(), start.pin_memory()
         audio = host.to(self.device, non_blocking=True)
         start_dev = start.to(self.device, non_blocking=True)
+        if marks is not None:
+            marks.append(("upload enqueued", time.perf_counter()))
 
         outs = []
-        for group in groups:
+        for g, group in enumerate(groups):
             out = self._fused_group(
                 audio, group, start_dev, velocity_criterion,
                 -1 if onset_bound is None else onset_bound,
                 segment_size, last_frame_idx, step_frames, k_max, k_budget)
             start_dev = out[7]
             outs.append(tuple(_to_host(a) for a in out))
+            if marks is not None:
+                marks.append((f"group {g} enqueued", time.perf_counter()))
         done = None
         if on_card:
             done = torch.cuda.Event()
@@ -898,7 +980,7 @@ class TransKun:
             audio=audio, host=host, outs=outs, done=done, groups=groups, start=start.tolist(),
             segment_batch=segment_batch, n_sym=n_sym, k_max=k_max, segment_size=segment_size,
             last_frame_idx=last_frame_idx, step_frames=step_frames, pad_time_begin=pad_time_begin,
-            velocity_criterion=velocity_criterion, onset_bound=onset_bound,
+            velocity_criterion=velocity_criterion, onset_bound=onset_bound, marks=marks,
         )
 
     @torch.no_grad()
@@ -908,8 +990,15 @@ class TransKun:
         [segments, P, k_max] arrays, assemble them at once, resume on the
         host-walk route from the first group that overflowed, with the forced
         starts the device chain carried to it, and merge."""
+        marks = plan["marks"]
+
+        def mark(label):
+            if marks is not None:
+                marks.append((label, time.perf_counter()))
+
         if plan["done"] is not None:
             plan["done"].synchronize()
+        mark("event waited for")
         outs = [[a.numpy() for a in out] for out in plan["outs"]]
         groups, segment_batch = plan["groups"], plan["segment_batch"]
         n_sym, k_max = plan["n_sym"], plan["k_max"]
@@ -948,10 +1037,19 @@ class TransKun:
             notes, _ = self._assemble_from_arrays(
                 begins, ends, mask, vel_d, of_d, pres_d, plan["last_frame_idx"], begin_times)
             seg_notes.extend(notes)
+        mark("assembled")
         if fallback_from is not None:
             start_pos = plan["start"] if fallback_from == 0 else outs[fallback_from - 1][7].tolist()
             seg_notes.extend(self._transcribe_host_walk(plan, fallback_from, start_pos))
-        return _merge_segments(seg_notes, merge_incomplete_event)
+            mark(f"host-walk route from group {fallback_from}")
+        merged = _merge_segments(seg_notes, merge_incomplete_event)
+        mark("merged")
+        if marks is not None:
+            self.last_transcribe_marks = list(marks)
+            if os.environ.get("TRANSKUN_TPU_TIMING") != "silent":
+                for (_, before), (label, at) in zip(marks, marks[1:]):
+                    print(f"  [transcribe] {label}: +{(at - before) * 1e3:.1f} ms")
+        return merged
 
     def _transcribe_host_walk(self, plan: Dict[str, Any], g0: int, start_pos: List[int]) -> List[List[Note]]:
         """The host-walk route from group ``g0`` on, from ``start_pos``: each

@@ -488,9 +488,12 @@ class NeuralSemiCRFInterval:
         return eval_path(intervals, self.score, self.noiseScore)
 
     def computeLogZ(self, noBackward: bool = False) -> torch.Tensor:
+        """logZ [N]: on a CUDA tensor through the alpha and beta kernels
+        (``log_z_best``), on a CPU tensor the scan; ``noBackward`` takes
+        autograd through the plain scan (``log_z_slow``)."""
         if noBackward:
             return log_z_slow(self.score, self.noiseScore)
-        return log_z(self.score, self.noiseScore)
+        return log_z_best(self.score, self.noiseScore)
 
     def logProb(self, intervals, noBackward: bool = False) -> torch.Tensor:
         return self.evalPath(intervals) - self.computeLogZ(noBackward=noBackward)

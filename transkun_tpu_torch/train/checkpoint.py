@@ -82,6 +82,16 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     raise last_err
 
 
+def merge_params_tolerant(target: Dict[str, Any], source: Dict[str, Any]) -> Dict[str, Any]:
+    """``target`` (a state_dict) with every entry that ``source`` holds
+    under the same key at the same shape taken from ``source``, and every
+    other entry of ``target`` kept: the reference's tolerant partial restore
+    (``TrainUtil.py:58-66``; JAX: ``train/checkpoint.py:136-153``).  Keys of
+    ``source`` that ``target`` lacks are dropped."""
+    return {k: source[k] if k in source and tuple(source[k].shape) == tuple(v.shape) else v
+            for k, v in target.items()}
+
+
 def restore_train_state(state: TrainState, ckpt: Dict[str, Any]) -> None:
     """Load weights, optimizer, clip state and step of ``ckpt`` into
     ``state``."""

@@ -1,9 +1,11 @@
-"""Validation pass, single process (counterpart of ``doValidation``,
+"""Validation pass (counterpart of ``doValidation``,
 ``TrainUtil.py:231-272``): mean NLL per audio second and note-with-offset
 precision, recall and F1 over a validation loader.
 
 Port of ``transkun_tpu/train/validate.py`` without the per-device threads
-and the cross-process sum, which wait for the multi-process port.
+(one process drives one device here): under data parallelism each rank
+validates its own loader shard and the 5-vector is summed over the ranks
+(``aggregate_across_processes``) before the metrics are derived.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from ..parallel.dist import all_reduce_sum, process_info
 
 AGG_KEYS = ("logProb", "length", "nGT", "nEst", "nCorrect")
 
@@ -53,6 +57,17 @@ def validation_counts(model, loader, fs: int) -> Dict[str, float]:
     return agg
 
 
-def do_validation(model, loader, fs: int) -> Dict[str, float]:
-    """Validate the whole loader and derive the metrics."""
-    return _metrics_from_agg(validation_counts(model, loader, fs))
+def aggregate_across_processes(agg: Dict[str, float], group=None) -> Dict[str, float]:
+    """The 5-vector summed over the group's ranks in float64 (the
+    reference's ``dist.all_reduce``, ``TrainUtil.py:257-258``); ``agg``
+    itself in one process."""
+    if process_info(group)[1] == 1:
+        return agg
+    vec = torch.tensor([agg[k] for k in AGG_KEYS], dtype=torch.float64)
+    return dict(zip(AGG_KEYS, all_reduce_sum(vec, group).tolist()))
+
+
+def do_validation(model, loader, fs: int, group=None) -> Dict[str, float]:
+    """Validate the loader (this rank's shard under data parallelism),
+    sum the counts over ``group``'s ranks and derive the metrics."""
+    return _metrics_from_agg(aggregate_across_processes(validation_counts(model, loader, fs), group))
