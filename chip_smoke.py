@@ -112,7 +112,10 @@
    dir; one epoch of steps with stats decodes, checkpoints and validation;
    a resume for two more steps; ``best_state_dict`` loaded into
    ``TransKun`` to transcribe a piece.  Every loss must be finite and the
-   alpha, beta and Viterbi launch counts must equal the calls made.
+   alpha, beta and Viterbi launch counts must equal the calls made.  This
+   and the later paths' trainer runs take the default ``--deviceData
+   auto``: the corpus packed on the card (path 9 holds it to the other
+   routes).
 6. The fused-backbone configuration (``TRANSKUN_TPU_FUSED_ATTN=1`` and
    ``TRANSKUN_TPU_FUSED_MLP=1``) at full width and depth: the same piece,
    weights and seed as in 4 are transcribed, then ``cli.train.main`` takes a
@@ -250,9 +253,30 @@
    ``last_transcribe_marks`` printed as phases.  Every launch count must
    equal the calls made.
 
+12. The training input routes (path 9, ``input_path``).  (a)
+   ``dequantize_int16`` on the card over all 65536 int16 values: equal to
+   ``np.divide(v, 32767, dtype=float32)`` bit for bit (and how many values
+   a division by the CPU scalar 32767.0 gets wrong there, printed).  (b)
+   Path 2's corpus packed on the card (``DeviceDataset``): for every batch
+   of one epoch at ``--batchSize 4``, overhanging chunks included, the
+   device slice equal to the host loader's floats bit for bit, and the
+   frames of the slice, of the int16 link and of the host floats equal.
+   (c) ``INPUT_STEPS`` flagship steps of ``cli.train.main`` at
+   ``--batchSize 4`` on each route from one seed: ``--deviceData on``,
+   ``--deviceData off --linkInt16 force`` and ``--linkInt16 off``; the
+   first step's loss equal bit for bit, alpha and beta launches equal to
+   the steps, Viterbi's to two a stats pass; each route's iteration and
+   step seconds, peak memory and corpus bytes printed.  (d) A seeded
+   one-hour mono corpus packed and uploaded (timed), and ``slice_batch`` of
+   a batch of 4 against the packed rows and timed.  (e) Two gloo ranks on
+   the card (``input_rank``), each with its own packed corpus: one step of
+   ``cli.train.main --deviceData on`` at ``INPUT_RANK_BATCH`` a rank, then
+   one on the host route: the step's frames and loss equal bit for bit, the
+   parameters after it equal on both ranks and on both routes.
+
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, the V1 path's,
-path 7's and path 8's figures as JSON lines, then one JSON
+path 7's, path 8's and path 9's figures as JSON lines, then one JSON
 line with the kernels (launches on each path, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
 fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
@@ -274,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -365,6 +390,10 @@ DIST_BATCH, DIST_STEPS, DIST_V1_BATCH = 2, 2, 1
 DIST_OPT_COUNT = 10
 DIST_GRAD_RTOL = 1e-3  # tests/test_torch_train.py's gradient bound: of each tensor's largest value
 DIST_STATS_RTOL, DIST_STATS_ATOL = 1e-4, 1e-6  # the JAX package's SyncBN test's bounds
+# path 9: steps of cli.train.main on each training input route (path 2's
+# batch), the batch a rank of its two gloo ranks, and the one-hour corpus's
+# pieces (ten minutes each)
+INPUT_STEPS, INPUT_RANK_BATCH, HOUR_PIECES = 3, 2, 6
 # path 7: the non-flagship V2 branches, each the flagship conf with these changes
 BRANCHES = {
     "aggregation": {"enabledAttn": ["F", "T", "All0", "0All"]},
@@ -2100,6 +2129,284 @@ def dist_path(dev, card, corpus, pickles, train_args, tmp, conf, audio, notes, b
     return launches, figures
 
 
+def input_rank(in_path, out_path):
+    """One rank of path 9 (e), started by ``input_path`` under the
+    launcher's environment with both ranks on ``cuda:0`` over gloo (joined
+    here, so that ``cli.train.main`` finds the group and does not start
+    NCCL): one step of ``cli.train.main --deviceData on`` at
+    ``INPUT_RANK_BATCH`` a rank, then one on the host route (``--deviceData
+    off --linkInt16 off``) from the same seed.  The step's frames and the
+    parameters after it are recorded by wrapping ``make_train_step``.
+    Writes its figures as JSON to ``out_path``."""
+    import torch
+
+    import transkun_tpu_torch.train.step as step_module
+    from transkun_tpu_torch.cli import train as train_cli
+    from transkun_tpu_torch.ops import logz
+    from transkun_tpu_torch.parallel import all_reduce_max, broadcast_from_0, init_distributed, process_info
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed("cuda", backend="gloo"):
+        raise RuntimeError("path 9: no group joined")
+    rank, _ = process_info()
+    group = torch.distributed.group.WORLD
+    with open(in_path) as f:
+        given = json.load(f)
+    make_step, seen = step_module.make_train_step, {}
+
+    def recording(model, *a, **kw):
+        step_fn = make_step(model, *a, **kw)
+
+        def step(state, frames, labels, generator):
+            seen.setdefault("frames", frames.detach().cpu())
+            metrics = step_fn(state, frames, labels, generator)
+            seen["params"] = torch.cat([p.detach().reshape(-1) for p in model.module.parameters()])
+            return metrics
+
+        return step
+
+    def same_on_ranks(flat):
+        differs = torch.tensor(int(not torch.equal(flat, broadcast_from_0(flat, group))))
+        return int(all_reduce_max(differs, group)) == 0
+
+    step_module.make_train_step = recording
+    out = {"rank": rank, "routes": {}}
+    frames, params = {}, {}
+    try:
+        for name, route in (("device", ["--deviceData", "on"]),
+                            ("host", ["--deviceData", "off", "--linkInt16", "off"])):
+            seen.clear()
+            before = (logz.alpha_launches, logz.beta_launches)
+            t0 = time.perf_counter()
+            run = train_cli.main([os.path.join(given["tmp"], f"ckpt_input_{name}.pt"), *given["args"],
+                                  "--batchSize", str(INPUT_RANK_BATCH), "--statsEvery", "0",
+                                  "--maxEpoch", "1", "--stopAtStep", "1", *route])
+            torch.cuda.synchronize()
+            frames[name], params[name] = seen["frames"], seen["params"]
+            out["routes"][name] = {
+                "wall_s": time.perf_counter() - t0, "losses": run["losses"],
+                "iter_seconds": run["iter_seconds"], "step_seconds": run["step_seconds"],
+                "peak_gb": run["step_peak_bytes"] / 1e9, "device_data": run["device_data"],
+                "device_data_bytes": run["device_data_bytes"], "link_dtype": run["link_dtype"],
+                "alpha": logz.alpha_launches - before[0], "beta": logz.beta_launches - before[1],
+                "frames_shape": list(seen["frames"].shape),
+                "params_equal_on_ranks": same_on_ranks(seen["params"]),
+            }
+    finally:
+        step_module.make_train_step = make_step
+    out["frames_equal"] = torch.equal(frames["device"], frames["host"])
+    out["params_equal_across_routes"] = torch.equal(params["device"], params["host"])
+    torch.distributed.destroy_process_group()
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
+    if bad:
+        raise AssertionError(f"JAX code was imported: {bad[:5]}")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def input_path(dev, card, corpus, pickles, train_args, tmp, conf, counts, reset_counts):
+    """Path 9: the training input routes.  (a) ``dequantize_int16`` on the
+    card over every int16 value against ``np.divide``; (b) path 2's corpus
+    packed on the card (``DeviceDataset``): every batch of one epoch at
+    ``--batchSize 4`` sliced there against the host loader's floats, and the
+    frames of the device slice, of the int16 link and of the host floats;
+    (c) ``INPUT_STEPS`` flagship steps of ``cli.train.main`` on each route
+    from one seed; (d) a one-hour corpus packed, and ``slice_batch`` timed;
+    (e) two gloo ranks on the card (``input_rank``).  Returns the launches
+    of each kernel on the path and its figures."""
+    import torch
+
+    from transkun_tpu_torch.cli import train as train_cli
+    from transkun_tpu_torch.data import dataset as D
+    from transkun_tpu_torch.data.device_dataset import INT16_SCALE, DeviceDataset, dequantize_int16
+    from transkun_tpu_torch.models.transkun import TransKun, quantize_link
+    from transkun_tpu_torch.parallel import launch_ranks
+
+    launches = dict.fromkeys(KERNELS, 0)
+    figures = {}
+
+    # (a) the dequantize over every int16 value, on the card
+    v = np.arange(-32768, 32768).astype(np.int16)
+    want = np.divide(v, 32767, dtype=np.float32)
+    on_card = torch.from_numpy(v).to(dev)
+    got = dequantize_int16(on_card).cpu().numpy()
+    wrong = int((got.view(np.int32) != want.view(np.int32)).sum())
+    by_cpu_scalar = int(((on_card.float() / 32767.0).cpu().numpy().view(np.int32) != want.view(np.int32)).sum())
+    if got.dtype != np.float32 or wrong:
+        raise AssertionError(f"path 9 (a): dequantize_int16 on the card differs from np.divide on {wrong} "
+                             f"of 65536 int16 values")
+    print(f"path 9 (a) dequantize_int16 on the card ({card}): all 65536 int16 values equal "
+          f"np.divide(v, 32767, dtype=float32) bit for bit; x / 32767.0 (a CPU scalar, ATen's "
+          f"reciprocal product) differs on {by_cpu_scalar}")
+    figures["dequantize"] = {"wrong": wrong, "cpu_scalar_wrong": by_cpu_scalar}
+
+    # (b) every batch of one epoch: the device slice against the host loader
+    dataset = D.DatasetMaestro(corpus, os.path.join(pickles, "train.pickle"))
+    n_chunk = int(conf.segmentSizeInSecond * conf.fs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus_dd = DeviceDataset(dataset, n_chunk, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+
+    def epoch(skip_audio):
+        it = D.DatasetMaestroIterator(dataset, conf.segmentHopSizeInSecond, conf.segmentSizeInSecond,
+                                      seed=SEED, notes_strictly_contained=False, skip_audio=skip_audio)
+        return it.chunksAll, D.BatchLoader(it, TRAIN_BATCH, shuffle=True, seed=0, drop_last=True, num_workers=0,
+                                           collate=D.collate_fn_device if skip_audio else D.collate_fn_batching)
+
+    chunks, host = epoch(False)
+    dev_chunks, on_dev = epoch(True)
+    duration = CORPUS_PIECE_SECONDS
+    if chunks != dev_chunks or not (any(b < 0 for _, b, _ in chunks) and any(e > duration for *_, e in chunks)):
+        raise AssertionError("path 9 (b): the two loaders' chunks differ, or none overhangs a piece")
+    model = TransKun(conf, device=dev)
+    n_batches = overhanging = 0
+    for hb, db in zip(host, on_dev):
+        ref = hb["audioSlices"][:, :n_chunk]
+        got = corpus_dd.slice_batch(corpus_dd.starts_for(db["pieceIdx"], db["begins"]))
+        link = quantize_link(ref, None, INT16_SCALE)
+        slice_equal = np.array_equal(got.cpu().numpy()[:, : ref.shape[1]].view(np.int32), ref.view(np.int32))
+        frames = model.frames(got[:, : ref.shape[1]])
+        if not (slice_equal and link.dtype == np.int16 and torch.equal(model.frames(link), frames)
+                and torch.equal(model.frames(ref), frames)):
+            raise AssertionError(f"path 9 (b) batch {n_batches}: slice equal to the host floats {slice_equal}, "
+                                 f"link {link.dtype}, or the frames differ")
+        n_batches += 1
+        overhanging += int(sum(b < 0 or b + conf.segmentSizeInSecond > duration for b in db["begins"]))
+    if n_batches == 0:
+        raise AssertionError("path 9 (b): no batch")
+    print(f"path 9 (b) path 2's corpus on the card ({card}): {corpus_dd.nbytes} bytes int16 packed and "
+          f"uploaded in {pack_s:.3f} s; {n_batches} batches of {TRAIN_BATCH} ({overhanging} chunks overhanging "
+          f"a piece): the device slice equals the host loader's floats bit for bit, and the frames of the "
+          f"slice, of the int16 link and of the host floats are equal")
+    figures["slices"] = {"batches": n_batches, "overhanging": overhanging, "bytes": corpus_dd.nbytes,
+                         "pack_s": pack_s}
+    del model, corpus_dd
+
+    # (c) the trainer on each route, one seed
+    routes = {"device corpus": ["--deviceData", "on"],
+              "int16 link": ["--deviceData", "off", "--linkInt16", "force"],
+              "float32 link": ["--deviceData", "off", "--linkInt16", "off"]}
+    runs = {}
+    for name, route in routes.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        run = train_cli.main([os.path.join(tmp, f"ckpt_{name.replace(' ', '_')}.pt"), *train_args,
+                              "--statsEvery", "4", "--ckptEvery", "1000", "--maxEpoch", "1",
+                              "--stopAtStep", str(INPUT_STEPS), *route])
+        torch.cuda.synchronize()
+        got = counts()
+        want = {**dict.fromkeys(KERNELS, 0), "semicrf_alpha": run["steps"] + run["val_batches"],
+                "semicrf_beta": run["steps"] + run["val_batches"],
+                "viterbi_bwd": 2 * run["stats_passes"] + run["val_batches"]}
+        if run["steps"] != INPUT_STEPS or got != want or not np.isfinite(run["losses"]).all() \
+                or run["device_data"] != (name == "device corpus"):
+            raise AssertionError(f"path 9 (c) {name}: {run['steps']} steps, losses {run['losses']}, "
+                                 f"device corpus {run['device_data']}, launches {got}, calls made {want}")
+        for k in KERNELS:
+            launches[k] += got[k]
+        runs[name] = run
+        print(f"path 9 (c) {name}, flagship V2 --batchSize {TRAIN_BATCH} ({card}): {run['steps']} steps, median "
+              f"after the first: iteration {float(np.median(run['iter_seconds'][1:])):.4f} s, step "
+              f"{float(np.median(run['step_seconds'][1:])):.4f} s (all: iteration "
+              f"{[round(x, 4) for x in run['iter_seconds']]}, step {[round(x, 4) for x in run['step_seconds']]}); "
+              f"peak memory {run['step_peak_bytes'] / 1e9:.4f} GB; corpus on the card "
+              f"{run['device_data_bytes']} bytes; link {run['link_dtype']}; losses {run['losses']}; launches {got}")
+    firsts = {name: run["losses"][0] for name, run in runs.items()}
+    if len(set(firsts.values())) != 1:
+        raise AssertionError(f"path 9 (c): the first step's loss differs between the routes: {firsts}")
+    all_equal = len({tuple(run["losses"]) for run in runs.values()}) == 1
+    print(f"path 9 (c): the first step's loss equal on the three routes bit for bit ({firsts['device corpus']!r}); "
+          f"all {INPUT_STEPS} losses equal: {all_equal}")
+    figures["train"] = {name: {k: run[k] for k in ("losses", "iter_seconds", "step_seconds", "step_peak_bytes",
+                                                   "device_data_bytes", "link_dtype", "stats_seconds")}
+                        for name, run in runs.items()}
+
+    # (d) a one-hour corpus: packed, uploaded and sliced on the card
+    rng = np.random.default_rng(SEED)
+    hour = os.path.join(tmp, "hour")
+    os.makedirs(hour)
+    from scipy.io import wavfile
+
+    paths = []
+    for i in range(HOUR_PIECES):
+        paths.append(os.path.join(hour, f"piece{i}.wav"))
+        n = int(3600 / HOUR_PIECES * conf.fs)
+        wavfile.write(paths[-1], conf.fs, rng.integers(-32768, 32768, size=n, dtype=np.int16))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the two things DeviceDataset reads of a dataset
+    hour_dd = DeviceDataset(types.SimpleNamespace(data=paths, get_path=paths.__getitem__), n_chunk, device=dev)
+    torch.cuda.synchronize()
+    hour_s = time.perf_counter() - t0
+    piece_idx = rng.integers(0, HOUR_PIECES, size=TRAIN_BATCH)
+    begins = rng.uniform(-conf.segmentSizeInSecond, 3600 / HOUR_PIECES, size=TRAIN_BATCH)
+    starts = hour_dd.starts_for(piece_idx, begins)
+    sliced = hour_dd.slice_batch(starts)
+    rows = hour_dd._data[:, 0].cpu().numpy()
+    want = np.stack([rows[s: s + n_chunk] for s in starts])[..., None]
+    if not torch.equal(sliced.cpu(), dequantize_int16(torch.from_numpy(want))):
+        raise AssertionError("path 9 (d): slice_batch differs from the packed rows on the one-hour corpus")
+    slice_ms = cuda_ms(lambda: hour_dd.slice_batch(starts), runs=20)
+    slice_bound = bound(TRAIN_BATCH * n_chunk * (2 + 4), 0)
+    print(f"path 9 (d) a one-hour mono corpus ({HOUR_PIECES} pieces, seeded) ({card}): {hour_dd.nbytes} bytes int16, "
+          f"read, packed and uploaded in {hour_s:.3f} s ({hour_dd.nbytes / hour_s / 1e9:.2f} GB/s); slice_batch "
+          f"of {TRAIN_BATCH} chunks of {n_chunk} samples {slice_ms:.4f} ms (CUDA events, median of 20, the "
+          f"starts' upload included; bound {slice_bound[0]:.4f} ms by {slice_bound[1]})")
+    figures["hour"] = {"bytes": hour_dd.nbytes, "pack_upload_s": hour_s, "slice_ms": slice_ms,
+                       "slice_bound_ms": slice_bound[0]}
+    del hour_dd, sliced, rows, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) two gloo ranks on the card, each with its own copy of the corpus
+    in_path = os.path.join(tmp, "input_in.json")
+    with open(in_path, "w") as f:
+        json.dump({"tmp": tmp, "args": train_args}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        launch_ranks(lambda rank: [sys.executable, "-c",
+                                   "import sys, chip_smoke; sys.exit(chip_smoke.input_rank(*sys.argv[1:]))",
+                                   in_path, os.path.join(tmp, f"input_rank{rank}.json")],
+                     2, local_rank=lambda rank: 0, cwd=here, timeout=300)
+    except RuntimeError as e:
+        raise AssertionError(f"path 9 ranks: {e}")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"input_rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        dev_run, host_run = r["routes"]["device"], r["routes"]["host"]
+        if not (r["frames_equal"] and r["params_equal_across_routes"] and dev_run["device_data"]
+                and not host_run["device_data"] and dev_run["losses"] == host_run["losses"]
+                and len(dev_run["losses"]) == 1 and np.isfinite(dev_run["losses"]).all()
+                and all(x["params_equal_on_ranks"] and x["alpha"] == 1 and x["beta"] == 1
+                        for x in (dev_run, host_run))):
+            raise AssertionError(f"path 9 (e) rank {r['rank']}: {r}")
+        for k in ("alpha", "beta"):
+            launches["semicrf_" + k] += dev_run[k] + host_run[k]
+        print(f"path 9 (e) rank {r['rank']}, --deviceData on, --batchSize {INPUT_RANK_BATCH} a rank, gloo on one "
+              f"card ({card}): frames {dev_run['frames_shape']} equal the host route's bit for bit, loss "
+              f"{dev_run['losses'][0]!r} equal, parameters after the step equal on both ranks and to the host "
+              f"route's; step {dev_run['step_seconds'][0]:.4f} s (host route {host_run['step_seconds'][0]:.4f} s), "
+              f"peak memory {dev_run['peak_gb']:.2f} GB (host route {host_run['peak_gb']:.2f}), corpus "
+              f"{dev_run['device_data_bytes']} bytes a rank")
+    if ranks[0]["routes"]["device"]["losses"] != ranks[1]["routes"]["device"]["losses"]:
+        raise AssertionError("path 9 (e): the ranks report different losses")
+    print(f"path 9 (e): ranks' wall {wall:.1f} s")
+    figures["ranks"] = {"ranks": ranks, "wall_s": wall}
+    return launches, figures
+
+
 def main() -> int:
     import argparse
 
@@ -3374,6 +3681,12 @@ def main() -> int:
             counts, reset_counts)
         print(f"path 8 wall {time.perf_counter() - t0:.1f} s")
 
+        # -- path 9: the training input routes ------------------------------------
+        t0 = time.perf_counter()
+        by_path["input"], input_figures = input_path(
+            dev, card, os.path.join(tmp, "corpus"), pickles, args, tmp, conf, counts, reset_counts)
+        print(f"path 9 wall {time.perf_counter() - t0:.1f} s")
+
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
     reset_counts()
@@ -3454,6 +3767,7 @@ def main() -> int:
     print(json.dumps({"v1": v1_figures}))
     print(json.dumps({"branches": branch_figures}))
     print(json.dumps({"dist": dist_figures}))
+    print(json.dumps({"input": input_figures}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -362,14 +362,22 @@ def test_v1_gru_dropout_follows_the_rank_stream():
     assert torch.equal(logp(0), logp(1))
 
 
-def test_launch_ranks_stops_the_others_when_one_fails():
+def test_launch_ranks_stops_the_others_when_one_fails(tmp_path):
     """``parallel.launch_ranks``: when one rank fails, the one still running
     (here asleep, as a rank waiting in a collective would be) is killed at
-    once, and the error names each rank's exit code and output."""
+    once, and the error names each rank's exit code and output.  Rank 0
+    creates a marker file once it has printed, and rank 1 fails only after
+    it has seen the marker (or after 20 s), so rank 0's line is in its
+    output however slowly the host starts the processes."""
     from transkun_tpu_torch.parallel import launch_ranks
 
+    marker = str(tmp_path / "rank0_printed")
     code = ("import os, sys, time; r = int(os.environ['RANK']); print('rank', r, os.environ['WORLD_SIZE'], "
-            "os.environ['LOCAL_RANK'], flush=True); time.sleep(60 * (r == 0)); sys.exit(3 * r)")
+            f"os.environ['LOCAL_RANK'], flush=True); m = {marker!r}\n"
+            "if r == 0:\n    open(m, 'w').close(); time.sleep(60)\n"
+            "t = time.monotonic()\n"
+            "while not os.path.exists(m) and time.monotonic() - t < 20:\n    time.sleep(0.01)\n"
+            "sys.exit(3 * r)")
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError) as e:
         launch_ranks(lambda rank: [sys.executable, "-c", code], 2, local_rank=lambda rank: 0, timeout=120)

@@ -9,7 +9,7 @@ key splits and head dims, run twice and with handed and fetched row
 statistics for the same bits; a two-rank gloo training step with both ranks
 on one card (``tests/_torch_dist_ranks.py``), whose ranks must hold the same
 parameters; the semi-CRF example (``crf_minimal_example``) against its plain
-version.
+version; the training link's ``dequantize_int16`` over every int16 value.
 
 Imports no JAX, so it runs on a machine with a card and no JAX:
 
@@ -1098,3 +1098,15 @@ def test_crf_example_on_the_card_equals_plain(cuda):
     diag = (gate[:t, :n] > 0).cpu().numpy()
     assert out["decoded"] == semicrf.backtrack_backward(ptr, diag, None)
     assert out["decoded_forced"] == semicrf.backtrack_backward(ptr, diag, [100] * n)
+
+
+@pytest.mark.gpu
+def test_dequantize_int16_on_the_card_equals_np_divide(cuda):
+    """The training link's division by 32767 on the card: every int16 value
+    equal to the host slicer's ``np.divide`` bit for bit (a division by a
+    CPU scalar there is a reciprocal product, one bit off on ~2%)."""
+    from transkun_tpu_torch.data.device_dataset import dequantize_int16
+
+    v = np.arange(-32768, 32768).astype(np.int16)
+    got = dequantize_int16(torch.from_numpy(v).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32), np.divide(v, 32767, dtype=np.float32).view(np.int32))

@@ -484,5 +484,6 @@ def test_cli_train_resume_transcribe(tmp_path):
     transcribe([str(root / "2020" / "p1.wav"), str(out), "--conf", str(conf), "--weight", ckpt,
                 "--device", "cpu"])
     assert out.exists()
-    with pytest.raises(SystemExit):  # an option of the JAX trainer that is not ported
-        train(args + ["--deviceData", "on"])
+    # the device corpus cannot take host augmentation: the JAX trainer's refusal
+    with pytest.raises(SystemExit, match="--deviceData on is incompatible with: host augmentation"):
+        train(args + ["--deviceData", "on", "--augment"])

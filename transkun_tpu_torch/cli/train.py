@@ -5,7 +5,7 @@ the reference ``python3 -m transkun.train``):
         --datasetPath ... --datasetMetaFile_train train.pickle \
         --datasetMetaFile_val val.pickle --modelConf conf.json [--device cpu]
 
-Host loader -> label encoding -> semi-CRF NLL + attribute NLLs -> backward ->
+Loader -> label encoding -> semi-CRF NLL + attribute NLLs -> backward ->
 quantile clip -> rectified AdaBelief, with a stats decode every
 ``--statsEvery`` steps, validation every ``--validateEvery`` epochs and a
 crash-safe checkpoint file.  The data modules are the port's own
@@ -14,6 +14,21 @@ loss, gradients, clip and optimizer stay fp32, and so do the checkpoints);
 TF32 is turned off for matmuls and convolutions.  The default device is
 ``cuda`` and the command fails when CUDA is absent; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
+
+The training audio takes one of two routes, as in the JAX trainer:
+
+- ``--deviceData`` (``auto``, the default, ``on``, ``off``): the whole
+  corpus packed once as int16 on the device (``data.device_dataset``), each
+  step's chunks sliced there; the loader then reads no audio.  ``auto``
+  takes it unless ``--augment`` is set (host DSP), and falls back to the host
+  loader, saying why, when the corpus is past the size guard or does not fit
+  the device's memory; ``on`` raises instead.
+- the host loader, whose audio crosses as ``--linkInt16`` says: ``auto``
+  int16 when the batch is exactly int16 / 32767 (un-augmented wav audio
+  is), ``force`` rounded and clipped to int16, ``off`` float32.
+
+All three give the same frames bit for bit on un-augmented audio: the device
+divides int16 by 32767 exactly as the host slicer does.
 
 Data parallelism, one process a rank (``train.step``: gradients and loss
 summed over the ranks, not averaged):
@@ -33,9 +48,12 @@ prints, saves (a barrier after each save) and writes the TensorBoard log
 (``tensorboardX``, ``ckpt + ".log"``, the JAX package's tags).
 
 ``main`` returns a record of the run (rank 0's where several ranks ran:
-losses, per-step seconds, the largest per-step device memory, the seconds
-of each stats pass, and the counts of steps, stats passes and validation
-batches) for callers that drive it from Python.
+losses, per-step seconds of the step alone and of the whole iteration
+(loader wait, upload, frames, labels and step), the largest per-step device
+memory, the seconds of each stats pass, the counts of steps, stats passes and
+validation batches, and the audio route: ``device_data``,
+``device_data_bytes``, ``link_dtype``) for callers that drive it from
+Python.
 """
 
 from __future__ import annotations
@@ -94,19 +112,15 @@ def main(argv=None):
                         help="data-parallel ranks: without a launcher, spawn this many (one a "
                         "card, or gloo ranks with --device cpu); under torchrun it must equal "
                         "WORLD_SIZE")
-    # options of the JAX trainer that this port does not have yet: they
-    # raise instead of being ignored
-    parser.add_argument("--deviceData", default="auto", choices=["auto", "on", "off"])
-    parser.add_argument("--linkInt16", default="auto", choices=["auto", "force", "off"])
+    parser.add_argument("--deviceData", default="auto", choices=["auto", "on", "off"],
+                        help="pack the training corpus onto the device once (int16) and slice "
+                        "each step's chunks there; 'auto' does so without --augment when it fits, "
+                        "else uses the host loader; each rank packs its own copy")
+    parser.add_argument("--linkInt16", default="auto", choices=["auto", "force", "off"],
+                        help="host loader route: upload the audio as int16 and divide by 32767 "
+                        "on the device; 'auto' when the batch is exactly int16-representable, "
+                        "'force' rounds and clips")
     args = parser.parse_args(argv)
-
-    not_ported = [
-        (args.deviceData == "on", "--deviceData on (device-resident corpus)"),
-        (args.linkInt16 == "force", "--linkInt16 force"),
-    ]
-    missing = [name for bad, name in not_ported if bad]
-    if missing:
-        raise SystemExit(f"not ported yet: {', '.join(missing)}")
 
     import torch
 
@@ -170,7 +184,9 @@ def _train(args):
 
     from ..data import dataset as D
     from ..data.augment import Augmentator
+    from ..data.device_dataset import INT16_SCALE, DeviceDataset
     from ..models.config import parse_conf_file
+    from ..models.transkun import quantize_link
     from ..parallel import dist as P
     from ..train.checkpoint import checkpoint_exists, load_checkpoint, restore_train_state, save_checkpoint
     from ..train.optim import AdaBelief
@@ -274,32 +290,66 @@ def _train(args):
             sampleRate=conf.fs, noiseFolder=args.noiseFolder, convIRFolder=args.irFolder
         )
 
-    record = {"losses": [], "step_seconds": [], "step_peak_bytes": 0, "stats_seconds": [],
-              "steps": 0, "stats_passes": 0, "val_batches": 0, "val_results": []}
+    device_data = None
+    if args.deviceData != "off":
+        if augmentator is not None:
+            if args.deviceData == "on":
+                raise SystemExit("--deviceData on is incompatible with: host augmentation")
+        else:
+            try:
+                device_data = DeviceDataset(dataset, n_chunk_samples, device=device)
+                log(f"device-resident corpus: {device_data.nbytes / 2**30:.2f} GiB int16 on {device}",
+                    flush=True)
+            except ValueError as e:
+                if args.deviceData == "on":
+                    raise
+                print(f"device dataset unavailable ({e}); using host loader")
+            except torch.cuda.OutOfMemoryError as e:
+                # the size guard cannot see the memory the model and optimizer
+                # already hold
+                if args.deviceData == "on":
+                    raise
+                print(f"device corpus does not fit the device's memory ({type(e).__name__}); "
+                      "using host loader")
+    link_mode = {"auto": None, "force": True, "off": False}[args.linkInt16]
+    link_dtypes = set()
+
+    record = {"losses": [], "step_seconds": [], "iter_seconds": [], "step_peak_bytes": 0,
+              "stats_seconds": [], "steps": 0, "stats_passes": 0, "val_batches": 0,
+              "val_results": [], "device_data": device_data is not None,
+              "device_data_bytes": 0 if device_data is None else device_data.nbytes,
+              "link_dtype": None}
     global_step = state.step
     try:
         for epoch in range(start_epoch, args.maxEpoch):
             data_iter = D.DatasetMaestroIterator(
                 dataset, hop, chunk, seed=epoch * 100 + run_seed, augmentator=augmentator,
-                notes_strictly_contained=False,
+                notes_strictly_contained=False, skip_audio=device_data is not None,
             )
             # each rank loads its shard of the epoch's chunks; every rank takes
             # the smallest shard's count of steps, so the collectives pair up
             loader = D.BatchLoader(
                 data_iter, args.batchSize, shuffle=True, seed=epoch, drop_last=True,
                 rank=rank, world_size=world, num_workers=args.dataLoaderWorkers,
+                collate=D.collate_fn_device if device_data is not None else D.collate_fn_batching,
             )
             n_steps = len(data_iter) // world // args.batchSize
             loss_all = []
             pending_log = []
 
+            t_iter = time.perf_counter()  # an iteration's wall includes the loader's wait
             for idx, batch in enumerate(loader):
                 if idx == n_steps:
                     break
                 notes_batch = batch["notes"]
-                # chunk bounds are float seconds, so lengths jitter by a sample:
-                # crop to one size
-                audio = batch["audioSlices"][:, :n_chunk_samples]
+                if device_data is not None:
+                    # only the chunks' starts cross to the device
+                    audio = device_data.slice_batch(device_data.starts_for(batch["pieceIdx"], batch["begins"]))
+                else:
+                    # chunk bounds are float seconds, so lengths jitter by a
+                    # sample: crop to one size
+                    audio = quantize_link(batch["audioSlices"][:, :n_chunk_samples], link_mode, INT16_SCALE)
+                    link_dtypes.add(str(audio.dtype))
                 frames = model.frames(audio)
                 labels = model.labels(notes_batch, args.maxEvents, k_sync=k_sync)
                 generator = torch.Generator(device=device).manual_seed(
@@ -313,17 +363,19 @@ def _train(args):
                         record["step_peak_bytes"], torch.cuda.max_memory_allocated(device)
                     )
                 record["steps"] += 1
-                pending_log.append((epoch, idx, global_step, metrics, t_step))
+                pending_log.append((epoch, idx, global_step, metrics, t_step, t_iter))
                 if len(pending_log) >= max(args.logEvery, 1) or idx == n_steps - 1:
                     fetched = torch.stack([
                         torch.stack([m["loss"], m["grad_norm"], m["clip_value"], m["finite"].float()])
-                        for *_, m, _ in pending_log
+                        for *_, m, _, _ in pending_log
                     ]).cpu().numpy()
-                    # wall seconds per step since the first pending step began;
-                    # with --logEvery 1 it is the step alone
-                    dt = (time.perf_counter() - pending_log[0][4]) / len(pending_log)
+                    # wall seconds per step since the first pending step (or its
+                    # iteration) began; with --logEvery 1 it is the step alone
+                    now = time.perf_counter()
+                    dt = (now - pending_log[0][4]) / len(pending_log)
+                    dt_iter = (now - pending_log[0][5]) / len(pending_log)
                     bad_step = None
-                    for (ep_i, idx_i, gs_i, _, _), (loss, gnorm, clipv, fin) in zip(pending_log, fetched):
+                    for (ep_i, idx_i, gs_i, *_), (loss, gnorm, clipv, fin) in zip(pending_log, fetched):
                         log(
                             f"epoch:{ep_i} progress:{idx_i / max(n_steps, 1):0.3f} "
                             f"step:{gs_i} loss:{loss:0.4f} gradNorm:{gnorm:0.2f} "
@@ -335,6 +387,7 @@ def _train(args):
                         loss_all.append(float(loss))
                         record["losses"].append(float(loss))
                         record["step_seconds"].append(dt)
+                        record["iter_seconds"].append(dt_iter)
                         if not fin and bad_step is None:
                             bad_step = gs_i
                     pending_log.clear()
@@ -370,6 +423,7 @@ def _train(args):
                 global_step += 1
                 if args.stopAtStep is not None and global_step >= args.stopAtStep:
                     break
+                t_iter = time.perf_counter()
 
             if args.stopAtStep is not None and global_step >= args.stopAtStep:
                 save(epoch, f"stopAtStep {args.stopAtStep} reached; saved")
@@ -403,6 +457,7 @@ def _train(args):
     finally:
         if writer is not None:
             writer.close()
+    record["link_dtype"] = "+".join(sorted(link_dtypes)) or None
     return record
 
 

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.device_dataset import dequantize_int16
 from ..data.note import Note, resolve_overlapping
 from ..ops import distributions as dist
 from ..ops import frontend, logz, semicrf, walk
@@ -353,6 +354,42 @@ def log_prob_padded(module: TransKunModule, frames: torch.Tensor, labels: Labels
     return logp + attr
 
 
+def quantize_link(x: np.ndarray, mode: Optional[bool], scale: float = 32768.0) -> np.ndarray:
+    """The dtype a host waveform crosses to the device in: int16 when every
+    sample is exactly an int16 over ``scale`` (half the bytes; dividing by
+    the same scale on the device gives the same floats back), else float32.
+    ``mode``: None detects, False keeps float32, True rounds and clips to
+    int16.  ``scale`` is the one the floats came from: 32767 (``iinfo.max``)
+    for the training slicer, the scale ``TransKun.frames`` divides int16 by;
+    2**15 for ``read_audio``, the decode path's, whose int16 link the port
+    does not have.
+
+    The port's copy of the JAX package's ``_quantize_link``
+    (``transkun_tpu/models/transkun.py:344-379``): the detection runs in
+    blocks and stops at the first inexact one; an int16 times either scale
+    is exact in float32, so ``rint(xs) == xs`` holds exactly when the block
+    is int16-representable."""
+    if x.dtype == np.int16:
+        return x
+    if mode is False:
+        return x.astype(np.float32)
+    if mode is True:
+        return np.clip(np.round(x * x.dtype.type(scale)), -32768, 32767).astype(np.int16)
+    link16 = np.empty(x.shape, np.int16)
+    blk = 1 << 19
+    for lo in range(0, x.shape[-1], blk):
+        xs = x[..., lo: lo + blk] * x.dtype.type(scale)
+        xi = np.rint(xs)
+        if (
+            xi.max(initial=0.0) > 32767
+            or xi.min(initial=0.0) < -32768  # -1.0 is representable
+            or not np.array_equal(xi, xs)
+        ):
+            return x.astype(np.float32)
+        link16[..., lo: lo + blk] = xi
+    return link16
+
+
 class TransKun:
     """Host-facing model: owns the config and the module, runs the device
     work and the host decode / note assembly."""
@@ -411,10 +448,21 @@ class TransKun:
 
     # -- training -------------------------------------------------------------
 
-    def frames(self, audio_batch: np.ndarray) -> torch.Tensor:
-        """audio [N, nSample, C] -> frames [N, C, T, W] on the device."""
-        x = torch.from_numpy(np.ascontiguousarray(np.swapaxes(audio_batch, -1, -2), np.float32))
-        return frontend.make_frame(x.to(self.device), self.hopSize, self.windowSize)
+    def frames(self, audio_batch) -> torch.Tensor:
+        """audio [N, nSample, C] -> frames [N, C, T, W] on the device.
+
+        ``audio_batch`` is float audio on the host; int16 audio on the host
+        (the training link, ``quantize_link(x, mode, 32767.0)``), uploaded as
+        int16 and divided by 32767 on the device (``dequantize_int16``: the
+        host slicer's floats, bit for bit); or a float32 tensor on the device
+        (the device corpus's ``slice_batch``)."""
+        if not isinstance(audio_batch, torch.Tensor):
+            a = np.asarray(audio_batch)
+            audio_batch = torch.from_numpy(np.ascontiguousarray(a if a.dtype == np.int16 else a.astype(np.float32)))
+        x = audio_batch.to(self.device)
+        if x.dtype == torch.int16:
+            x = dequantize_int16(x)
+        return frontend.make_frame(x.swapaxes(-1, -2), self.hopSize, self.windowSize)
 
     def labels(self, notes_batch, max_events: int = 32, k_sync=None) -> Labels:
         """Note lists -> padded label tensors on the device (``k_sync``: see
