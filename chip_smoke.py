@@ -274,9 +274,21 @@
    one on the host route: the step's frames and loss equal bit for bit, the
    parameters after it equal on both ranks and on both routes.
 
+13. The JAX package's orbax checkpoint into the port (path 10,
+   ``orbax_path``).  With no orbax, tensorstore, zstandard or JAX module
+   loaded, ``load_orbax_checkpoint`` reads the committed fixture
+   ``tests/golden/orbax_v2_narrow`` (a narrow V2 written by JAX
+   ``save_checkpoint``) through the port's zstd decoder, OCDBT reader and
+   zarr assembly, and every leaf its ``.npz`` holds must be equal bit for
+   bit; then ``cli.transcribe.main --weight DIR --conf ...`` transcribes a
+   seeded 30 s piece on the card, whose MIDI notes must equal those of
+   ``TransKun.transcribe`` on the card with ``state_dict_from_flax`` of the
+   ``.npz``'s best params, with the same launches (Viterbi and walk).  The
+   read time (the card's host), the notes and the launches are printed.
+
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, the V1 path's,
-path 7's, path 8's and path 9's figures as JSON lines, then one JSON
+path 7's, path 8's, path 9's and path 10's figures as JSON lines, then one JSON
 line with the kernels (launches on each path, largest error, kernel,
 plain and library ms, and the bound: bytes moved once over 3.35 TB/s or
 fp32 operations over 67 TFLOP/s, whichever is larger, for the fused MLP the
@@ -394,6 +406,12 @@ DIST_STATS_RTOL, DIST_STATS_ATOL = 1e-4, 1e-6  # the JAX package's SyncBN test's
 # batch), the batch a rank of its two gloo ranks, and the one-hour corpus's
 # pieces (ten minutes each)
 INPUT_STEPS, INPUT_RANK_BATCH, HOUR_PIECES = 3, 2, 6
+# path 10: the JAX package's orbax checkpoint committed as a test fixture (a
+# narrow V2, tests/golden/orbax_v2_narrow), and the seconds of the piece its
+# best weights transcribe through cli.transcribe --weight DIR
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "orbax_v2_narrow")
+ORBAX_PIECE_SECONDS = 30.0
+FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "transkun_tpu", "orbax", "tensorstore", "zstandard")
 # path 7: the non-flagship V2 branches, each the flagship conf with these changes
 BRANCHES = {
     "aggregation": {"enabledAttn": ["F", "T", "All0", "0All"]},
@@ -2407,6 +2425,101 @@ def input_path(dev, card, corpus, pickles, train_args, tmp, conf, counts, reset_
     return launches, figures
 
 
+def orbax_path(dev, card, tmp, counts, reset_counts):
+    """Path 10: the JAX package's orbax checkpoint into the port.  With no
+    orbax, tensorstore, zstandard or JAX module loaded, the committed
+    fixture is read by ``load_orbax_checkpoint`` (the port's zstd decoder,
+    OCDBT reader and zarr assembly) and every leaf its ``.npz`` holds is
+    held bit for bit; then ``cli.transcribe.main --weight DIR`` transcribes
+    a seeded piece on the card, and the MIDI's notes must equal those of
+    ``TransKun.transcribe`` on the card with ``state_dict_from_flax`` of the
+    ``.npz``'s best params loaded, and the CLI run's launches the reference
+    run's.  Returns the launches of each kernel on the path (the CLI run's)
+    and its figures."""
+    import torch
+    from scipy.io import wavfile
+
+    from transkun_tpu_torch.cli import transcribe as transcribe_cli
+    from transkun_tpu_torch.data.audio import read_audio
+    from transkun_tpu_torch.data.midi import read_midi, write_midi
+    from transkun_tpu_torch.models.config import parse_conf_file
+    from transkun_tpu_torch.models.transkun import TransKun
+    from transkun_tpu_torch.train.checkpoint import load_orbax_checkpoint, load_params
+    from transkun_tpu_torch.utils.convert import state_dict_from_flax
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN_PACKAGES)
+    if loaded:
+        raise AssertionError(f"path 10: modules the port must not need are loaded: {loaded[:5]}")
+    want = np.load(ORBAX_FIXTURE + ".npz")
+    t0 = time.perf_counter()
+    tree = load_orbax_checkpoint(ORBAX_FIXTURE)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_params(ORBAX_FIXTURE)
+    params_s = time.perf_counter() - t0
+
+    def flat(t, prefix=""):
+        items = t.items() if isinstance(t, dict) else enumerate(t) if isinstance(t, list) else None
+        if items is None:
+            return [] if t is None else [(prefix, t)]
+        return [x for k, v in items for x in flat(v, f"{prefix}/{k}" if prefix else str(k))]
+
+    got = {k: np.asarray(v) for k, v in flat(tree)}
+    n_bytes = sum(v.nbytes for v in got.values())
+    # the .npz leaves out the latest params only (the CPU tests hold them against JAX's reading)
+    if sorted(k for k in got if not k.startswith("params/")) != sorted(want.files):
+        raise AssertionError(f"path 10: the fixture's leaves {len(got)} and the .npz's {len(want.files)} differ")
+    for key in want.files:
+        if got[key].dtype != want[key].dtype or got[key].shape != want[key].shape \
+                or got[key].tobytes() != want[key].tobytes():
+            raise AssertionError(f"path 10: leaf {key} differs from the .npz")
+    print(f"path 10 read: load_orbax_checkpoint of the fixture in {read_s:.3f} s ({len(got)} leaves, "
+          f"{n_bytes} bytes; every one of the .npz's {len(want.files)} leaves equal bit for bit), "
+          f"load_params (best_params alone) in {params_s:.3f} s; host of {card}")
+
+    _, conf = parse_conf_file(ORBAX_FIXTURE + ".conf")
+    wav, mid, ref_mid = (os.path.join(tmp, n) for n in ("orbax_piece.wav", "orbax_cli.mid", "orbax_ref.mid"))
+    x = synth_piece(conf.fs, ORBAX_PIECE_SECONDS, SEED + 10)
+    wavfile.write(wav, conf.fs, np.round(x[:, 0] * 32768).astype(np.int16))
+    reset_counts()
+    t0 = time.perf_counter()
+    transcribe_cli.main([wav, mid, "--weight", ORBAX_FIXTURE, "--conf", ORBAX_FIXTURE + ".conf"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = counts()
+
+    best = {}
+    for key in want.files:
+        if key.startswith("best_params/"):
+            node = best
+            *parents, leaf = key.split("/")[1:]
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = want[key]
+    model = TransKun(conf, device=dev)
+    model.load_state_dict(state_dict_from_flax(best, conf))
+    _, audio = read_audio(wav)
+    reset_counts()
+    ref_notes = model.transcribe(audio)
+    torch.cuda.synchronize()
+    ref_launches = counts()
+    write_midi(ref_notes, ref_mid)
+    notes = [(n.start, n.end, n.pitch, n.velocity) for n in read_midi(mid).notes]
+    ref = [(n.start, n.end, n.pitch, n.velocity) for n in read_midi(ref_mid).notes]
+    if notes != ref or not notes:
+        raise AssertionError(f"path 10: the CLI's MIDI has {len(notes)} notes, the reference's {len(ref)}; "
+                             f"equal: {notes == ref}")
+    if launches != ref_launches or launches["viterbi_bwd"] == 0 or launches["decode_walk"] == 0:
+        raise AssertionError(f"path 10: CLI launches {launches}, the reference run's {ref_launches}")
+    print(f"path 10 notes: cli.transcribe --weight {os.path.basename(ORBAX_FIXTURE)} on a "
+          f"{ORBAX_PIECE_SECONDS:.0f} s piece ({card}) in {cli_s:.2f} s: {len(notes)} notes, equal to "
+          f"TransKun.transcribe with state_dict_from_flax of the .npz")
+    print(f"path 10 launches: {launches}")
+    figures = {"read_s": read_s, "load_params_s": params_s, "leaves": len(got), "bytes": n_bytes,
+               "cli_s": cli_s, "notes": len(notes), "launches": launches}
+    return launches, figures
+
+
 def main() -> int:
     import argparse
 
@@ -3687,6 +3800,12 @@ def main() -> int:
             dev, card, os.path.join(tmp, "corpus"), pickles, args, tmp, conf, counts, reset_counts)
         print(f"path 9 wall {time.perf_counter() - t0:.1f} s")
 
+        # -- path 10: the JAX package's orbax checkpoint into the port -------------
+        t0 = time.perf_counter()
+        by_path["orbax"], orbax_figures = orbax_path(dev, card, tmp, counts, reset_counts)
+        orbax_figures["wall_s"] = time.perf_counter() - t0
+        print(f"path 10 wall {orbax_figures['wall_s']:.1f} s")
+
     # -- path 5: the softmax study, the explicit-softmax attention core -----------
     os.environ[SOFTMAX_FLAG] = "1"
     reset_counts()
@@ -3731,10 +3850,9 @@ def main() -> int:
     print(f"softmax study launches {by_path['softmax']}: rows {[list(s) for s in SOFTMAX_SHAPES]}, "
           f"the shapes the kernels were held against their plain versions at")
 
-    bad = [m for m in sys.modules
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "transkun_tpu")]
+    bad = [m for m in sys.modules if m.split(".")[0] in FOREIGN_PACKAGES]
     if bad:
-        raise AssertionError(f"JAX code was imported: {bad[:5]}")
+        raise AssertionError(f"JAX code or a checkpoint package was imported: {bad[:5]}")
 
     pallas = "transkun_tpu/ops/"
     sources = {"viterbi_bwd": ("viterbi_bwd.cu", pallas + "semicrf_pallas.py:67"),
@@ -3768,6 +3886,7 @@ def main() -> int:
     print(json.dumps({"branches": branch_figures}))
     print(json.dumps({"dist": dist_figures}))
     print(json.dumps({"input": input_figures}))
+    print(json.dumps({"orbax": orbax_figures}))
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -79,7 +79,9 @@ def test_model_config_matches_jax_dataclass():
 def test_port_imports_leave_jax_out():
     """Neither JAX nor any module of the JAX package, after every module of
     the port and ``chip_smoke.py`` are imported: the port keeps its own
-    copies of the data, eval and dataset-build modules.  Run in a subprocess,
+    copies of the data, eval and dataset-build modules.  Nor orbax,
+    tensorstore or zstandard: the port reads orbax checkpoints with its own
+    zstd decoder, OCDBT reader and zarr assembly.  Run in a subprocess,
     since this test process imports ``transkun_tpu`` itself.  (Tiny CPU runs
     of the entry points under the same guard are in test_torch_data.py.)"""
     code = (
@@ -90,8 +92,10 @@ def test_port_imports_leave_jax_out():
         "assert 'transkun_tpu_torch.data.dataset' in sys.modules\n"
         "assert 'transkun_tpu_torch.ops.attention' in sys.modules\n"
         "assert 'transkun_tpu_torch.models.ablation' in sys.modules\n"
+        "assert 'transkun_tpu_torch.utils.orbax_read' in sys.modules\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transkun_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'transkun_tpu',\n"
+        "                              'orbax', 'tensorstore', 'zstandard')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

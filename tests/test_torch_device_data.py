@@ -12,7 +12,9 @@ sizes.
 - ``quantize_link`` equal to the JAX package's ``_quantize_link``;
 - ``cli.train.main``: ``--deviceData on``, ``off --linkInt16 force`` and
   ``off --linkInt16 off`` end one epoch with equal parameters bit for bit,
-  in one process and in two gloo ranks; ``auto``'s choice and fallback.
+  in one process and in two gloo ranks; ``auto``'s choice and fallback;
+  under ``--linkInt16 force --augment`` the stats pass decodes the cropped
+  float batch, as the JAX trainer's, and only the frames take the link.
 """
 
 import csv
@@ -264,6 +266,44 @@ def test_three_training_routes_end_with_the_same_parameters(corpus, ranks):
         assert params[name].keys() == params["device"].keys()
         for key, value in params["device"].items():
             assert torch.equal(params[name][key], value), (name, key)
+
+
+def test_stats_pass_decodes_the_cropped_float_batch(corpus, monkeypatch):
+    """Under ``--linkInt16 force --augment`` only the frames' copy of the
+    batch takes the int16 link: the stats pass decodes the cropped float
+    batch, as the JAX trainer's (``audio[:, :min(n_chunk_samples, width)]``
+    of ``batch["audioSlices"]``), so the logged train F1 and MSEs are of
+    the audio the step saw before rounding."""
+    tmp, args = corpus
+    batches, stats_inputs, frames_inputs = [], [], []
+
+    class RecordingLoader(D.BatchLoader):
+        def __iter__(self):
+            for batch in super().__iter__():
+                batches.append(np.array(batch["audioSlices"]))
+                yield batch
+
+    def recorded(original, sink):
+        def method(self, audio, *rest):
+            sink.append(np.array(audio))
+            return original(self, audio, *rest)
+        return method
+
+    monkeypatch.setattr(D, "BatchLoader", RecordingLoader)
+    monkeypatch.setattr(TransKun, "compute_stats", recorded(TransKun.compute_stats, stats_inputs))
+    monkeypatch.setattr(TransKun, "frames", recorded(TransKun.frames, frames_inputs))
+    record = train([str(tmp / "ckpt_stats.pt"), *args, "--batchSize", "2", "--stopAtStep", "1",
+                    "--statsEvery", "1", "--augment", "--deviceData", "off", "--linkInt16", "force"])
+    assert record["link_dtype"] == "int16" and record["stats_passes"] >= 1
+    n_chunk_samples = int(TINY["segmentSizeInSecond"] * FS)
+    # the trainer's batches come first, in order; every step ran the stats pass
+    for stats_audio, batch in zip(stats_inputs, batches):
+        expected = batch[:, : min(n_chunk_samples, batch.shape[1])]
+        assert stats_audio.dtype == np.float32
+        np.testing.assert_array_equal(stats_audio, expected)
+        # the frames' copy is the same batch through the link
+        assert any(f.dtype == np.int16 and np.array_equal(f, jax_quantize_link(expected, True, 32767.0))
+                   for f in frames_inputs)
 
 
 def test_auto_takes_the_device_corpus_and_falls_back(corpus, monkeypatch, capsys):

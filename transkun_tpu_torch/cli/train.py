@@ -345,12 +345,15 @@ def _train(args):
                 if device_data is not None:
                     # only the chunks' starts cross to the device
                     audio = device_data.slice_batch(device_data.starts_for(batch["pieceIdx"], batch["begins"]))
+                    frames = model.frames(audio)
                 else:
                     # chunk bounds are float seconds, so lengths jitter by a
-                    # sample: crop to one size
-                    audio = quantize_link(batch["audioSlices"][:, :n_chunk_samples], link_mode, INT16_SCALE)
-                    link_dtypes.add(str(audio.dtype))
-                frames = model.frames(audio)
+                    # sample: crop to one size.  Only the frames' copy takes
+                    # the link; the stats pass decodes the float batch
+                    audio = batch["audioSlices"][:, :n_chunk_samples]
+                    linked = quantize_link(audio, link_mode, INT16_SCALE)
+                    link_dtypes.add(str(linked.dtype))
+                    frames = model.frames(linked)
                 labels = model.labels(notes_batch, args.maxEvents, k_sync=k_sync)
                 generator = torch.Generator(device=device).manual_seed(
                     dropout_seed(run_seed, global_step, rank))

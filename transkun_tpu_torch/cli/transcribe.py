@@ -1,10 +1,12 @@
 """Inference CLI of the port: audio file in, MIDI file out.
 
     python -m transkun_tpu_torch.cli.transcribe input.wav output.mid \
-        [--weight ref.pt] [--conf model.conf] [--device cuda|cpu] [--bf16]
+        [--weight ckpt_dir_or_pt] [--conf model.conf] [--device cuda|cpu] [--bf16]
 
 The default device is ``cuda``, and the command fails when CUDA is absent;
-``--device cpu`` runs the plain PyTorch versions of the kernels.  A
+``--device cpu`` runs the plain PyTorch versions of the kernels.
+``--weight`` takes the JAX package's orbax checkpoint directory (its best
+params, read by the port's own reader) or a ``.pt`` file.  A
 directory input transcribes every audio file in it, mirroring the tree,
 through ``TransKun.transcribe_many``: the next file is read and dispatched
 before the current one's notes are assembled; with ``--allDevices`` the
@@ -27,7 +29,7 @@ def main(argv=None):
         "transcribed, mirroring the tree into outPath",
     )
     parser.add_argument("outPath", help="output MIDI file or directory")
-    parser.add_argument("--weight", default=None, help="reference .pt checkpoint or state_dict file")
+    parser.add_argument("--weight", default=None, help="checkpoint (orbax dir or torch .pt)")
     parser.add_argument("--conf", default=None, help="model conf JSON (default: the flagship 2.0.conf)")
     parser.add_argument("--segmentHopSize", type=float, default=None, help="segment hop (s)")
     parser.add_argument("--segmentSize", type=float, default=None, help="segment size (s)")
@@ -45,7 +47,7 @@ def main(argv=None):
     from ..data.midi import write_midi
     from ..models.config import load_default_conf, parse_conf_file
     from ..models.transkun import TransKun
-    from ..utils.convert import load_reference_checkpoint
+    from ..train.checkpoint import load_params
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
@@ -57,7 +59,7 @@ def main(argv=None):
     compute_dtype = torch.bfloat16 if args.bf16 else None
     if args.weight is not None:
         model = TransKun(conf, device=args.device, compute_dtype=compute_dtype)
-        model.load_state_dict(load_reference_checkpoint(args.weight))
+        model.load_state_dict(load_params(args.weight, conf))
     else:
         print("warning: no --weight given, using random weights (seed 0)")
         model = TransKun(conf, device=args.device, seed=0, compute_dtype=compute_dtype)

@@ -6,6 +6,13 @@ under the reference key names ``state_dict`` and ``best_state_dict``, so
 ``utils.convert.load_reference_checkpoint`` and the port's transcribe
 ``--weight`` read a training checkpoint as it is.
 
+It also reads the JAX package's orbax checkpoint directories:
+``load_orbax_checkpoint`` is JAX ``load_checkpoint(path, to_host=True)``
+(the same crash-recovery order, the same tree of numpy arrays, ints and
+strings) through the port's own reader (``utils/orbax_read.py``), and
+``load_params`` is JAX ``load_params``: a directory's best (or latest)
+flax params as the port's state_dict, or a ``.pt`` file's weights.
+
 Crash-safe overwrite: the new file is written to ``path + ".new"`` and
 swapped in with renames, so at every instant ``path``, ``path + ".new"``
 (complete, mid-swap) or ``path + ".old"`` (the previous save) holds a
@@ -20,10 +27,12 @@ from __future__ import annotations
 import os
 import pickle
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ..utils.convert import load_reference_checkpoint, state_dict_from_flax
+from ..utils.orbax_read import OrbaxCheckpoint
 from .step import TrainState
 
 
@@ -99,3 +108,50 @@ def restore_train_state(state: TrainState, ckpt: Dict[str, Any]) -> None:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.clip.load(ckpt["clip_buffer"], ckpt["clip_count"])
     state.step = int(ckpt["step"])
+
+
+def load_orbax_checkpoint(path: str, prefer: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """The tree of the JAX package's orbax checkpoint at ``path``, every
+    leaf on the host, as JAX ``load_checkpoint(path, to_host=True)``
+    returns it.
+
+    Candidates are tried in JAX's crash-recovery order, ``path.new``,
+    ``path``, ``path.old``: a readable ``.new`` is the newest state; an
+    unreadable ``.new`` or ``.old`` prints the ``checkpoint fallback:`` line
+    and the next is tried.  ``prefer``: top-level keys in order of
+    preference; only the first one a candidate holds is decoded, and the
+    tree has only that key."""
+    path = os.path.abspath(path.rstrip("/"))
+    existing = [p for p in (path + ".new", path, path + ".old") if os.path.isdir(p)]
+    if not existing:
+        raise FileNotFoundError(f"Checkpoint at {path} not found.")
+    last_err = None
+    for cand in existing:
+        try:
+            ckpt = OrbaxCheckpoint(cand)
+            if prefer is None:
+                return ckpt.read()
+            held = ckpt.top_level_keys()
+            key = next((k for k in prefer if k in held), None)
+            if key is None:
+                raise KeyError(f"{cand} holds none of {list(prefer)} (it holds {held})")
+            return ckpt.read((key,))
+        except (OSError, ValueError, KeyError) as e:
+            last_err = e
+            if cand != path:
+                print(f"checkpoint fallback: {cand} unreadable ({e})")
+    raise last_err
+
+
+def load_params(path: str, conf=None, prefer_best: bool = True) -> Dict[str, torch.Tensor]:
+    """The V2 model's state_dict from the JAX package's orbax checkpoint
+    directory (``best_params`` preferred, then ``params``, through
+    ``state_dict_from_flax``) or from a ``.pt`` file
+    (``load_reference_checkpoint``: ``best_state_dict`` preferred): JAX
+    ``load_params``, and the reference's ``transcribe.py:49-62``."""
+    if os.path.isfile(path):
+        return load_reference_checkpoint(path, prefer_best=prefer_best)
+    prefer = ("best_params", "params") if prefer_best else ("params",)
+    ckpt = load_orbax_checkpoint(path, prefer=prefer)
+    (params,) = ckpt.values()
+    return state_dict_from_flax(params, conf)
