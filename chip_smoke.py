@@ -285,6 +285,20 @@
    ``TransKun.transcribe`` on the card with ``state_dict_from_flax`` of the
    ``.npz``'s best params, with the same launches (Viterbi and walk).  The
    read time (the card's host), the notes and the launches are printed.
+   (c) The JAX run continued on the card (``orbax_resume``): the fixture is
+   a train state at step 1000 (seeded moments, a clip ring of 1000 pushes,
+   the ``extra`` of a save before validation).  A copy of it and a seeded
+   corpus at its conf's ``fs``: ``cli.train.main`` on ``cuda`` resumes the
+   copy to step 1002 with a stats pass a step.  Before the first step every
+   restored leaf on the card equals the ``.npz`` bit for bit; the resume
+   lines are printed, the losses finite, the ``.pt`` beside the directory at
+   step 1002 with both counts +2 and ``extra`` carried over, and every file
+   of the copy keeps its hash; a second run resumes from the ``.pt`` for one
+   step, and ``cli.transcribe --weight <copy>.pt`` writes (b)'s notes for
+   (b)'s piece.  The read and restore times (the card's host) and the
+   steps' times are printed.  Cut: the narrow width (no JAX or orbax on the card's
+   machine to write a flagship checkpoint; the flagship's restore is held
+   bit for bit on the CPU, ``tests/test_torch_resume.py``).
 
 Prints the card, build times, kernel times, each transcription's wall time,
 RTF and peak memory, each training step time and peak memory, the V1 path's,
@@ -411,6 +425,11 @@ INPUT_STEPS, INPUT_RANK_BATCH, HOUR_PIECES = 3, 2, 6
 # best weights transcribe through cli.transcribe --weight DIR
 ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "orbax_v2_narrow")
 ORBAX_PIECE_SECONDS = 30.0
+# path 10's files in the run's directory: the piece, (b)'s CLI and reference MIDI, (c)'s MIDI
+ORBAX_FILES = ("orbax_piece.wav", "orbax_cli.mid", "orbax_ref.mid", "orbax_resumed.mid")
+# path 10 (c): the steps the trainer takes past the fixture's step, and the
+# batch (the fixture conf's 16 s chunks)
+ORBAX_RESUME_STEPS, ORBAX_RESUME_BATCH = 2, 4
 FOREIGN_PACKAGES = ("jax", "jaxlib", "flax", "transkun_tpu", "orbax", "tensorstore", "zstandard")
 # path 7: the non-flagship V2 branches, each the flagship conf with these changes
 BRANCHES = {
@@ -1131,26 +1150,31 @@ def walk_visits(ptr, diag, start):
     return visits
 
 
-def profiled_ms(fn, calls=DEVICE_LAUNCHES):
+def profiled_ms(fn, calls=DEVICE_LAUNCHES, sessions=3):
     """Device milliseconds a call of ``fn``: every operation it ran on the
     card (kernels and memsets) under ``torch.profiler`` over ``calls``
     calls, summed and divided by ``calls``.  Unlike CUDA events around calls
     made back to back, this leaves out the host's enqueue where it is the
-    slower."""
+    slower.  On this card a run's later profiler sessions have at times seen
+    no device time at all: then up to ``sessions`` sessions are tried, and
+    None is returned if none saw any, for the caller to time with CUDA
+    events instead or to report the figure as not measured."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / calls
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+    print(f"the profiler saw no device time in {sessions} sessions", file=sys.stderr)
+    return None
 
 
 def walk_on_sentinel(walk, ptr, diag, bpres, start, k_max, *geometry):
@@ -1543,7 +1567,8 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
     def transcribed(model, segment_batch=None):
         """(notes, wall s, peak GB, launches, recorder, busy share) of one
         transcription of the piece after a warm-up one; the busy share is the
-        profiler's device time of another run over the wall time."""
+        profiler's device time of another run over the wall time, None (not
+        measured) where the profiler saw no device time."""
         model.transcribe(audio, segment_batch=segment_batch)
         torch.cuda.synchronize()
         gc.collect()
@@ -1555,7 +1580,8 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         got, peak = counts(), torch.cuda.max_memory_allocated(dev) / 1e9
-        busy = profiled_ms(lambda: model.transcribe(audio, segment_batch=segment_batch), calls=1) / 1e3 / wall
+        busy_ms = profiled_ms(lambda: model.transcribe(audio, segment_batch=segment_batch), calls=1)
+        busy = None if busy_ms is None else busy_ms / 1e3 / wall
         validate_notes(notes)
         return notes, wall, peak, got, rec, busy
 
@@ -1662,7 +1688,8 @@ def branch_path(dev, card, audio, corpus, pickles, budget, counts, reset_counts)
                                           "fallback_from": model.last_transcribe_fallback_from}
             print(f"path 7 {name} transcribe {PIECE_SECONDS:.0f} s, {route} route, segment_batch {group} "
                   f"({card}): wall {wall:.3f} s, RTF {PIECE_SECONDS / wall:.1f}x, peak memory "
-                  f"{peak:.2f} GB, device busy {busy:.1%}, {len(notes)} notes, launches "
+                  f"{peak:.2f} GB, device busy {'not measured' if busy is None else f'{busy:.1%}'}, "
+                  f"{len(notes)} notes, launches "
                   f"{ {k: v for k, v in got.items() if v} }; fallback from "
                   f"{model.last_transcribe_fallback_from}; attention shapes "
                   f"{sorted(set(rec.calls))}")
@@ -2466,8 +2493,7 @@ def orbax_path(dev, card, tmp, counts, reset_counts):
 
     got = {k: np.asarray(v) for k, v in flat(tree)}
     n_bytes = sum(v.nbytes for v in got.values())
-    # the .npz leaves out the latest params only (the CPU tests hold them against JAX's reading)
-    if sorted(k for k in got if not k.startswith("params/")) != sorted(want.files):
+    if sorted(got) != sorted(want.files):
         raise AssertionError(f"path 10: the fixture's leaves {len(got)} and the .npz's {len(want.files)} differ")
     for key in want.files:
         if got[key].dtype != want[key].dtype or got[key].shape != want[key].shape \
@@ -2478,7 +2504,7 @@ def orbax_path(dev, card, tmp, counts, reset_counts):
           f"load_params (best_params alone) in {params_s:.3f} s; host of {card}")
 
     _, conf = parse_conf_file(ORBAX_FIXTURE + ".conf")
-    wav, mid, ref_mid = (os.path.join(tmp, n) for n in ("orbax_piece.wav", "orbax_cli.mid", "orbax_ref.mid"))
+    wav, mid, ref_mid = (os.path.join(tmp, n) for n in ORBAX_FILES[:3])
     x = synth_piece(conf.fs, ORBAX_PIECE_SECONDS, SEED + 10)
     wavfile.write(wav, conf.fs, np.round(x[:, 0] * 32768).astype(np.int16))
     reset_counts()
@@ -2488,16 +2514,8 @@ def orbax_path(dev, card, tmp, counts, reset_counts):
     cli_s = time.perf_counter() - t0
     launches = counts()
 
-    best = {}
-    for key in want.files:
-        if key.startswith("best_params/"):
-            node = best
-            *parents, leaf = key.split("/")[1:]
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = want[key]
     model = TransKun(conf, device=dev)
-    model.load_state_dict(state_dict_from_flax(best, conf))
+    model.load_state_dict(state_dict_from_flax(npz_subtree(want, "best_params"), conf))
     _, audio = read_audio(wav)
     reset_counts()
     ref_notes = model.transcribe(audio)
@@ -2518,6 +2536,196 @@ def orbax_path(dev, card, tmp, counts, reset_counts):
     figures = {"read_s": read_s, "load_params_s": params_s, "leaves": len(got), "bytes": n_bytes,
                "cli_s": cli_s, "notes": len(notes), "launches": launches}
     return launches, figures
+
+
+def npz_subtree(npz, prefix):
+    """The nested dict of the ``.npz`` leaves under ``prefix`` (keys joined
+    by '/')."""
+    tree = {}
+    for key in npz.files:
+        if key.startswith(prefix + "/"):
+            node = tree
+            *parents, leaf = key[len(prefix) + 1:].split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = npz[key]
+    return tree
+
+
+def file_hashes(root):
+    """sha256 of every file under ``root``, by path."""
+    import hashlib
+
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def orbax_resume(dev, card, tmp, counts, reset_counts):
+    """Path 10 (c): the JAX run of the fixture continued on the card by
+    ``cli.train.main``.  Before the first step the restored state on the card
+    (params, AdaBelief's moments and count, the clip ring and count, the
+    step) and the best params equal the ``.npz`` bit for bit; the run prints
+    the resume lines, takes ``ORBAX_RESUME_STEPS`` finite steps with a stats
+    pass each and saves ``<copy>.pt`` (step and both counts advanced,
+    ``extra`` carried over), and no file of the copied directory changes; a
+    second run resumes from the ``.pt``, and ``cli.transcribe --weight
+    <copy>.pt`` writes (b)'s notes for (b)'s piece (the best params went
+    through unchanged).  Returns the launches of the three runs and the
+    figures."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from transkun_tpu_torch.cli import train as train_cli
+    from transkun_tpu_torch.cli import transcribe as transcribe_cli
+    from transkun_tpu_torch.data.midi import read_midi
+    from transkun_tpu_torch.models.config import parse_conf_file
+    from transkun_tpu_torch.train import checkpoint as ckpt_mod
+    from transkun_tpu_torch.utils.convert import state_dict_from_flax
+
+    want = np.load(ORBAX_FIXTURE + ".npz")
+    _, conf = parse_conf_file(ORBAX_FIXTURE + ".conf")
+    run = os.path.join(tmp, "orbax_run")
+    shutil.copytree(ORBAX_FIXTURE, run)
+    corpus = os.path.join(tmp, "orbax_corpus")
+    pickles = build_corpus(corpus, int(conf.fs), SEED + 11)
+    step0 = int(want["step"])
+    before = file_hashes(run)
+
+    expected = {name: state_dict_from_flax(npz_subtree(want, prefix), conf) for name, prefix in
+                (("params", "params"), ("best", "best_params"), ("mu", "opt_state/0/mu"),
+                 ("nu", "opt_state/0/nu"))}
+    figures = {}
+    read, restore = ckpt_mod.load_orbax_checkpoint, ckpt_mod.restore_train_state_from_orbax
+
+    def timed_read(path, *a, **kw):
+        t0 = time.perf_counter()
+        tree = read(path, *a, **kw)
+        figures["read_s"] = time.perf_counter() - t0
+        return tree
+
+    def checked_restore(state, tree, conf_):
+        t0 = time.perf_counter()
+        ckpt = restore(state, tree, conf_)
+        torch.cuda.synchronize()
+        figures["restore_s"] = time.perf_counter() - t0
+        # the state the first step starts from, on the card, against the .npz
+        live = {"params": dict(state.model.module.named_parameters()), "mu": state.optimizer.mu,
+                "nu": state.optimizer.nu, "best": ckpt["best_state_dict"]}
+        n = 0
+        for name, tensors in live.items():
+            if sorted(tensors) != sorted(expected[name]):
+                raise AssertionError(f"path 10 (c): the restored {name} has other keys than the .npz's")
+            for key, value in tensors.items():
+                ref = expected[name][key]
+                if name != "best" and value.device.type != "cuda":
+                    raise AssertionError(f"path 10 (c): restored {name} {key} is on {value.device}")
+                if value.dtype != torch.float32 or value.shape != ref.shape or not torch.equal(
+                        value.detach().view(torch.int32), ref.to(value.device).view(torch.int32)):
+                    raise AssertionError(f"path 10 (c): restored {name} {key} differs from the .npz")
+                n += 1
+        scalars = {"opt_state/0/count": state.optimizer.count, "opt_state/2/count": state.optimizer.count,
+                   "clip_count": state.clip.count}
+        for key, value in scalars.items():
+            if value.device.type != "cuda" or value.dtype != torch.int32 or int(value) != int(want[key]):
+                raise AssertionError(f"path 10 (c): restored {key} {value} against the .npz's {want[key]}")
+        if not torch.equal(state.clip.buffer, torch.from_numpy(want["clip_buffer"]).to(dev)) \
+                or state.clip.buffer.device.type != "cuda" or state.step != step0:
+            raise AssertionError("path 10 (c): the restored clip ring or step differs from the .npz")
+        figures["leaves_checked"] = n + len(scalars) + 2
+        return ckpt
+
+    args = [run, "--datasetPath", corpus,
+            "--datasetMetaFile_train", os.path.join(pickles, "train.pickle"),
+            "--datasetMetaFile_val", os.path.join(pickles, "val.pickle"),
+            "--modelConf", ORBAX_FIXTURE + ".conf", "--batchSize", str(ORBAX_RESUME_BATCH),
+            "--statsEvery", "1", "--logEvery", "1", "--dataLoaderWorkers", "0", "--seed", "7"]
+    ckpt_mod.load_orbax_checkpoint, ckpt_mod.restore_train_state_from_orbax = timed_read, checked_restore
+    out = io.StringIO()
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            record = train_cli.main(args + ["--stopAtStep", str(step0 + ORBAX_RESUME_STEPS)])
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        ckpt_mod.load_orbax_checkpoint, ckpt_mod.restore_train_state_from_orbax = read, restore
+    text = out.getvalue()
+    print(text, end="")
+    lines = ["resuming from checkpoint...",
+             f"resuming from the JAX package's orbax checkpoint {run}; saving to {run}.pt"]
+    if any(line not in text.splitlines() for line in lines) or "leaves_checked" not in figures:
+        raise AssertionError("path 10 (c): the run did not resume from the copied fixture")
+    losses = record["losses"]
+    if record["steps"] != ORBAX_RESUME_STEPS or not np.isfinite(losses).all() \
+            or record["stats_passes"] != ORBAX_RESUME_STEPS:
+        raise AssertionError(f"path 10 (c): {record['steps']} steps, {record['stats_passes']} stats passes, "
+                             f"losses {losses}")
+    saved = ckpt_mod.load_checkpoint(run + ".pt")
+    train_losses = [float(want[k]) for k in sorted(want.files) if k.startswith("extra/loss_tracker/train/")]
+    carried = {"loss_tracker": {"train": train_losses, "val": []}, "epoch": int(want["extra/epoch"]),
+               "run_seed": int(want["extra/run_seed"]), "warmstart_from": str(want["extra/warmstart_from"])}
+    if saved["step"] != step0 + ORBAX_RESUME_STEPS \
+            or int(saved["optimizer"]["count"]) != int(want["opt_state/0/count"]) + ORBAX_RESUME_STEPS \
+            or int(saved["clip_count"]) != int(want["clip_count"]) + ORBAX_RESUME_STEPS \
+            or saved["extra"] != carried:
+        raise AssertionError(f"path 10 (c): the .pt holds step {saved['step']}, count "
+                             f"{int(saved['optimizer']['count'])}, clip count {int(saved['clip_count'])}, "
+                             f"extra {saved['extra']}")
+    # the stats pass decodes through kernel 1 and walks on the host, as the JAX trainer's
+    if launches["semicrf_alpha"] != ORBAX_RESUME_STEPS or launches["semicrf_beta"] != ORBAX_RESUME_STEPS \
+            or launches["viterbi_bwd"] == 0:
+        raise AssertionError(f"path 10 (c): launches {launches}")
+    print(f"path 10 (c) restore: load_orbax_checkpoint of the fixture {figures['read_s']:.3f} s, "
+          f"restore_train_state_from_orbax onto the card {figures['restore_s']:.3f} s (host of {card}); "
+          f"{figures['leaves_checked']} restored leaves equal to the .npz bit for bit before the first step")
+    print(f"path 10 (c) steps {step0}-{step0 + ORBAX_RESUME_STEPS - 1} at batch {ORBAX_RESUME_BATCH} ({card}): "
+          f"losses {losses}, step s {record['step_seconds']}, iteration s {record['iter_seconds']}, "
+          f"stats pass s {record['stats_seconds']}, peak {record['step_peak_bytes'] / 2**30:.2f} GB")
+
+    reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        again = train_cli.main(args + ["--stopAtStep", str(step0 + ORBAX_RESUME_STEPS + 1)])
+    torch.cuda.synchronize()
+    second = counts()
+    text = out.getvalue()
+    print(text, end="")
+    if f"resuming from checkpoint {run}.pt; saving to {run}.pt" not in text.splitlines() \
+            or again["steps"] != 1 or ckpt_mod.load_checkpoint(run + ".pt")["step"] != step0 + 3:
+        raise AssertionError("path 10 (c): the second run did not resume from the .pt")
+    after = file_hashes(run)
+    changed = sorted(k for k in set(before) | set(after) if after.get(k) != before.get(k))
+    if changed or os.path.lexists(run + ".new") or os.path.lexists(run + ".old"):
+        raise AssertionError(f"path 10 (c): the copied JAX checkpoint changed: {changed[:5]}")
+    print(f"path 10 (c): the second run resumed from {os.path.basename(run)}.pt for one step; "
+          f"the {len(before)} files of the copied directory kept their hashes")
+
+    wav, cli_mid, _, resumed_mid = (os.path.join(tmp, n) for n in ORBAX_FILES)
+    reset_counts()
+    t0 = time.perf_counter()
+    transcribe_cli.main([wav, resumed_mid, "--weight", run + ".pt", "--conf", ORBAX_FIXTURE + ".conf"])
+    torch.cuda.synchronize()
+    figures["transcribe_s"] = time.perf_counter() - t0
+    third = counts()
+    notes, want_notes = ([(n.start, n.end, n.pitch, n.velocity) for n in read_midi(m).notes]
+                         for m in (resumed_mid, cli_mid))
+    if notes != want_notes or not notes or third["viterbi_bwd"] == 0 or third["decode_walk"] == 0:
+        raise AssertionError(f"path 10 (c): --weight {os.path.basename(run)}.pt gave {len(notes)} notes, "
+                             f"(b) {len(want_notes)}; launches {third}")
+    print(f"path 10 (c): cli.transcribe --weight {os.path.basename(run)}.pt on (b)'s piece ({card}) in "
+          f"{figures['transcribe_s']:.2f} s: {len(notes)} notes, equal to (b)'s")
+    print(f"path 10 (c) launches: {launches}, then {second}, then {third}")
+    figures.update(steps=record["steps"], losses=losses, step_seconds=record["step_seconds"],
+                   iter_seconds=record["iter_seconds"], stats_seconds=record["stats_seconds"],
+                   launches=launches, second_launches=second, transcribe_launches=third)
+    return {k: launches[k] + second[k] + third[k] for k in launches}, figures
 
 
 def main() -> int:
@@ -3361,6 +3569,10 @@ def main() -> int:
     ms["decode_walk"], back_to_back, plain_ms["decode_walk"] = lone_device_plain(
         lambda: walk.walk_group_cuda(*walk_args), lambda: walk.walk_group_plain(*walk_args))
     device_ms["decode_walk"] = profiled_ms(lambda: walk.walk_group_cuda(*walk_args))
+    walk_timer = "profiler"
+    if device_ms["decode_walk"] is None:
+        device_ms["decode_walk"] = queued_ms(lambda: walk.walk_group_cuda(*walk_args), max_sm_clock_mhz())
+        walk_timer = "CUDA events, queued"
     out = walk.walk_group_cuda(*walk_args)
     np_tables = [a.cpu().numpy() for a in real_tables]
     cur, visits = [start0] * 90, np.zeros(90, np.int64)
@@ -3392,7 +3604,7 @@ def main() -> int:
 
     walk_ms = device_ms["decode_walk"]
     print(f"decode_walk [{n_g},{t - 1},90] ({card}): this kernel: lone launch {ms['decode_walk']:.4f} ms, "
-          f"device {walk_ms:.4f} ms a call (profiler, {DEVICE_LAUNCHES} calls), {back_to_back:.4f} ms a "
+          f"device {walk_ms:.4f} ms a call ({walk_timer}, {DEVICE_LAUNCHES} calls), {back_to_back:.4f} ms a "
           f"call back to back, {walk_ms * 1e6 / longest:.0f} ns a chain step, bound "
           f"{bounds['decode_walk'][0]:.5f} ms ({walk_bytes} bytes), share "
           f"{bounds['decode_walk'][0] / walk_ms:.2%}; plain on the card {plain_ms['decode_walk']:.1f} ms, "
@@ -3803,6 +4015,7 @@ def main() -> int:
         # -- path 10: the JAX package's orbax checkpoint into the port -------------
         t0 = time.perf_counter()
         by_path["orbax"], orbax_figures = orbax_path(dev, card, tmp, counts, reset_counts)
+        by_path["orbax_resume"], orbax_figures["resume"] = orbax_resume(dev, card, tmp, counts, reset_counts)
         orbax_figures["wall_s"] = time.perf_counter() - t0
         print(f"path 10 wall {orbax_figures['wall_s']:.1f} s")
 

@@ -289,7 +289,7 @@ def test_fixture_reads_without_the_packages():
         "    if items is None:\n"
         "        return [] if t is None else [(p, t)]\n"
         "    return [x for k, v in items for x in flat(v, f'{p}/{k}' if p else str(k))]\n"
-        "got = {k: np.asarray(v) for k, v in flat(tree) if not k.startswith('params/')}\n"
+        "got = {k: np.asarray(v) for k, v in flat(tree)}\n"
         "assert sorted(got) == sorted(want.files), (len(got), len(want.files))\n"
         "for k in want.files:\n"
         "    assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k\n"

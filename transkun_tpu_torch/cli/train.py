@@ -47,6 +47,18 @@ rank, each rank validates its shard and the counts are summed; rank 0 alone
 prints, saves (a barrier after each save) and writes the TensorBoard log
 (``tensorboardX``, ``ckpt + ".log"``, the JAX package's tags).
 
+Resuming (``train.checkpoint.resolve_checkpoint``): a checkpoint at
+``saved_filename`` is continued.  A port checkpoint file is resumed and
+overwritten in place.  The JAX package's orbax checkpoint directory (its
+trainer's ``saved_filename``) is resumed from as the JAX trainer resumes
+it: params, AdaBelief's moments and count, the clip ring, the step, the
+best params, the loss tracker, the epoch and the run seed, so the step
+count, the learning-rate schedule and the data stream carry on.  The
+directory is never written: the port saves to ``saved_filename + ".pt"``,
+which a later restart resumes from.  Dropout cannot continue the JAX run's
+stream: JAX draws it with ``jax.random``, the port with torch generators
+seeded by ``train.step.dropout_seed``, a difference kept on purpose.
+
 ``main`` returns a record of the run (rank 0's where several ranks ran:
 losses, per-step seconds of the step alone and of the whole iteration
 (loader wait, upload, frames, labels and step), the largest per-step device
@@ -68,7 +80,9 @@ import time
 
 def main(argv=None):
     parser = argparse.ArgumentParser("Perform Training (PyTorch port)")
-    parser.add_argument("saved_filename", help="checkpoint file")
+    parser.add_argument("saved_filename",
+                        help="checkpoint file; or the JAX trainer's checkpoint directory, which is "
+                        "resumed and left as it is (the port saves to saved_filename.pt)")
     parser.add_argument("--datasetPath", required=True)
     parser.add_argument("--datasetMetaFile_train", required=True)
     parser.add_argument("--datasetMetaFile_val", required=True)
@@ -188,7 +202,10 @@ def _train(args):
     from ..models.config import parse_conf_file
     from ..models.transkun import quantize_link
     from ..parallel import dist as P
-    from ..train.checkpoint import checkpoint_exists, load_checkpoint, restore_train_state, save_checkpoint
+    from ..train.checkpoint import (
+        load_checkpoint, load_orbax_checkpoint, resolve_checkpoint, restore_train_state,
+        restore_train_state_from_orbax, save_checkpoint,
+    )
     from ..train.optim import AdaBelief
     from ..train.step import TrainState, dropout_seed, make_train_step
     from ..train.validate import do_validation
@@ -233,23 +250,33 @@ def _train(args):
     best_state_dict = snapshot()
     loss_tracker = {"train": [], "val": []}
     start_epoch = 0
-    ckpt_path = args.saved_filename
-    if checkpoint_exists(ckpt_path):  # every rank loads the same file
+    carried = {}  # extra keys the run keeps as it found them (warmstart_from)
+    # a JAX run's checkpoint directory is read, never written: the port saves beside it
+    plan = resolve_checkpoint(args.saved_filename)
+    ckpt_path = plan.save_path
+    if plan.source is not None:  # every rank loads the same checkpoint
         if rank == 0:
             print("resuming from checkpoint...")
-        ckpt = load_checkpoint(ckpt_path)
-        restore_train_state(state, ckpt)
+            what = "the JAX package's orbax checkpoint" if plan.kind == "jax" else "checkpoint"
+            print(f"resuming from {what} {plan.source}; saving to {plan.save_path}", flush=True)
+        if plan.kind == "jax":
+            ckpt = restore_train_state_from_orbax(state, load_orbax_checkpoint(plan.source), conf)
+        else:
+            ckpt = load_checkpoint(plan.source)
+            restore_train_state(state, ckpt)
         best_state_dict = ckpt.get("best_state_dict", ckpt["state_dict"])
-        extra = ckpt.get("extra", {}) or {}
-        loss_tracker = extra.get("loss_tracker", loss_tracker)
-        start_epoch = int(extra.get("epoch", 0))
-        # continue the exact data and dropout stream of the interrupted run
-        run_seed = int(extra.get("run_seed", run_seed))
+        extra = dict(ckpt.get("extra", {}) or {})
+        loss_tracker = extra.pop("loss_tracker", loss_tracker)
+        start_epoch = int(extra.pop("epoch", 0))
+        # continue the data stream of the interrupted run (and, after a port
+        # run, its dropout stream; a JAX run's dropout is jax.random's)
+        run_seed = int(extra.pop("run_seed", run_seed))
+        carried = extra
 
     def save(epoch, message=None):
         if rank == 0:
             save_checkpoint(ckpt_path, state, best_state_dict,
-                            {"loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
+                            {**carried, "loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
             if message:
                 print(message, flush=True)
         P.barrier(group)
@@ -265,7 +292,7 @@ def _train(args):
         except ImportError:
             print("tensorboardX is not installed: no TensorBoard log")
         else:
-            writer = SummaryWriter(ckpt_path + ".log")
+            writer = SummaryWriter(args.saved_filename + ".log")  # a resumed JAX run's log goes on
 
     def scalars(values, step):
         if writer is not None:

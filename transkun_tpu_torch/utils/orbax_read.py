@@ -6,7 +6,9 @@ An orbax PyTree checkpoint directory holds:
 
 - ``_METADATA``: JSON, the tree: every leaf's key path (dict keys and
   sequence indices) and value type (``jax.Array``, ``np.ndarray``,
-  ``scalar``, ``string`` or ``None``);
+  ``scalar``, ``string``, ``None``, or ``List``, ``Dict`` or ``Tuple`` for
+  an empty container, such as the JAX trainer's ``loss_tracker["val"]``
+  before its first validation);
 - ``_strings.json``: the string leaves, by dotted key path;
 - an OCDBT database (``utils/ocdbt.py``) under which every array leaf is a
   zarr v2 array named by its dotted key path: ``<name>/.zarray`` (JSON:
@@ -16,7 +18,8 @@ An orbax PyTree checkpoint directory holds:
 
 Leaves come back as JAX ``load_checkpoint(path, to_host=True)`` returns
 them: arrays and scalars as ``np.ndarray`` (a scalar 0-d), strings as
-``str``, a ``None`` leaf as ``None``; sequences as lists.  Any zarr
+``str``, a ``None`` leaf as ``None``, an empty container as ``[]``, ``{}``
+or ``()``; sequences as lists.  Any other value type is refused by name.  Any zarr
 compressor, filter, dtype, order or format other than those orbax writes
 here (zstd or no compressor, no filters, order C, "." between chunk
 indices, the dtypes of ``DTYPES``) is refused by name.
@@ -39,6 +42,8 @@ __all__ = ["OrbaxCheckpoint", "OrbaxFormatError"]
 
 DTYPES = ("<f4", "<f8", "<i4", "<i8", "|b1", "<u4")
 ARRAY_TYPES = ("jax.Array", "np.ndarray", "scalar")
+# orbax writes an empty container as a leaf of its own; JAX restores it as this
+EMPTY_CONTAINERS = {"List": list, "Dict": dict, "Tuple": tuple}
 KEY_DICT, KEY_SEQUENCE = 2, 1
 
 
@@ -164,7 +169,7 @@ class OrbaxCheckpoint:
             if kind in ARRAY_TYPES:
                 name = ".".join(k for k, _ in keys)
                 arrays[name] = _ZarrArray(name, json.loads(self.store.read(name + "/.zarray")))
-            elif kind not in ("string", "None"):
+            elif kind not in ("string", "None", *EMPTY_CONTAINERS):
                 raise OrbaxFormatError(f"{self.path}: leaf {'.'.join(k for k, _ in keys)} "
                                        f"has value type {kind!r}")
         values = self._read_arrays(list(arrays.values()))
@@ -178,6 +183,8 @@ class OrbaxCheckpoint:
                 leaf = self.strings[name]
             elif kind == "None":
                 leaf = None
+            elif kind in EMPTY_CONTAINERS:
+                leaf = _Empty(EMPTY_CONTAINERS[kind]())
             else:
                 leaf = values[name]
             node = tree
@@ -216,9 +223,19 @@ class OrbaxCheckpoint:
         return {a.name: a.assemble(chunks[a.name]) for a in arrays}
 
 
+class _Empty:
+    """An empty-container leaf while the tree is built, so that an empty
+    dict is not taken for a node."""
+
+    def __init__(self, value):
+        self.value = value
+
+
 def _sequences(tree: Dict[str, Any], sequence_paths: set, path: Tuple[str, ...] = ()) -> Any:
-    """Nodes keyed by sequence indices become lists, in index order."""
-    out = {k: _sequences(v, sequence_paths, path + (k,)) if isinstance(v, dict) else v
+    """Nodes keyed by sequence indices become lists, in index order; empty
+    container leaves become their containers."""
+    out = {k: _sequences(v, sequence_paths, path + (k,)) if isinstance(v, dict)
+           else v.value if isinstance(v, _Empty) else v
            for k, v in tree.items()}
     if path in sequence_paths:
         indices = sorted(out, key=int)
