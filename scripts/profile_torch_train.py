@@ -5,11 +5,15 @@
 Needs a CUDA device.  Random flagship weights from ``--seed``, a batch of
 16 s synthetic pieces from ``chip_smoke.synth_piece`` with sine-note labels.
 After two warm-up steps it times ``--steps`` steps of ``make_train_step``
-with the host clock, then times the phases of one step (forward, backward,
-clip and optimizer) with a device sync between them, and in a last run under
-``torch.profiler`` sums the device time of every CUDA kernel.  Prints one
-JSON object: step wall time, peak memory, phase times, the device's busy
-share, the alpha and beta kernels' share of the step and the top kernels.
+with the host clock and the program's spans on (``TRANSKUN_TPU_TIMING=silent``;
+``utils.profiling``: forward, backward, clip and optimizer inside the step,
+host milliseconds a step), and in a last run under ``torch.profiler`` sums
+the device time of every CUDA kernel and counts the launches.  Prints one
+JSON object: step wall time, peak memory, the spans' host time a step, the
+alpha and beta kernels' share of the device time, the top kernels and the
+launches.  The device's busy and idle share over a steady stretch of the
+training loop, with its idle gaps named, is the benchmark's
+(``bench_port/run.py --workload v2-train-b4-fp32 --trace 1``).
 
 With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
 environment it profiles the fused-backbone route; the breakdown names the
@@ -50,6 +54,7 @@ def main(argv=None):
     from transkun_tpu_torch.ops import attention, mlp
     from transkun_tpu_torch.train.optim import AdaBelief
     from transkun_tpu_torch.train.step import TrainState, make_train_step
+    from transkun_tpu_torch.utils import profiling
 
     _, conf = load_default_conf()
     dev = torch.device("cuda")
@@ -78,6 +83,8 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
+    os.environ[profiling.ENV] = "silent"
+    profiling.reset()
     t0 = time.perf_counter()
     for i in range(args.steps):
         m = step_fn(state, frames, labels, gen(i))
@@ -85,30 +92,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / args.steps
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-
-    # phases of one step, each ended by a device sync
-    params = [p for _, p in state.optimizer.named]
-    loss_fn = model.make_train_loss()
-    phases = {}
-    t0 = time.perf_counter()
-    logp = loss_fn(frames, labels, gen(0))
-    loss_t = -logp.sum(-1).mean()
-    torch.cuda.synchronize()
-    phases["forward_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    (loss_t / 50).backward()
-    torch.cuda.synchronize()
-    phases["backward_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    grads = [p.grad for p in params]
-    clipped, norm, _ = state.clip(grads, 0.8)
-    finite = torch.isfinite(loss_t.detach()) & torch.isfinite(norm)
-    state.optimizer.step(clipped, finite)
-    state.clip.push(norm, finite)
-    torch.cuda.synchronize()
-    phases["clip_and_optimizer_s"] = time.perf_counter() - t0
-    for p in params:
-        p.grad = None
+    spans_ms = {name: 1e3 * s / args.steps for name, (_, s) in sorted(profiling.totals().items())}
+    del os.environ[profiling.ENV]
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -116,10 +101,12 @@ def main(argv=None):
         step_fn(state, frames, labels, gen(0))
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
+    # device-side events only, the program's spans' device rows left out
     kernels = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not e.key.startswith("transkun.")
     ]
     kernels.sort(key=lambda k: -k[1])
     device_ms = sum(k[1] for k in kernels)
@@ -127,7 +114,7 @@ def main(argv=None):
     def ms_of(pred):
         return sum(ms for name, ms, _ in kernels if pred(name))
 
-    alpha_ms = ms_of(lambda n: "lse_table_kernel<true" in n)
+    alpha_ms = ms_of(lambda n: "alpha_tma_kernel" in n)
     beta_ms = ms_of(lambda n: "lse_cluster_kernel<false" in n)
     gemm_ms = ms_of(lambda n: "gemm" in n.lower() or "sm90_xmma" in n or "cutlass" in n.lower())
     print(json.dumps({
@@ -139,10 +126,9 @@ def main(argv=None):
         "loss": loss,
         "step_s": step_s,
         "peak_memory_gb": peak_gb,
-        "phases_synced": phases,
+        "spans_host_ms_a_step": spans_ms,
         "profiled_wall_s": profiled_wall,
         "device_kernel_ms_profiled_step": device_ms,
-        "device_busy_share_profiled_step": device_ms / 1e3 / profiled_wall,
         "alpha_ms": alpha_ms,
         "beta_ms": beta_ms,
         "alpha_beta_share_of_device_time": (alpha_ms + beta_ms) / max(device_ms, 1e-9),

@@ -5,13 +5,16 @@
 
 Needs a CUDA device.  Random flagship weights from ``--seed`` (scorer
 diagonal bias -8), a synthetic piece from ``chip_smoke.synth_piece``.  After
-one warm-up run it times one run with host-clock spans around the stages of
-``TransKun.transcribe`` (the dispatch, and in it the segments' enqueue; the
-finish, and in it the wait for the piece's event, the assembly, the merge
-and any host-walk route) and, in a second run under ``torch.profiler``, sums
-the device time of every CUDA kernel.  Prints one JSON object.
+one warm-up run it times one run with the program's spans on
+(``TRANSKUN_TPU_TIMING=silent``; ``utils.profiling``: the dispatch with its
+prepare, pin, upload and groups, the finish with its wait, assembly, merge
+and any host-walk route) and reports each span's host seconds and the
+counters, and in a second run under ``torch.profiler`` sums the device time
+of every CUDA kernel and counts the launches.  Prints one JSON object.
 ``--budget`` sets ``decode_k_budget`` (1: the host-walk route from the first
-group).
+group).  The device's busy and idle share over a steady stretch of many
+pieces, with its idle gaps named, is the benchmark's
+(``bench_port/run.py --workload v2-pieces-fp32 --trace 1``).
 
 With ``TRANSKUN_TPU_FUSED_ATTN=1`` and ``TRANSKUN_TPU_FUSED_MLP=1`` in the
 environment it profiles the fused-backbone route; the breakdown names the
@@ -25,7 +28,6 @@ import json
 import os
 import sys
 import time
-from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -48,7 +50,8 @@ def main(argv=None):
     import chip_smoke
     import transkun_tpu_torch.models.transkun as tk
     from transkun_tpu_torch.models.config import load_default_conf
-    from transkun_tpu_torch.ops import attention, mlp, semicrf, walk
+    from transkun_tpu_torch.ops import attention, mlp
+    from transkun_tpu_torch.utils import profiling
 
     _, conf = load_default_conf()
     model = tk.TransKun(conf, device="cuda", seed=args.seed,
@@ -60,42 +63,15 @@ def main(argv=None):
     model.transcribe(audio)
     torch.cuda.synchronize()
 
-    # host-clock spans: each wrapped stage adds its own duration
-    spans = defaultdict(float)
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                spans[name] += time.perf_counter() - t0
-        return wrapper
-
-    # "a.b" spans lie inside span "a"
-    stages = [
-        (tk.TransKun, "_transcribe_dispatch", "dispatch"),
-        (tk.TransKun, "_segment_tables", "dispatch.enqueue_segments"),
-        (walk, "walk_group", "dispatch.enqueue_walk"),
-        (tk.TransKun, "_transcribe_finish", "finish"),
-        (torch.cuda.Event, "synchronize", "finish.wait_for_device"),
-        (tk.TransKun, "_assemble_from_arrays", "finish.assembly"),
-        (tk.TransKun, "_transcribe_host_walk", "finish.host_walk_route"),
-        (semicrf, "backtrack_backward", "finish.host_walk_route.walk"),
-        (tk, "_merge_segments", "finish.merge"),
-    ]
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
-    for obj, attr, name in stages:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
-    try:
-        t0 = time.perf_counter()
-        notes = model.transcribe(audio)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for obj, attr, fn in saved:
-            setattr(obj, attr, fn)
-    spans["rest"] = wall - spans["dispatch"] - spans["finish"]
+    os.environ[profiling.ENV] = "silent"
+    profiling.reset()
+    t0 = time.perf_counter()
+    notes = model.transcribe(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = {name: seconds for name, (_, seconds) in sorted(profiling.totals().items())}
+    counters = profiling.counters()
+    del os.environ[profiling.ENV]
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -104,14 +80,14 @@ def main(argv=None):
         torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
     # device-side events only: the aten ops that launched them carry the
-    # same time again
+    # same time again, and so do the program's spans' device rows
     kernels = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not e.key.startswith("transkun.")
     ]
     kernels.sort(key=lambda k: -k[1])
-    device_ms = sum(k[1] for k in kernels)
 
     def ms_of(*parts):
         return sum(ms for name, ms, _ in kernels if any(p in name.lower() for p in parts))
@@ -128,10 +104,10 @@ def main(argv=None):
         "group_counts": model.last_transcribe_group_counts,
         "wall_s": wall,
         "rtf": args.seconds / wall,
-        "spans_s": dict(spans),
+        "spans_s": spans,
+        "counters": counters,
         "profiled_wall_s": profiled_wall,
-        "device_kernel_ms_profiled_run": device_ms,
-        "device_busy_share_profiled_run": device_ms / 1e3 / profiled_wall,
+        "launches_profiled_run": sum(n for _, _, n in kernels),
         # attention_fwd_mma or attention_fwd_general, whichever the shape took
         "own_kernels_ms": {name: ms_of(name + ("_" if name == "attention_fwd" else "_kernel"))
                            for name in ("viterbi_bwd", "decode_walk", "attention_fwd", "fused_mlp")},

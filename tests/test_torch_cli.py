@@ -323,19 +323,21 @@ def test_merge_params_tolerant_follows_jax():
     assert torch.equal(got["a.b"], torch.from_numpy(target["a.b"]))
 
 
-def test_profiling_meters_count(tmp_path):
+def test_profiling_meters_count(tmp_path, monkeypatch):
     rtf = profiling.RTFMeter()
     for _ in range(2):
         with rtf.measure(3.0, device=torch.device("cpu")):
             sum(range(20000))
     assert rtf.audio_seconds == 6.0 and rtf.wall_seconds > 0
     assert rtf.rtf == pytest.approx(6.0 / rtf.wall_seconds)
-    timer = profiling.PhaseTimer()
+    monkeypatch.setenv("TRANSKUN_TPU_TIMING", "silent")
+    profiling.reset()
     for name in ("load", "load", "decode"):
-        with timer.phase(name):
-            pass
-    assert dict(timer.counts) == {"load": 2, "decode": 1}
-    assert "(2 calls)" in timer.report() and "(1 calls)" in timer.report()
+        with profiling.root(f"transkun.{name}"):
+            profiling.count("items")
+    assert {k: c for k, (c, _) in profiling.totals().items()} == {"transkun.load": 2, "transkun.decode": 1}
+    assert profiling.counters() == {"items": 3}
+    profiling.reset()
     with profiling.device_trace(str(tmp_path / "trace")):
         torch.ones(8).sum()
     assert json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]

@@ -331,3 +331,39 @@ def test_auto_takes_the_device_corpus_and_falls_back(corpus, monkeypatch, capsys
     os.remove(ckpt)
     with pytest.raises(ValueError, match="use the host loader"):
         train([ckpt, *one, "--deviceData", "on"])
+
+
+def test_training_spans_one_a_step_and_a_line_a_fetch(corpus, monkeypatch, capsys):
+    """With ``TRANSKUN_TPU_TIMING`` set the loop records, a step at a time,
+    one ``transkun.input`` (with its slice, frames and labels),
+    ``transkun.step``, ``forward``, ``backward``, ``clip`` and
+    ``optimizer``, and one ``transkun.fetch`` a metric fetch: every
+    ``--logEvery`` steps and at the epoch's last step.  Set to 1 it prints
+    one ``[train]`` line a fetch; ``silent`` prints none."""
+    from transkun_tpu_torch.utils import profiling
+
+    tmp, args = corpus
+    one = [*args, "--batchSize", "2", "--logEvery", "2", "--hopSize", "2"]
+    monkeypatch.setenv(profiling.ENV, "1")
+    profiling.reset()
+    capsys.readouterr()
+    record = train([str(tmp / "ckpt_spans.pt"), *one, "--statsEvery", "8"])
+    steps = record["steps"]
+    fetches = -(-steps // 2)
+    assert steps % 2 and record["stats_passes"] == 1  # the epoch's last fetch is its own
+    counts = {k[len("transkun."):]: n for k, (n, _) in profiling.totals().items()}
+    for name in ("input", "slice", "frames", "labels", "step", "forward", "backward", "clip", "optimizer"):
+        assert counts[name] == steps, name
+    assert "allreduce" not in counts and counts["fetch"] == fetches and counts["ckpt"] == 1
+    assert counts["stats"] == 1
+    assert profiling.counters() == {"steps": steps, "fetches": fetches, "stats_passes": 1}
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[train]")]
+    assert len(lines) == fetches
+    assert all(" step " in line and "(forward " in line and "optimizer " in line and " fetch " in line
+               for line in lines)
+    monkeypatch.setenv(profiling.ENV, "silent")
+    os.remove(tmp / "ckpt_spans.pt")
+    train([str(tmp / "ckpt_spans.pt"), *one, "--statsEvery", "0", "--stopAtStep", "2"])
+    assert "[train]" not in capsys.readouterr().out
+    assert profiling.counters()["fetches"] == fetches + 1
+    profiling.reset()

@@ -59,6 +59,18 @@ which a later restart resumes from.  Dropout cannot continue the JAX run's
 stream: JAX draws it with ``jax.random``, the port with torch generators
 seeded by ``train.step.dropout_seed``, a difference kept on purpose.
 
+Timing (``utils.profiling``): with ``TRANSKUN_TPU_TIMING`` set, or under a
+``torch.profiler``, the loop records its spans, each a root keyed by the
+global step: ``transkun.input`` (the loader's next batch, then
+``transkun.slice``, ``transkun.frames``, ``transkun.labels`` and the step's
+generator), ``transkun.step`` (``train.step``), ``transkun.fetch`` (the
+metric fetch's copy to the host), ``transkun.stats`` (both stats passes) and
+``transkun.ckpt`` (a save), and counts ``steps``, ``fetches`` and
+``stats_passes``.  Set to anything but ``silent``, rank 0 prints after each
+metric fetch each phase's mean host milliseconds a step since the last such
+line: ``[train] input .. step .. (forward .. backward .. clip .. optimizer
+..) fetch .. stats .. ms a step``.
+
 ``main`` returns a record of the run (rank 0's where several ranks ran:
 losses, per-step seconds of the step alone and of the whole iteration
 (loader wait, upload, frames, labels and step), the largest per-step device
@@ -209,7 +221,7 @@ def _train(args):
     from ..train.optim import AdaBelief
     from ..train.step import TrainState, dropout_seed, make_train_step
     from ..train.validate import do_validation
-    from ..utils import compute_param_size
+    from ..utils import compute_param_size, profiling
 
     group = None
     device = torch.device(args.device)
@@ -275,8 +287,9 @@ def _train(args):
 
     def save(epoch, message=None):
         if rank == 0:
-            save_checkpoint(ckpt_path, state, best_state_dict,
-                            {**carried, "loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
+            with profiling.root("transkun.ckpt", state.step):
+                save_checkpoint(ckpt_path, state, best_state_dict,
+                                {**carried, "loss_tracker": loss_tracker, "epoch": epoch, "run_seed": run_seed})
             if message:
                 print(message, flush=True)
         P.barrier(group)
@@ -347,6 +360,7 @@ def _train(args):
               "device_data_bytes": 0 if device_data is None else device_data.nbytes,
               "link_dtype": None}
     global_step = state.step
+    phases_shown = profiling.totals()  # the span totals at the last [train] line
     try:
         for epoch in range(start_epoch, args.maxEpoch):
             data_iter = D.DatasetMaestroIterator(
@@ -365,25 +379,33 @@ def _train(args):
             pending_log = []
 
             t_iter = time.perf_counter()  # an iteration's wall includes the loader's wait
-            for idx, batch in enumerate(loader):
-                if idx == n_steps:
-                    break
-                notes_batch = batch["notes"]
-                if device_data is not None:
-                    # only the chunks' starts cross to the device
-                    audio = device_data.slice_batch(device_data.starts_for(batch["pieceIdx"], batch["begins"]))
-                    frames = model.frames(audio)
-                else:
-                    # chunk bounds are float seconds, so lengths jitter by a
-                    # sample: crop to one size.  Only the frames' copy takes
-                    # the link; the stats pass decodes the float batch
-                    audio = batch["audioSlices"][:, :n_chunk_samples]
-                    linked = quantize_link(audio, link_mode, INT16_SCALE)
-                    link_dtypes.add(str(linked.dtype))
-                    frames = model.frames(linked)
-                labels = model.labels(notes_batch, args.maxEvents, k_sync=k_sync)
-                generator = torch.Generator(device=device).manual_seed(
-                    dropout_seed(run_seed, global_step, rank))
+            batches = iter(loader)
+            for idx in range(n_steps):
+                with profiling.root("transkun.input", global_step):
+                    batch = next(batches, None)
+                    if batch is None:
+                        break
+                    notes_batch = batch["notes"]
+                    with profiling.span("transkun.slice"):
+                        if device_data is not None:
+                            # only the chunks' starts cross to the device
+                            audio = device_data.slice_batch(
+                                device_data.starts_for(batch["pieceIdx"], batch["begins"]))
+                            linked = audio
+                        else:
+                            # chunk bounds are float seconds, so lengths jitter
+                            # by a sample: crop to one size.  Only the frames'
+                            # copy takes the link; the stats pass decodes the
+                            # float batch
+                            audio = batch["audioSlices"][:, :n_chunk_samples]
+                            linked = quantize_link(audio, link_mode, INT16_SCALE)
+                            link_dtypes.add(str(linked.dtype))
+                    with profiling.span("transkun.frames"):
+                        frames = model.frames(linked)
+                    with profiling.span("transkun.labels"):
+                        labels = model.labels(notes_batch, args.maxEvents, k_sync=k_sync)
+                    generator = torch.Generator(device=device).manual_seed(
+                        dropout_seed(run_seed, global_step, rank))
                 if device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(device)
                 t_step = time.perf_counter()
@@ -395,10 +417,12 @@ def _train(args):
                 record["steps"] += 1
                 pending_log.append((epoch, idx, global_step, metrics, t_step, t_iter))
                 if len(pending_log) >= max(args.logEvery, 1) or idx == n_steps - 1:
-                    fetched = torch.stack([
-                        torch.stack([m["loss"], m["grad_norm"], m["clip_value"], m["finite"].float()])
-                        for *_, m, _, _ in pending_log
-                    ]).cpu().numpy()
+                    with profiling.root("transkun.fetch", global_step):
+                        fetched = torch.stack([
+                            torch.stack([m["loss"], m["grad_norm"], m["clip_value"], m["finite"].float()])
+                            for *_, m, _, _ in pending_log
+                        ]).cpu().numpy()
+                        profiling.count("fetches")
                     # wall seconds per step since the first pending step (or its
                     # iteration) began; with --logEvery 1 it is the step alone
                     now = time.perf_counter()
@@ -421,6 +445,10 @@ def _train(args):
                         if not fin and bad_step is None:
                             bad_step = gs_i
                     pending_log.clear()
+                    if rank == 0 and os.environ.get(profiling.ENV) not in (None, "", "silent"):
+                        phases = profiling.totals()
+                        print(_phase_line(phases_shown, phases), flush=True)
+                        phases_shown = phases
                     if bad_step is not None:
                         # the step skipped the update on the device (on every
                         # rank: the flag is of the summed values), so the state
@@ -430,8 +458,10 @@ def _train(args):
 
                 if args.statsEvery > 0 and idx % args.statsEvery == 0 and rank == 0:
                     t_stats = time.perf_counter()  # both passes end in host numbers
-                    stats = model.compute_stats(audio, notes_batch)
-                    stats2 = model.compute_stats_mireval(audio, notes_batch)
+                    with profiling.root("transkun.stats", global_step):
+                        stats = model.compute_stats(audio, notes_batch)
+                        stats2 = model.compute_stats_mireval(audio, notes_batch)
+                        profiling.count("stats_passes")
                     record["stats_seconds"].append(time.perf_counter() - t_stats)
                     record["stats_passes"] += 1
                     n_gt = stats2["nGT"] + 1e-4
@@ -489,6 +519,25 @@ def _train(args):
             writer.close()
     record["link_dtype"] = "+".join(sorted(link_dtypes)) or None
     return record
+
+
+def _phase_line(before, after) -> str:
+    """``[train]`` and each phase's mean host milliseconds a step between
+    two readings of the span totals (name -> (count, seconds)), the step's
+    own phases in brackets; a phase that did not run is left out."""
+    steps = max(after.get("transkun.step", (0, 0.0))[0] - before.get("transkun.step", (0, 0.0))[0], 1)
+
+    def phases(*names):
+        words = []
+        for name in names:
+            c0, s0 = before.get("transkun." + name, (0, 0.0))
+            c1, s1 = after.get("transkun." + name, (0, 0.0))
+            if c1 > c0:
+                words.append(f"{name} {(s1 - s0) * 1e3 / steps:.1f}")
+        return " ".join(words)
+
+    return (f"[train] {phases('input', 'step')} ({phases('forward', 'backward', 'allreduce', 'clip', 'optimizer')}) "
+            f"{phases('fetch', 'stats')} ms a step")
 
 
 def cli():

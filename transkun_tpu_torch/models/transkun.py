@@ -33,9 +33,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import math
 import os
-import time
 from collections import defaultdict, deque
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -49,6 +49,7 @@ from ..ops import distributions as dist
 from ..ops import frontend, logz, semicrf, walk
 from ..ops.viterbi import viterbi_backward_tables_padded
 from ..utils import compute_param_size
+from ..utils import profiling
 from .backbone import Backbone, UpConvSkip
 from .config import ModelConfig
 from .layers import (
@@ -433,8 +434,11 @@ class TransKun:
         self.last_transcribe_fallback_from: Optional[int] = None
         self.last_transcribe_group_counts: List[int] = []
         # with TRANSKUN_TPU_TIMING set: the last transcription's (label, host
-        # clock) marks, from the dispatch's start to the merge's end
+        # clock) marks, from the dispatch's start to the merge's end, read
+        # off its spans
         self.last_transcribe_marks: List[Tuple[str, float]] = []
+        # the key of a piece's spans, from its dispatch to its finish
+        self._piece_serial = itertools.count()
         # transcribe_many(devices=...): the module replicated on each other
         # device, keyed by device, with the weights' versions it was copied at
         self._replicas: Dict[torch.device, Tuple[Any, "TransKun"]] = {}
@@ -747,19 +751,20 @@ class TransKun:
         package's generic route: the unpadded scores and learned noise
         through ``semicrf.viterbi_backward_tables_best`` (the same kernel),
         the same outputs."""
-        n_sym = len(self.targetMIDIPitch)
-        frames = frontend.make_frame(seg_audio[None], self.hopSize, self.windowSize)
-        t = frames.shape[-2]
-        if not self.conf.useInnerProductScorer:
-            s, noise, ctx = self.module.process_frames(frames)
-            ptr, diag = semicrf.viterbi_backward_tables_best(s, noise)
+        with profiling.span("transkun.segment"):
+            n_sym = len(self.targetMIDIPitch)
+            frames = frontend.make_frame(seg_audio[None], self.hopSize, self.windowSize)
+            t = frames.shape[-2]
+            if not self.conf.useInnerProductScorer:
+                s, noise, ctx = self.module.process_frames(frames)
+                ptr, diag = semicrf.viterbi_backward_tables_best(s, noise)
+                bpres = self.module.boundary_offset_presence(ctx, t - last_frame_idx)
+                return ptr, diag, bpres[0], ctx[0]
+            t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(1, n_sym)
+            s_t, noise, diag_raw, ctx = self.module.process_frames_decode(frames, t_pad, p_pad)
+            ptr = viterbi_backward_tables_padded(s_t, noise, diag_raw * (diag_raw > 0))
             bpres = self.module.boundary_offset_presence(ctx, t - last_frame_idx)
-            return ptr, diag, bpres[0], ctx[0]
-        t_pad, p_pad = _pad_to(t, semicrf.PALLAS_KP), _track_pad(1, n_sym)
-        s_t, noise, diag_raw, ctx = self.module.process_frames_decode(frames, t_pad, p_pad)
-        ptr = viterbi_backward_tables_padded(s_t, noise, diag_raw * (diag_raw > 0))
-        bpres = self.module.boundary_offset_presence(ctx, t - last_frame_idx)
-        return ptr[: t - 1, :n_sym], (diag_raw > 0)[:t, :n_sym], bpres[0], ctx[0]
+            return ptr[: t - 1, :n_sym], (diag_raw > 0)[:t, :n_sym], bpres[0], ctx[0]
 
     def _group_tables(self, audio: torch.Tensor, starts: Sequence[int], segment_size: int,
                       last_frame_idx: int):
@@ -807,30 +812,32 @@ class TransKun:
         rows only.  ``overflow`` is any track's walk overflow, or more events
         than the budget.  The group's ctx is dropped when this returns."""
         ptr, diag, bpres, ctx = self._group_tables(audio, starts, segment_size, last_frame_idx)
-        begins, ends, cnt, ovf, start_next = walk.walk_group(
-            ptr, diag, bpres, start_pos, k_max, last_frame_idx, step_frames, onset_bound)
+        with profiling.span("transkun.walk"):
+            begins, ends, cnt, ovf, start_next = walk.walk_group(
+                ptr, diag, bpres, start_pos, k_max, last_frame_idx, step_frames, onset_bound)
         del ptr, diag, bpres
-        dev = ctx.device
-        valid = torch.arange(k_max, device=dev) < cnt[..., None]
-        if onset_bound >= 0:
-            valid &= begins < onset_bound
-        flatv = valid.reshape(-1)
-        count = flatv.sum(dtype=torch.int32)
-        # an invalid event, and every slot at or past the budget, goes to the
-        # scratch row: a torch scatter faults on a slot out of range where
-        # the JAX package's drops it
-        slot = torch.where(flatv, torch.cumsum(flatv, 0) - 1, k_budget).clamp_(max=k_budget)
-        src = torch.full((k_budget + 1,), -1, dtype=torch.int32, device=dev).index_put_(
-            (slot,), torch.arange(flatv.numel(), dtype=torch.int32, device=dev))
-        cb = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
-            (slot,), begins.reshape(-1))
-        ce = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
-            (slot,), ends.reshape(-1))
-        row = torch.clamp(src, min=0) // k_max  # flat (segment, track)
-        ctx_flat = ctx.reshape(-1, ctx.shape[2], ctx.shape[3])
-        velocity, of, pres = self._attr_from_pairs(ctx_flat[row, cb], ctx_flat[row, ce], criterion)
-        overflow = ovf.any() | (count > k_budget)
-        return src, cb, ce, velocity, of, pres, count, start_next, overflow
+        with profiling.span("transkun.heads"):
+            dev = ctx.device
+            valid = torch.arange(k_max, device=dev) < cnt[..., None]
+            if onset_bound >= 0:
+                valid &= begins < onset_bound
+            flatv = valid.reshape(-1)
+            count = flatv.sum(dtype=torch.int32)
+            # an invalid event, and every slot at or past the budget, goes to the
+            # scratch row: a torch scatter faults on a slot out of range where
+            # the JAX package's drops it
+            slot = torch.where(flatv, torch.cumsum(flatv, 0) - 1, k_budget).clamp_(max=k_budget)
+            src = torch.full((k_budget + 1,), -1, dtype=torch.int32, device=dev).index_put_(
+                (slot,), torch.arange(flatv.numel(), dtype=torch.int32, device=dev))
+            cb = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
+                (slot,), begins.reshape(-1))
+            ce = torch.zeros(k_budget + 1, dtype=torch.int32, device=dev).index_put_(
+                (slot,), ends.reshape(-1))
+            row = torch.clamp(src, min=0) // k_max  # flat (segment, track)
+            ctx_flat = ctx.reshape(-1, ctx.shape[2], ctx.shape[3])
+            velocity, of, pres = self._attr_from_pairs(ctx_flat[row, cb], ctx_flat[row, ce], criterion)
+            overflow = ovf.any() | (count > k_budget)
+            return src, cb, ce, velocity, of, pres, count, start_next, overflow
 
     @torch.no_grad()
     def transcribe(
@@ -961,74 +968,79 @@ class TransKun:
         Returns the plan ``_transcribe_finish`` takes; waits for nothing (on
         the card: the upload is from pinned memory, and no value is read).
 
-        With ``TRANSKUN_TPU_TIMING`` set, host-clock marks are taken after the
-        upload's enqueue and each group's, and ``_transcribe_finish`` adds
-        the event wait, the assembly and the merge; it keeps them in
-        ``last_transcribe_marks`` and prints each phase unless the variable
-        is ``silent``.  A mark reads the host clock only: no synchronizing
-        call."""
+        The root span ``transkun.dispatch`` (``utils.profiling``) holds
+        ``transkun.prepare`` (int16 to float32, transpose, pad),
+        ``transkun.pin``, ``transkun.upload`` (the enqueue of the copy) and
+        one ``transkun.group`` a group: its ``transkun.segment`` spans,
+        ``transkun.walk``, ``transkun.heads`` and ``transkun.to_host``.  The
+        piece's serial number keys them, and the plan carries it and the
+        root to ``_transcribe_finish``."""
         self.module.eval()
-        marks = [("begin", time.perf_counter())] if os.environ.get("TRANSKUN_TPU_TIMING") else None
-        if step_in_second is None and segment_size_in_second is None:
-            step_in_second = self.segmentHopSizeInSecond
-            segment_size_in_second = self.segmentSizeInSecond
-        if segment_batch is None:
-            segment_batch = DEFAULT_SEGMENT_BATCH
-        if segment_batch < 1:
-            raise ValueError(f"segment_batch must be at least 1, got {segment_batch}")
-        x = np.asarray(x)
-        if x.dtype == np.int16:
-            x = x.astype(np.float32) / 32768.0
-        x = x.T.astype(np.float32)  # [C, nSample]
+        key = next(self._piece_serial)
+        with profiling.root("transkun.dispatch", key) as root:
+            if step_in_second is None and segment_size_in_second is None:
+                step_in_second = self.segmentHopSizeInSecond
+                segment_size_in_second = self.segmentSizeInSecond
+            if segment_batch is None:
+                segment_batch = DEFAULT_SEGMENT_BATCH
+            if segment_batch < 1:
+                raise ValueError(f"segment_batch must be at least 1, got {segment_batch}")
+            pad_time_begin = segment_size_in_second - step_in_second
+            pad = math.ceil(pad_time_begin * self.fs)
+            start_frame_idx = math.floor(pad_time_begin * self.fs / self.hopSize)
+            step_size = math.ceil(step_in_second * self.fs / self.hopSize) * self.hopSize
+            segment_size = math.ceil(segment_size_in_second * self.fs)
+            last_frame_idx = round(segment_size / self.hopSize)
+            onset_bound = step_size if discard_second_half else None
+            step_frames = int(step_size / self.hopSize)
+            n_sym = len(self.targetMIDIPitch)
+            k_max = self.decode_k_max
+            k_budget = self.decode_k_budget
+            if k_budget is None:
+                k_budget = DECODE_EVENTS_PER_SEGMENT * segment_batch
 
-        pad_time_begin = segment_size_in_second - step_in_second
-        pad = math.ceil(pad_time_begin * self.fs)
-        n_sample = x.shape[-1] + 2 * pad
-        start_frame_idx = math.floor(pad_time_begin * self.fs / self.hopSize)
-        step_size = math.ceil(step_in_second * self.fs / self.hopSize) * self.hopSize
-        segment_size = math.ceil(segment_size_in_second * self.fs)
-        last_frame_idx = round(segment_size / self.hopSize)
-        onset_bound = step_size if discard_second_half else None
-        starts = list(range(0, n_sample, step_size))
-        step_frames = int(step_size / self.hopSize)
-        n_sym = len(self.targetMIDIPitch)
-        groups = [starts[g0 : g0 + segment_batch] for g0 in range(0, len(starts), segment_batch)]
-        k_max = self.decode_k_max
-        k_budget = self.decode_k_budget
-        if k_budget is None:
-            k_budget = DECODE_EVENTS_PER_SEGMENT * segment_batch
+            # the padded waveform goes to the device once, from pinned memory;
+            # the extra segment of zeros keeps every window in bounds
+            with profiling.span("transkun.prepare"):
+                x = np.asarray(x)
+                if x.dtype == np.int16:
+                    x = x.astype(np.float32) / 32768.0
+                x = x.T.astype(np.float32)  # [C, nSample]
+                host = torch.from_numpy(np.pad(x, ((0, 0), (pad, pad + segment_size))))
+                start = torch.full((n_sym,), start_frame_idx, dtype=torch.int32)
+            n_sample = x.shape[-1] + 2 * pad
+            starts = list(range(0, n_sample, step_size))
+            groups = [starts[g0 : g0 + segment_batch] for g0 in range(0, len(starts), segment_batch)]
+            on_card = self.device.type == "cuda"
+            if on_card:
+                with profiling.span("transkun.pin"):
+                    host, start = host.pin_memory(), start.pin_memory()
+            with profiling.span("transkun.upload"):
+                audio = host.to(self.device, non_blocking=True)
+                start_dev = start.to(self.device, non_blocking=True)
 
-        # the padded waveform goes to the device once, from pinned memory; the
-        # extra segment of zeros keeps every window in bounds
-        host = torch.from_numpy(np.pad(x, ((0, 0), (pad, pad + segment_size))))
-        start = torch.full((n_sym,), start_frame_idx, dtype=torch.int32)
-        on_card = self.device.type == "cuda"
-        if on_card:
-            host, start = host.pin_memory(), start.pin_memory()
-        audio = host.to(self.device, non_blocking=True)
-        start_dev = start.to(self.device, non_blocking=True)
-        if marks is not None:
-            marks.append(("upload enqueued", time.perf_counter()))
-
-        outs = []
-        for g, group in enumerate(groups):
-            out = self._fused_group(
-                audio, group, start_dev, velocity_criterion,
-                -1 if onset_bound is None else onset_bound,
-                segment_size, last_frame_idx, step_frames, k_max, k_budget)
-            start_dev = out[7]
-            outs.append(tuple(_to_host(a) for a in out))
-            if marks is not None:
-                marks.append((f"group {g} enqueued", time.perf_counter()))
-        done = None
-        if on_card:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            outs = []
+            for group in groups:
+                with profiling.span("transkun.group"):
+                    out = self._fused_group(
+                        audio, group, start_dev, velocity_criterion,
+                        -1 if onset_bound is None else onset_bound,
+                        segment_size, last_frame_idx, step_frames, k_max, k_budget)
+                    start_dev = out[7]
+                    with profiling.span("transkun.to_host"):
+                        outs.append(tuple(_to_host(a) for a in out))
+            done = None
+            if on_card:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            profiling.count("pieces")
+            profiling.count("segments", len(starts))
+            profiling.count("groups", len(groups))
         return dict(
             audio=audio, host=host, outs=outs, done=done, groups=groups, start=start.tolist(),
             segment_batch=segment_batch, n_sym=n_sym, k_max=k_max, segment_size=segment_size,
             last_frame_idx=last_frame_idx, step_frames=step_frames, pad_time_begin=pad_time_begin,
-            velocity_criterion=velocity_criterion, onset_bound=onset_bound, marks=marks,
+            velocity_criterion=velocity_criterion, onset_bound=onset_bound, key=key, dispatch=root,
         )
 
     @torch.no_grad()
@@ -1037,67 +1049,79 @@ class TransKun:
         enqueued after it), scatter every group's compact events into
         [segments, P, k_max] arrays, assemble them at once, resume on the
         host-walk route from the first group that overflowed, with the forced
-        starts the device chain carried to it, and merge."""
-        marks = plan["marks"]
+        starts the device chain carried to it, and merge.
 
-        def mark(label):
-            if marks is not None:
-                marks.append((label, time.perf_counter()))
-
-        if plan["done"] is not None:
-            plan["done"].synchronize()
-        mark("event waited for")
-        outs = [[a.numpy() for a in out] for out in plan["outs"]]
-        groups, segment_batch = plan["groups"], plan["segment_batch"]
-        n_sym, k_max = plan["n_sym"], plan["k_max"]
-        counts = [int(out[6]) for out in outs]
-        fallback_from = next((g for g, out in enumerate(outs) if bool(out[8])), None)
-        self.last_transcribe_fallback_from = fallback_from
-        self.last_transcribe_group_counts = counts
-        n_ok = len(groups) if fallback_from is None else fallback_from
-
-        seg_notes: List[List[Note]] = []
-        if n_ok:
-            def cat(i):
-                return np.concatenate([outs[g][i][: counts[g]] for g in range(n_ok)])
-
-            src = np.concatenate([
-                outs[g][0][: counts[g]].astype(np.int64) + g * segment_batch * n_sym * k_max
-                for g in range(n_ok)
-            ])
-            gi, gj, gk = src // (n_sym * k_max), (src // k_max) % n_sym, src % k_max
-            n_seg = sum(len(g) for g in groups[:n_ok])
-            begins = np.zeros((n_seg, n_sym, k_max), np.int32)
-            ends = np.zeros((n_seg, n_sym, k_max), np.int32)
-            mask = np.zeros((n_seg, n_sym, k_max), bool)
-            velocity = cat(3)
-            vel_d = np.zeros((n_seg, n_sym, k_max), velocity.dtype)
-            of_d = np.zeros((n_seg, n_sym, k_max, 2), np.float64)
-            pres_d = np.zeros((n_seg, n_sym, k_max, 2), bool)
-            begins[gi, gj, gk] = cat(1)
-            ends[gi, gj, gk] = cat(2)
-            mask[gi, gj, gk] = True
-            vel_d[gi, gj, gk] = velocity
-            of_d[gi, gj, gk] = cat(4)
-            pres_d[gi, gj, gk] = cat(5)
-            begin_times = np.array(
-                [s / self.fs - plan["pad_time_begin"] for g in groups[:n_ok] for s in g], np.float64)
-            notes, _ = self._assemble_from_arrays(
-                begins, ends, mask, vel_d, of_d, pres_d, plan["last_frame_idx"], begin_times)
-            seg_notes.extend(notes)
-        mark("assembled")
-        if fallback_from is not None:
-            start_pos = plan["start"] if fallback_from == 0 else outs[fallback_from - 1][7].tolist()
-            seg_notes.extend(self._transcribe_host_walk(plan, fallback_from, start_pos))
-            mark(f"host-walk route from group {fallback_from}")
-        merged = _merge_segments(seg_notes, merge_incomplete_event)
-        mark("merged")
-        if marks is not None:
-            self.last_transcribe_marks = list(marks)
-            if os.environ.get("TRANSKUN_TPU_TIMING") != "silent":
+        The root span ``transkun.finish`` holds ``transkun.wait``,
+        ``transkun.assemble``, ``transkun.host_walk`` (where the route
+        resumes) and ``transkun.merge``.  With ``TRANSKUN_TPU_TIMING`` set,
+        ``last_transcribe_marks`` is read off the piece's spans (``begin``
+        the dispatch's start; ``upload enqueued``, ``group g enqueued``,
+        ``event waited for``, ``assembled``, ``host-walk route from group
+        g`` and ``merged`` the ends of theirs), and each phase is printed
+        unless the variable is ``silent``."""
+        with profiling.root("transkun.finish", plan["key"]) as root:
+            with profiling.span("transkun.wait"):
+                if plan["done"] is not None:
+                    plan["done"].synchronize()
+            with profiling.span("transkun.assemble"):
+                outs = [[a.numpy() for a in out] for out in plan["outs"]]
+                counts = [int(out[6]) for out in outs]
+                fallback_from = next((g for g, out in enumerate(outs) if bool(out[8])), None)
+                self.last_transcribe_fallback_from = fallback_from
+                self.last_transcribe_group_counts = counts
+                n_ok = len(plan["groups"]) if fallback_from is None else fallback_from
+                seg_notes: List[List[Note]] = []
+                if n_ok:
+                    seg_notes.extend(self._assemble_groups(plan, outs, counts, n_ok))
+            if fallback_from is not None:
+                profiling.count("host_walk_resumes")
+                with profiling.span("transkun.host_walk"):
+                    start_pos = plan["start"] if fallback_from == 0 else outs[fallback_from - 1][7].tolist()
+                    seg_notes.extend(self._transcribe_host_walk(plan, fallback_from, start_pos))
+            with profiling.span("transkun.merge"):
+                merged = _merge_segments(seg_notes, merge_incomplete_event)
+        if os.environ.get(profiling.ENV) and root.records and plan["dispatch"].records:
+            marks = _marks(plan["dispatch"], root.records, fallback_from)
+            self.last_transcribe_marks = marks
+            if os.environ.get(profiling.ENV) != "silent":
                 for (_, before), (label, at) in zip(marks, marks[1:]):
                     print(f"  [transcribe] {label}: +{(at - before) * 1e3:.1f} ms")
         return merged
+
+    def _assemble_groups(self, plan: Dict[str, Any], outs, counts: List[int], n_ok: int) -> List[List[Note]]:
+        """The notes of the first ``n_ok`` groups of the default route, each
+        segment's in piece time: their compact events scattered into
+        [segments, P, k_max] arrays and assembled at once."""
+        groups, segment_batch = plan["groups"], plan["segment_batch"]
+        n_sym, k_max = plan["n_sym"], plan["k_max"]
+
+        def cat(i):
+            return np.concatenate([outs[g][i][: counts[g]] for g in range(n_ok)])
+
+        src = np.concatenate([
+            outs[g][0][: counts[g]].astype(np.int64) + g * segment_batch * n_sym * k_max
+            for g in range(n_ok)
+        ])
+        gi, gj, gk = src // (n_sym * k_max), (src // k_max) % n_sym, src % k_max
+        n_seg = sum(len(g) for g in groups[:n_ok])
+        begins = np.zeros((n_seg, n_sym, k_max), np.int32)
+        ends = np.zeros((n_seg, n_sym, k_max), np.int32)
+        mask = np.zeros((n_seg, n_sym, k_max), bool)
+        velocity = cat(3)
+        vel_d = np.zeros((n_seg, n_sym, k_max), velocity.dtype)
+        of_d = np.zeros((n_seg, n_sym, k_max, 2), np.float64)
+        pres_d = np.zeros((n_seg, n_sym, k_max, 2), bool)
+        begins[gi, gj, gk] = cat(1)
+        ends[gi, gj, gk] = cat(2)
+        mask[gi, gj, gk] = True
+        vel_d[gi, gj, gk] = velocity
+        of_d[gi, gj, gk] = cat(4)
+        pres_d[gi, gj, gk] = cat(5)
+        begin_times = np.array(
+            [s / self.fs - plan["pad_time_begin"] for g in groups[:n_ok] for s in g], np.float64)
+        notes, _ = self._assemble_from_arrays(
+            begins, ends, mask, vel_d, of_d, pres_d, plan["last_frame_idx"], begin_times)
+        return notes
 
     def _transcribe_host_walk(self, plan: Dict[str, Any], g0: int, start_pos: List[int]) -> List[List[Note]]:
         """The host-walk route from group ``g0`` on, from ``start_pos``: each
@@ -1143,6 +1167,19 @@ class TransKun:
         del ptr, diag, bpres
         notes, _ = self._attr_and_assemble(ctx, paths, velocity_criterion, last_frame_idx, begin_times)
         return notes, next_start
+
+
+def _marks(dispatch: profiling.Open, finish: List[profiling.Span],
+           fallback_from: Optional[int]) -> List[Tuple[str, float]]:
+    """A piece's ``TRANSKUN_TPU_TIMING`` marks, (label, host clock), read
+    off its dispatch root and its finish root's records."""
+    ends = [s.t1 for s in dispatch.records if s.name == "transkun.group"]
+    marks = [("begin", dispatch.t0)]
+    marks += [("upload enqueued", s.t1) for s in dispatch.records if s.name == "transkun.upload"]
+    marks += [(f"group {g} enqueued", t) for g, t in enumerate(ends)]
+    labels = {"transkun.wait": "event waited for", "transkun.assemble": "assembled",
+              "transkun.host_walk": f"host-walk route from group {fallback_from}", "transkun.merge": "merged"}
+    return marks + [(labels[s.name], s.t1) for s in finish if s.name in labels]
 
 
 def _to_host(a: torch.Tensor) -> torch.Tensor:

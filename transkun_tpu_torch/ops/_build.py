@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 on first use and loaded with ``ctypes``; a changed source or flag set gives a
 new hash and so a rebuild (the hash covers the ``csrc/*.cuh`` headers too).
 No ``--use_fast_math``: the log-space kernels rely on the subnormal constant
-1e-38, which flush-to-zero would turn into ``log(0)``.
+1e-38, which flush-to-zero would turn into ``log(0)``.  Every compile of
+the process is listed in ``BUILDS``, whatever ``TRANSKUN_TPU_TIMING`` says,
+and inside a recording root it is also a ``transkun.build`` span keyed by
+the kernel's name.
 """
 
 from __future__ import annotations
@@ -19,11 +22,15 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+from ..utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# (kernel name, time.perf_counter at the compile's start, seconds) of every compile
+BUILDS: List[Tuple[str, float, float]] = []
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -70,8 +77,10 @@ def build(name: str) -> Tuple[str, float, str]:
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with profiling.span("transkun.build", key=name):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    BUILDS.append((name, t0, seconds))
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed for {name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"

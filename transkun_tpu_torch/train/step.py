@@ -20,6 +20,13 @@ state and the module's saved buffers (the V1 model's BatchNorm running
 statistics, which its train-mode forward updates) stay as they were; the
 step counter still advances.  The metrics stay
 on the device until the caller fetches them, so a step needs no host sync.
+
+Spans (``utils.profiling``): the root ``transkun.step``, keyed by the step,
+holds ``transkun.forward``, ``transkun.backward``, ``transkun.allreduce``
+(with a group), ``transkun.clip`` and ``transkun.optimizer`` (the update,
+the clip ring's push and the buffers' guard); a step adds one to the
+``steps`` counter.  None opens inside the module, whose recompute would
+replay it in the backward pass.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..parallel.dist import all_reduce_sum
+from ..utils import profiling
 from .optim import AdaBelief, QuantileClip
 
 
@@ -75,31 +83,38 @@ def make_train_step(model, clip_quantile: float = 0.8, loss_scale: float = 1.0 /
 
     def step_fn(state: TrainState, frames: torch.Tensor, labels: Tuple[torch.Tensor, ...],
                 generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        params = [p for _, p in state.optimizer.named]
-        for p in params:
-            p.grad = None
-        buffers = saved_buffers(state.model.module)
-        before = [b.clone() for b in buffers]
-        logp = loss_fn(frames, labels, generator)
-        loss = -logp.sum(-1).mean()
-        (loss * loss_scale).backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        loss = loss.detach()
-        if group is not None:
-            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]), group)
-            *parts, loss = flat.split([g.numel() for g in grads] + [1])
-            grads = [f.view_as(g) for f, g in zip(parts, grads)]
-            loss = loss[0] / world
-        clipped, norm, clip_value = state.clip(grads, clip_quantile)
-        finite = torch.isfinite(loss) & torch.isfinite(norm)
-        state.optimizer.step(clipped, finite)
-        state.clip.push(norm, finite)
-        with torch.no_grad():
-            for b, old in zip(buffers, before):
-                b.copy_(torch.where(finite, b, old))
-        for p in params:
-            p.grad = None
-        state.step += 1
+        with profiling.root("transkun.step", state.step):
+            params = [p for _, p in state.optimizer.named]
+            for p in params:
+                p.grad = None
+            buffers = saved_buffers(state.model.module)
+            before = [b.clone() for b in buffers]
+            with profiling.span("transkun.forward"):
+                logp = loss_fn(frames, labels, generator)
+                loss = -logp.sum(-1).mean()
+            with profiling.span("transkun.backward"):
+                (loss * loss_scale).backward()
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            loss = loss.detach()
+            if group is not None:
+                with profiling.span("transkun.allreduce"):
+                    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]), group)
+                    *parts, loss = flat.split([g.numel() for g in grads] + [1])
+                    grads = [f.view_as(g) for f, g in zip(parts, grads)]
+                    loss = loss[0] / world
+            with profiling.span("transkun.clip"):
+                clipped, norm, clip_value = state.clip(grads, clip_quantile)
+                finite = torch.isfinite(loss) & torch.isfinite(norm)
+            with profiling.span("transkun.optimizer"):
+                state.optimizer.step(clipped, finite)
+                state.clip.push(norm, finite)
+                with torch.no_grad():
+                    for b, old in zip(buffers, before):
+                        b.copy_(torch.where(finite, b, old))
+            for p in params:
+                p.grad = None
+            profiling.count("steps")
+            state.step += 1
         return {"loss": loss, "grad_norm": norm, "clip_value": clip_value, "finite": finite}
 
     return step_fn
