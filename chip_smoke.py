@@ -1824,13 +1824,14 @@ def dist_rank(in_path, out_path):
     ref = TransKun(conf, device=dev, seed=seed) if rank == 0 else None
 
     class Recording:
-        """The clip, recording the gradients it is handed: the summed ones."""
+        """The clip, recording the gradients it is handed (the summed ones,
+        the all-reduce's flat buffer) as the parameters' views of a copy."""
 
-        def __init__(self, clip):
-            self.clip, self.grads = clip, None
+        def __init__(self, clip, optimizer):
+            self.clip, self.optimizer, self.grads = clip, optimizer, None
 
         def __call__(self, grads, q):
-            self.grads = [g.clone() for g in grads]
+            self.grads = self.optimizer.views(grads.clone())
             return self.clip(grads, q)
 
         def push(self, norm, finite):
@@ -1838,7 +1839,7 @@ def dist_rank(in_path, out_path):
 
     state = TrainState(model, AdaBelief(model.module.named_parameters()))
     state.optimizer.count.fill_(DIST_OPT_COUNT)
-    state.clip = Recording(state.clip)
+    state.clip = Recording(state.clip, state.optimizer)
     step_fn = make_train_step(model, group=group)
 
     def flat_params(module):

@@ -11,7 +11,8 @@ host milliseconds a step), and in a last run under ``torch.profiler`` sums
 the device time of every CUDA kernel and counts the launches.  Prints one
 JSON object: step wall time, peak memory, the spans' host time a step, the
 alpha and beta kernels' share of the device time, the top kernels and the
-launches.  The device's busy and idle share over a steady stretch of the
+launches, also a step's launches by the program's span (the runtime's
+launch and copy calls made inside each).  The device's busy and idle share over a steady stretch of the
 training loop, with its idle gaps named, is the benchmark's
 (``bench_port/run.py --workload v2-train-b4-fp32 --trace 1``).
 
@@ -109,6 +110,16 @@ def main(argv=None):
         and not e.key.startswith("transkun.")
     ]
     kernels.sort(key=lambda k: -k[1])
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                    "cudaMemcpyAsync", "cudaMemsetAsync")
+
+    def launches(e):
+        return sum((c.name in launch_calls) + launches(c) for c in e.cpu_children)
+
+    launches_by_span = {}
+    for e in prof.events():
+        if e.name.startswith("transkun.") and e.device_type == torch.autograd.DeviceType.CPU:
+            launches_by_span[e.name] = launches_by_span.get(e.name, 0) + launches(e)
     device_ms = sum(k[1] for k in kernels)
 
     def ms_of(pred):
@@ -137,6 +148,7 @@ def main(argv=None):
         "fused_mlp_ms": ms_of(lambda n: "fused_mlp_kernel" in n),
         "gemm_ms": gemm_ms,
         "kernel_launches_profiled_step": sum(n for _, _, n in kernels),
+        "launches_by_span_profiled_step": launches_by_span,
         "top_kernels_ms": [[k[:90], round(ms, 3), n] for k, ms, n in kernels[:15]],
     }, indent=1))
 

@@ -70,15 +70,16 @@ def run_pair(task, in_path, out_paths, timeout=240):
 
 class RecordingClip:
     """A step's clip that keeps the gradients it is handed (the summed
-    ones) and those it hands on (the clipped ones)."""
+    ones, the all-reduce's flat buffer) and those it hands on (the clipped
+    ones), each as the parameters' views of a copy."""
 
-    def __init__(self, clip):
-        self.clip, self.grads, self.clipped = clip, None, None
+    def __init__(self, clip, optimizer):
+        self.clip, self.optimizer, self.grads, self.clipped = clip, optimizer, None, None
 
     def __call__(self, grads, q):
-        self.grads = [g.clone() for g in grads]
+        self.grads = self.optimizer.views(grads.clone())
         out = self.clip(grads, q)
-        self.clipped = [g.clone() for g in out[0]]
+        self.clipped = self.optimizer.views(out[0].clone())
         return out
 
     def push(self, norm, finite):
@@ -104,7 +105,7 @@ def _v2(rank, inputs):
     model = TransKun(ModelConfig.from_dict(V2_CONF), device="cpu")
     model.load_state_dict(inputs["state_dict"])
     state = TrainState(model, AdaBelief(model.module.named_parameters(), **OPTIMIZER))
-    state.clip = RecordingClip(state.clip)
+    state.clip = RecordingClip(state.clip, state.optimizer)
     step_fn = make_train_step(model, group=group)
 
     def k_sync(densest):
@@ -173,7 +174,7 @@ def _v1(rank, inputs):
     model = TransKunAblation(AblationConfig.from_dict(V1_CONF), device="cpu", seed=0)
     state = TrainState(model, AdaBelief(model.module.named_parameters(), **OPTIMIZER))
     state.optimizer.count.fill_(OPT_COUNT)
-    state.clip = RecordingClip(state.clip)
+    state.clip = RecordingClip(state.clip, state.optimizer)
     step_fn = make_train_step(model, group=torch.distributed.group.WORLD)
     audio, notes = batch(0)
     rows = slice(2 * rank, 2 * rank + 2)

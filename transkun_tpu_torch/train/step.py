@@ -10,8 +10,9 @@ all-reduced by SUM, not averaged (the JAX package's ``psum``,
 ``step.py:175-177``; ref ``TrainUtil.py:48``), so with N ranks the gradient
 is N times that of the concatenated batch's mean, before the clip.  No
 ``DistributedDataParallel``: one all-reduce of every gradient and the loss
-in one flat buffer.  The clip, the guard and AdaBelief then run on the same
-bits on every rank, so the parameters stay equal bit for bit.  The metric
+in one flat buffer, whose gradients go on to the clip as they lie.  The
+clip, the guard and AdaBelief then run on the same bits on every rank, so
+the parameters stay equal bit for bit.  The metric
 ``loss`` is the sum over the world size (JAX ``step.py:137``).
 
 Non-finite guard, on the device: when the loss or the global gradient norm
@@ -37,7 +38,7 @@ import torch
 
 from ..parallel.dist import all_reduce_sum
 from ..utils import profiling
-from .optim import AdaBelief, QuantileClip
+from .optim import AdaBelief, QuantileClip, flatten
 
 
 class TrainState:
@@ -98,10 +99,8 @@ def make_train_step(model, clip_quantile: float = 0.8, loss_scale: float = 1.0 /
             loss = loss.detach()
             if group is not None:
                 with profiling.span("transkun.allreduce"):
-                    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]), group)
-                    *parts, loss = flat.split([g.numel() for g in grads] + [1])
-                    grads = [f.view_as(g) for f, g in zip(parts, grads)]
-                    loss = loss[0] / world
+                    flat = all_reduce_sum(flatten(grads + [loss]), group)
+                    grads, loss = flat[:-1], flat[-1] / world
             with profiling.span("transkun.clip"):
                 clipped, norm, clip_value = state.clip(grads, clip_quantile)
                 finite = torch.isfinite(loss) & torch.isfinite(norm)
